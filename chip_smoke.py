@@ -5,24 +5,36 @@
 
 Phases (any failure exits non-zero):
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
-  2. build: the CUDA wave kernels (csrc/wave_trace.cu, nvcc) and the host
-     BVH library (g++), both compiles started together;
+  2. build: the CUDA wave kernels (csrc/wave_trace.cu, nvcc: the resident
+     and the paged walk) and the host BVH library (g++), both compiles
+     started together;
   3. scene: a deterministic lambert + mirror scene written with the
      port's IO (24 UV spheres of 64x32 segments, ~95k triangles, a
      lambert floor, one emissive quad, a procedural 512x256 sky), loaded
      with load_scene and flattened on the card;
-  4. kernels: both kernel modes on the main path's shapes (the 1,048,576
-     camera rays of the 16-spp wave, one bounce's continuation rays, and
-     NEE-style shadow segments) against the plain walk on the same
-     inputs, with the gates of tests/test_torch_wave.py, timed with CUDA
-     events (median of 5 after a warm-up);
+  4. kernels: both resident kernel modes on the main path's shapes (the
+     1,048,576 camera rays of the 16-spp wave, one bounce's continuation
+     rays, and NEE-style shadow segments) against the plain walk on the
+     same inputs, with the gates of tests/test_torch_wave.py, timed with
+     CUDA events (median of 5 after a warm-up);
   5. render: the main path, load_scene -> flatten_scene -> render at
      256x256, 16 spp, max_bounces 64, with the kernels' launch counts set
      to zero just before and read just after; then a second, warm render,
      and a third under torch.profiler (device busy share, top kernels);
   6. cross-path: a 64x64 4-spp image from the kernel path against the
      port's plain path on the CPU;
-  7. the kernels JSON line, then the result line.
+  7. large scene: the same layout at production size (24 spheres of
+     160x80 segments, 606,724 triangles, over 13 MiB of cluster tables,
+     so it takes the paged walk) with the surface BSDF zoo (every ported
+     type, glass spheres, a mixed and a coated BSDF with children, a
+     null-BSDF light): (a) its size and walk; (b) both paged kernel modes
+     on its camera, continuation and shadow rays against the plain walk
+     and against the resident kernels on the same rays, all timed;
+     (c) its full-width render (256x256, 16 spp, max_bounces 64) from
+     zero launch counts, only the paged kernels launching, and one more
+     under torch.profiler; (d) a 64x64 4-spp image of it against the
+     plain path on the CPU;
+  8. the kernels JSON line, then the result line.
 """
 from __future__ import annotations
 
@@ -40,6 +52,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0xBA5EBA11
 RES, SPP, MAX_BOUNCES = 256, 16, 64
 GRID_X, GRID_Z, SEG_U, SEG_V = 6, 4, 64, 32
+ZOO_SEG = (160, 80)   # 25,280 triangles a sphere, 606,720 for the 24
+ZOO_CROSS_BOUNCES = 16
 SKY_W, SKY_H = 512, 256
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside the
 # tensor cores
@@ -86,7 +100,7 @@ def write_scene(dirpath: str, res: int = RES, spp: int = SPP,
                 sky=(SKY_W, SKY_H)) -> str:
     """Write the smoke scene (meshes, sky, scene.json); returns its path."""
     import numpy as np
-    from tungsten_tpu_torch.io import image, mesh
+    from tungsten_tpu_torch.io import mesh
     pos, nrm, uv, idx = uv_sphere(*seg)
     m = mesh.Mesh(pos=pos, normal=nrm, uv=uv, indices=idx,
                   material=np.zeros(len(idx), np.int32))
@@ -115,7 +129,18 @@ def write_scene(dirpath: str, res: int = RES, spp: int = SPP,
                           "transform": {"position": [i - (gx - 1) / 2, 0.45,
                                                      j - (gz - 1) / 2],
                                         "scale": 0.45}})
-    # procedural sky: horizon-to-zenith gradient plus a warm sun blob
+    prims.append(write_sky(dirpath, sky))
+    path = os.path.join(dirpath, "scene.json")
+    with open(path, "w") as f:
+        json.dump(scene_json(bsdfs, prims, res, spp), f, indent=1)
+    return path
+
+
+def write_sky(dirpath: str, sky) -> dict:
+    """Write the procedural sky (horizon-to-zenith gradient plus a warm
+    sun blob) as sky.pfm; returns its infinite_sphere primitive."""
+    import numpy as np
+    from tungsten_tpu_torch.io import image
     w, h = sky
     y = (np.arange(h)[:, None] + 0.5) / h
     x = (np.arange(w)[None, :] + 0.5) / w
@@ -126,19 +151,103 @@ def write_scene(dirpath: str, res: int = RES, spp: int = SPP,
     base = base + sun[..., None] * np.asarray([40.0, 36.0, 30.0])
     base[y[:, 0] > 0.5] *= 0.2     # darker below the horizon
     image.save_hdr(os.path.join(dirpath, "sky.pfm"), base.astype(np.float32))
-    prims.append({"type": "infinite_sphere", "emission": "sky.pfm",
-                  "transform": {"rotation": [0, 20, 0]}})
-    scene = {"bsdfs": bsdfs, "primitives": prims,
-             "camera": {"type": "pinhole", "resolution": [res, res],
-                        "fov": 50,
-                        "transform": {"position": [0, 3.2, 5.5],
-                                      "look_at": [0, 0.3, 0]}},
-             "integrator": {"type": "path_tracer",
-                            "max_bounces": MAX_BOUNCES},
-             "renderer": {"spp": spp}}
-    path = os.path.join(dirpath, "scene.json")
+    return {"type": "infinite_sphere", "emission": "sky.pfm",
+            "transform": {"rotation": [0, 20, 0]}}
+
+
+def scene_json(bsdfs, prims, res: int, spp: int) -> dict:
+    """The scene file around `bsdfs` and `prims`: the pinhole camera and
+    the path tracer both scenes share."""
+    return {"bsdfs": bsdfs, "primitives": prims,
+            "camera": {"type": "pinhole", "resolution": [res, res],
+                       "fov": 50,
+                       "transform": {"position": [0, 3.2, 5.5],
+                                     "look_at": [0, 0.3, 0]}},
+            "integrator": {"type": "path_tracer", "max_bounces": MAX_BOUNCES},
+            "renderer": {"spp": spp}}
+
+
+# the 24 spheres of the large scene: every surface BSDF the port shades
+# (the light quad carries `null`; the floor is lambert), glass in
+# several kinds, nested BSDFs with children of their own
+ZOO_SPHERES = [
+    {"type": "dielectric", "ior": 1.5},
+    {"type": "rough_dielectric", "ior": 1.5, "roughness": 0.15},
+    {"type": "conductor", "material": "Au"},
+    {"type": "rough_conductor", "material": "Cu", "roughness": 0.25,
+     "distribution": "beckmann"},
+    {"type": "plastic", "albedo": [0.7, 0.15, 0.1], "ior": 1.5},
+    {"type": "rough_plastic", "albedo": [0.1, 0.4, 0.7], "roughness": 0.2},
+    {"type": "oren_nayar", "albedo": [0.8, 0.7, 0.5], "roughness": 0.6},
+    {"type": "phong", "albedo": 0.8, "exponent": 40.0,
+     "diffuse_ratio": 0.3},
+    {"type": "diffuse_transmission", "albedo": [0.9, 0.8, 0.6],
+     "transmittance": 0.5},
+    {"type": "smooth_coat", "ior": 1.5, "sigma_a": [0.2, 0.4, 0.8],
+     "thickness": 0.5, "substrate": "coat_metal"},
+    {"type": "rough_coat", "ior": 1.4, "roughness": 0.1,
+     "substrate": "coat_base"},
+    {"type": "mixed", "ratio": 0.4, "bsdf0": "mix_diffuse",
+     "bsdf1": "mix_mirror"},
+    {"type": "mirror", "albedo": 0.95},
+    {"type": "lambert", "albedo": [0.3, 0.7, 0.3]},
+    {"type": "dielectric", "ior": 1.33},
+    {"type": "rough_dielectric", "ior": 1.7, "roughness": 0.3,
+     "distribution": "beckmann"},
+    {"type": "conductor", "material": "Ag"},
+    {"type": "rough_conductor", "material": "Al", "roughness": 0.1},
+    {"type": "plastic", "albedo": 0.8, "ior": 1.6, "sigma_a": 0.5,
+     "thickness": 0.3},
+    {"type": "rough_plastic", "albedo": [0.8, 0.8, 0.2], "roughness": 0.35,
+     "distribution": "phong"},
+    {"type": "oren_nayar", "albedo": 0.6, "roughness": 0.9},
+    {"type": "mixed", "ratio": 0.7, "bsdf0": "coat_metal",
+     "bsdf1": "mix_diffuse"},
+    {"type": "smooth_coat", "ior": 1.3, "substrate": "coat_base"},
+    {"type": "lambert", "albedo": [0.7, 0.5, 0.3]},
+]
+ZOO_CHILDREN = [
+    {"name": "coat_metal", "type": "rough_conductor", "material": "Cr",
+     "roughness": 0.3},
+    {"name": "coat_base", "type": "lambert", "albedo": [0.6, 0.1, 0.1]},
+    {"name": "mix_diffuse", "type": "lambert", "albedo": [0.2, 0.3, 0.8]},
+    {"name": "mix_mirror", "type": "mirror", "albedo": 0.9},
+]
+
+
+def write_zoo_scene(dirpath: str, res: int = RES, spp: int = SPP,
+                    seg=ZOO_SEG, sky=(SKY_W, SKY_H)) -> str:
+    """Write the large scene: the smoke scene's layout with 24 spheres of
+    `seg` segments (one shared mesh file) in ZOO_SPHERES' materials, a
+    lambert floor, an emissive quad with a null BSDF and the sky."""
+    import numpy as np
+    from tungsten_tpu_torch.io import mesh
+    pos, nrm, uv, idx = uv_sphere(*seg)
+    mesh.save_wo3(os.path.join(dirpath, "sphere.wo3"), mesh.Mesh(
+        pos=pos, normal=nrm, uv=uv, indices=idx,
+        material=np.zeros(len(idx), np.int32)))
+    bsdfs = [{"name": "floor", "type": "lambert",
+              "albedo": [0.55, 0.5, 0.45]},
+             {"name": "light", "type": "null"}] + \
+        [dict(b) for b in ZOO_CHILDREN]
+    prims = [{"type": "quad", "bsdf": "floor",
+              "transform": {"position": [0, 0, 0], "scale": [20, 1, 20]}},
+             {"type": "quad", "bsdf": "light", "emission": [12.0, 11.0, 10.0],
+              "transform": {"position": [0.5, 4.0, 0.5], "scale": [2, 1, 2],
+                            "rotation": [0, 0, 180]}}]
+    gx, gz = GRID_X, GRID_Z
+    for k, b in enumerate(ZOO_SPHERES):
+        i, j = k // gz, k % gz
+        bsdfs.append(dict(b, name=f"zoo_{k}"))
+        prims.append({"type": "mesh", "file": "sphere.wo3",
+                      "bsdf": f"zoo_{k}", "smooth": True,
+                      "transform": {"position": [i - (gx - 1) / 2, 0.45,
+                                                 j - (gz - 1) / 2],
+                                    "scale": 0.45}})
+    prims.append(write_sky(dirpath, sky))
+    path = os.path.join(dirpath, "zoo.json")
     with open(path, "w") as f:
-        json.dump(scene, f, indent=1)
+        json.dump(scene_json(bsdfs, prims, res, spp), f, indent=1)
     return path
 
 
@@ -164,9 +273,11 @@ def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
 # ------------------------------------------------------------ kernel checks
 
 def kernel_inputs(scene, o, d, t_max):
-    """What the dispatch hands the kernel: far limits clipped at the
+    """What the dispatch hands a kernel: far limits clipped at the
     geometry box (as bvh_intersect clips them), rays sorted and padded by
-    the dispatch, ray features and the per-warp super lists."""
+    the dispatch, ray features and the resident walk's per-warp super
+    lists; for a paged scene also the paged walk's (page, entry) lists,
+    page list and slot ranges."""
     import torch
     from tungsten_tpu_torch.ops import intersect as tis
     from tungsten_tpu_torch.ops import wave_trace as twt
@@ -174,16 +285,41 @@ def kernel_inputs(scene, o, d, t_max):
     tmax = tis.geo_clip(scene, o, d, t_max)
     o, d, tmin, tmax, _ = tis.dispatch_rays(scene, o, d, tmin, tmax)
     f, sent, sids, _ = twt.kernel_inputs(scene, o, d, tmin, tmax)
-    return dict(o=o, d=d, tmin=tmin, tmax=tmax, f=f, sent=sent, sids=sids)
+    k = dict(o=o, d=d, tmin=tmin, tmax=tmax, f=f, sent=sent, sids=sids,
+             paged=twt.traversal_kind(scene) == "paged")
+    if k["paged"]:
+        _, k["psent"], k["psids"], k["pages"], k["offs"], k["offe"], _ = \
+            twt.paged_kernel_inputs(scene, o, d, tmin, tmax)
+    return k
+
+
+def launch(scene, k, any_hit: bool, resident: bool = False):
+    """One raw launch of the scene's kernel (the resident one when asked):
+    (t, tri cluster*128+slot, tests)."""
+    from tungsten_tpu_torch.ops import wave_trace as twt
+    if k["paged"] and not resident:
+        return twt.paged_kernel(k["f"], k["psent"], k["psids"], k["pages"],
+                                k["offs"], k["offe"], scene.wk_cbox,
+                                scene.wk_attr, any_hit)
+    return twt.wave_kernel(k["f"], k["sent"], k["sids"], scene.wk_cbox,
+                           scene.wk_attr, any_hit)
+
+
+def wrapper(scene, k, any_hit: bool):
+    """The scene's wrapper (front, kernel, remap, finalize)."""
+    from tungsten_tpu_torch.ops import wave_trace as twt
+    fn = twt.wave_intersect_paged if k["paged"] else twt.wave_intersect
+    return fn(scene, k["o"], k["d"], k["tmin"], k["tmax"], any_hit=any_hit)
 
 
 def bound_ms(scene, k, tests: int) -> tuple[float, str]:
     """Least time for the launch: its input and output bytes over the HBM
     rate vs the ray-triangle tests this data needs over the f32 rate."""
     from tungsten_tpu_torch.ops import wave_trace as twt
-    nbytes = sum(x.numel() * x.element_size()
-                 for x in (k["f"], k["sent"], k["sids"], scene.wk_cbox,
-                           scene.wk_attr))
+    ins = [k["f"], scene.wk_cbox, scene.wk_attr]
+    ins += [k[n] for n in (("psent", "psids", "pages", "offs", "offe")
+                           if k["paged"] else ("sent", "sids"))]
+    nbytes = sum(x.numel() * x.element_size() for x in ins)
     nbytes += k["f"].shape[0] * 8          # t and tri out
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = tests * twt.FLOPS_PER_TEST / PEAK_F32 * 1e3
@@ -234,6 +370,32 @@ def raw_t_error(scene, name, t_raw, tri_raw, pt, ptri, live) -> float:
     return err
 
 
+def vs_resident(scene, name, k, any_hit: bool, t3, tri3) -> dict:
+    """A paged launch against the resident kernel on the very same rays:
+    the hit set equal, and the winning slot equal wherever the two t
+    differ (equal t are ties the two walk orders may break apart).
+    Returns the resident kernel's ms and the tests it needed and ran on
+    these rays: a walk's needed count depends on its order (a super
+    reached later is culled against a worse best t), so the bound takes
+    the smaller of the two walks' counts."""
+    import torch
+    t1, tri1, tests1 = launch(scene, k, any_hit, resident=True)
+    torch.cuda.synchronize()
+    same_hits = bool(torch.equal(tri3 >= 0, tri1 >= 0))
+    ties = int(((tri3 != tri1) & (t3 == t1)).sum())
+    slots_ok = bool(((tri3 == tri1) | (t3 == t1)).all())
+    log(f"  {name}: paged vs resident kernel on the same rays: hit set "
+        f"equal {same_hits}, winning slot equal except at t ties "
+        f"{slots_ok} ({ties} ties)")
+    if not (same_hits and (any_hit or slots_ok)):
+        raise AssertionError(f"{name}: the paged and resident kernels "
+                             f"disagree")
+    needed, ran = tri_test_counts(tests1)
+    return {"resident_ms": cuda_ms(lambda: launch(scene, k, any_hit,
+                                                  resident=True)),
+            "resident_tests": needed, "resident_tests_run": ran}
+
+
 def tri_test_counts(tests) -> tuple[int, int]:
     """(tests the data needs, tests the threads ran) of one launch."""
     import torch
@@ -242,40 +404,44 @@ def tri_test_counts(tests) -> tuple[int, int]:
 
 
 def check_closest(scene, name, o, d, t_max):
-    """K1 on one ray set: gates against the plain walk, and times."""
+    """The scene's closest-hit kernel on one ray set: gates against the
+    plain walk (and, on a paged scene, against the resident kernel), and
+    times."""
     import torch
     from tungsten_tpu_torch.ops import intersect as tis
-    from tungsten_tpu_torch.ops import wave_trace as twt
     k = kernel_inputs(scene, o, d, t_max)
     live = k["tmax"] > 0
-    t, tri, u, v = twt.wave_intersect(scene, k["o"], k["d"], k["tmin"],
-                                      k["tmax"])
+    t, tri, u, v = wrapper(scene, k, False)
     pt, ptri, pu, pv = tis.bvh_walk(scene, k["o"], k["d"], k["tmin"],
                                     k["tmax"])
     torch.cuda.synchronize()
     err_final = hit_gates(name, t, tri, u, v, pt, ptri, pu, pv, live)
-    t_raw, tri_raw, tests = twt.wave_kernel(k["f"], k["sent"], k["sids"],
-                                            scene.wk_cbox, scene.wk_attr,
-                                            False)
+    t_raw, tri_raw, tests = launch(scene, k, False)
     err = raw_t_error(scene, name, t_raw, tri_raw, pt, ptri, live)
-    ms = cuda_ms(lambda: twt.wave_kernel(k["f"], k["sent"], k["sids"],
-                                         scene.wk_cbox, scene.wk_attr, False))
-    wrap_ms = cuda_ms(lambda: twt.wave_intersect(scene, k["o"], k["d"],
-                                                 k["tmin"], k["tmax"]))
+    out = {}
+    if k["paged"]:
+        out = vs_resident(scene, name, k, False, t_raw, tri_raw)
+    ms = cuda_ms(lambda: launch(scene, k, False))
+    wrap_ms = cuda_ms(lambda: wrapper(scene, k, False))
     plain_ms = cuda_ms(lambda: tis.bvh_walk(scene, k["o"], k["d"], k["tmin"],
                                             k["tmax"]))
     n_tests, n_ran = tri_test_counts(tests)
-    b, by = bound_ms(scene, k, n_tests)
+    b, by = bound_ms(scene, k, min(n_tests, out.get("resident_tests",
+                                                     n_tests)))
     hit_share = (tri >= 0).float().mean().item()
     log(f"  {name}: {o.shape[0]} rays ({int(live.sum())} live, hit share "
         f"{hit_share:.4f}), {n_tests} ray-triangle tests needed, {n_ran} run"
-        f"; kernel {ms:.3f} ms, wrapper (front + kernel + finalize) "
-        f"{wrap_ms:.3f} ms, plain walk {plain_ms:.3f} ms, bound {b:.4f} ms "
-        f"({by})")
-    return dict(ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, max_abs_err=err, max_abs_err_final=err_final,
-                rays=int(o.shape[0]), tests=n_tests, tests_run=n_ran,
-                hits=(t, tri, k))
+        f"; kernel {ms:.3f} ms"
+        + (f" (resident kernel {out['resident_ms']:.3f} ms, "
+           f"{out['resident_tests']} tests needed, "
+           f"{out['resident_tests_run']} run)" if out else "")
+        + f", wrapper (front + kernel + finalize) {wrap_ms:.3f} ms, plain "
+        f"walk {plain_ms:.3f} ms, bound {b:.4f} ms ({by})")
+    out.update(ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b,
+               bound_by=by, max_abs_err=err, max_abs_err_final=err_final,
+               rays=int(o.shape[0]), tests=n_tests, tests_run=n_ran,
+               hits=(t, tri, k))
+    return out
 
 
 def shadow_segments(scene, o, d, t, tri, seed: int):
@@ -305,17 +471,16 @@ def shadow_segments(scene, o, d, t, tri, seed: int):
 
 
 def check_anyhit(scene, o, d, t_max):
-    """K2 on shadow segments: against the plain any-hit walk, and its hit
-    set against K1's on the very same segments; times."""
+    """The scene's any-hit kernel on shadow segments: against the plain
+    any-hit walk, its hit set against the closest-hit kernel's on the very
+    same segments (and, on a paged scene, the resident any-hit kernel's);
+    times."""
     import torch
     from tungsten_tpu_torch.ops import intersect as tis
-    from tungsten_tpu_torch.ops import wave_trace as twt
     k = kernel_inputs(scene, o, d, t_max)
     live = k["tmax"] > 0
-    _, tri_a, _, _ = twt.wave_intersect(scene, k["o"], k["d"], k["tmin"],
-                                        k["tmax"], any_hit=True)
-    _, tri_c, _, _ = twt.wave_intersect(scene, k["o"], k["d"], k["tmin"],
-                                        k["tmax"])
+    _, tri_a, _, _ = wrapper(scene, k, True)
+    _, tri_c, _, _ = wrapper(scene, k, False)
     _, ptri, _, _ = tis.bvh_walk(scene, k["o"], k["d"], k["tmin"], k["tmax"],
                                  any_hit=True)
     torch.cuda.synchronize()
@@ -329,44 +494,116 @@ def check_anyhit(scene, o, d, t_max):
         f"{same_as_k1}")
     if not (agree > 0.998 and same_as_k1 and bool((tri_a[~live] == -1).all())):
         raise AssertionError("any-hit kernel disagrees")
-    _, _, tests = twt.wave_kernel(k["f"], k["sent"], k["sids"], scene.wk_cbox,
-                                  scene.wk_attr, True)
-    ms = cuda_ms(lambda: twt.wave_kernel(k["f"], k["sent"], k["sids"],
-                                         scene.wk_cbox, scene.wk_attr, True))
-    wrap_ms = cuda_ms(lambda: twt.wave_intersect(
-        scene, k["o"], k["d"], k["tmin"], k["tmax"], any_hit=True))
+    t_raw, tri_raw, tests = launch(scene, k, True)
+    out = {}
+    if k["paged"]:
+        out = vs_resident(scene, "shadow segments", k, True, t_raw,
+                          tri_raw)
+    ms = cuda_ms(lambda: launch(scene, k, True))
+    wrap_ms = cuda_ms(lambda: wrapper(scene, k, True))
     plain_ms = cuda_ms(lambda: tis.bvh_walk(scene, k["o"], k["d"], k["tmin"],
                                             k["tmax"], any_hit=True))
     n_tests, n_ran = tri_test_counts(tests)
-    b, by = bound_ms(scene, k, n_tests)
+    b, by = bound_ms(scene, k, min(n_tests, out.get("resident_tests",
+                                                     n_tests)))
     log(f"  shadow segments: {n_tests} ray-triangle tests needed, {n_ran} "
-        f"run; kernel {ms:.3f} ms, wrapper {wrap_ms:.3f} ms, plain walk "
-        f"{plain_ms:.3f} ms, bound {b:.4f} ms ({by})")
-    return dict(ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, max_abs_err=err, agreement=agree,
-                rays=int(o.shape[0]), tests=n_tests, tests_run=n_ran)
+        f"run; kernel {ms:.3f} ms"
+        + (f" (resident kernel {out['resident_ms']:.3f} ms, "
+           f"{out['resident_tests']} tests needed, "
+           f"{out['resident_tests_run']} run)" if out else "")
+        + f", wrapper {wrap_ms:.3f} ms, plain walk {plain_ms:.3f} ms, bound "
+        f"{b:.4f} ms ({by})")
+    out.update(ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b,
+               bound_by=by, max_abs_err=err, agreement=agree,
+               rays=int(o.shape[0]), tests=n_tests, tests_run=n_ran)
+    return out
+
+
+def check_scene_kernels(scene, settings):
+    """Both modes of the scene's kernels on the 16-spp wave's camera rays,
+    one bounce's continuation rays and NEE-style shadow segments from the
+    camera hits.  Returns (camera, continuation, shadow) results."""
+    import torch
+    from tungsten_tpu_torch.integrators import path_tracer as tpt
+    dev = scene.device
+    n = settings.width * settings.height
+    pix = torch.arange(n, dtype=torch.int32, device=dev).repeat(SPP)
+    smp = torch.arange(SPP, dtype=torch.int32, device=dev).repeat_interleave(n)
+    s0 = tpt.init_wave(scene, settings, pix, smp, SEED)
+    inf = torch.full_like(s0["o"][:, 0], 3.0e38)
+    prim = check_closest(scene, "camera rays", s0["o"], s0["d"],
+                         torch.where(s0["alive"], inf, 0.0))
+    s1 = tpt._make_bounce_body(scene, settings, SEED)(s0)
+    cont = check_closest(scene, "continuation rays", s1["o"], s1["d"],
+                         torch.where(s1["alive"], inf, 0.0))
+    t_p, tri_p, kp = prim.pop("hits")
+    cont.pop("hits")
+    so, sd, stmax = shadow_segments(scene, kp["o"], kp["d"], t_p, tri_p,
+                                    SEED)
+    shadow = check_anyhit(scene, so, sd, stmax)
+    torch.cuda.synchronize()
+    return prim, cont, shadow
+
+
+def render_counted(scene, settings, twt):
+    """The main path with every launch count set to 0 just before and
+    read just after: (image, stats, launches)."""
+    from tungsten_tpu_torch.render import render
+    for key in twt.LAUNCHES:
+        twt.LAUNCHES[key] = 0
+    img, stats = render(scene, settings, spp=SPP, seed=SEED, spp_chunk=SPP,
+                        return_stats=True)
+    return img, stats, dict(twt.LAUNCHES)
+
+
+def cross_path(scene, settings, max_bounces: int | None = None) -> None:
+    """A 64x64 4-spp image from the kernel path against the port's plain
+    path on the CPU (the gates: <= 1 % of pixels off by more than
+    rtol 1e-3 / atol 1e-4, means within 0.5 %), at the scene's bounce
+    limit or at `max_bounces`."""
+    import numpy as np
+    from tungsten_tpu_torch.render import render
+    small = replace(settings, width=64, height=64,
+                    max_bounces=max_bounces or settings.max_bounces)
+    t0 = time.time()
+    gpu = render(scene, small, spp=4, seed=SEED, spp_chunk=4)
+    cpu = render(scene.to("cpu"), small, spp=4, seed=SEED, spp_chunk=4,
+                 device="cpu")
+    close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1)
+    off = 1.0 - close.mean()
+    rel_mean = abs(gpu.mean() / cpu.mean() - 1.0)
+    log(f"cross-path 64x64 4 spp max_bounces {small.max_bounces}: "
+        f"{off * 100:.3f}% of pixels off by more "
+        f"than rtol 1e-3 (atol 1e-4), mean {gpu.mean():.6f} vs "
+        f"{cpu.mean():.6f} ({rel_mean * 100:.4f}%), {time.time() - t0:.1f}"
+        f" s")
+    if not (off <= 0.01 and rel_mean <= 0.005):
+        raise AssertionError("cross-path image check failed")
 
 
 def profile_render(render_once) -> None:
-    """One more render under torch.profiler: device busy time (the union
-    of kernel intervals) against the profiled wall time, and the kernels
-    that take the most device time.  The profiler's own host cost is in
-    the wall time, so the idle share is an upper bound."""
+    """One more render under torch.profiler (device activity only): device
+    busy time (the union of kernel intervals) against the profiled wall
+    time, and the kernels that take the most device time.  The profiler's
+    own host cost is in the wall time, so the idle share is an upper
+    bound.  The raw device events are read directly: the profiler's
+    per-event Python parse takes minutes at a million launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         render_once()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
     if not kern:
         log("profile: the profiler recorded no device activity (device "
             "busy share not measured)")
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    spans = sorted((s, e) for s, e, _ in kern)
     busy, (cs, ce) = 0, spans[0]
     for s, e in spans[1:]:
         if s > ce:
@@ -376,13 +613,13 @@ def profile_render(render_once) -> None:
             ce = max(ce, e)
     busy += ce - cs
     by_name: dict[str, list] = {}
-    for e in kern:
-        acc = by_name.setdefault(e.name, [0.0, 0])
-        acc[0] += e.time_range.elapsed_us()
+    for s, e, name in kern:
+        acc = by_name.setdefault(name, [0.0, 0])
+        acc[0] += e - s
         acc[1] += 1
     total = sum(v[0] for v in by_name.values())
     launches = sum(v[1] for v in by_name.values())
-    wave = sum(v[0] for k, v in by_name.items() if "wave_trace_kernel" in k)
+    wave = sum(v[0] for k, v in by_name.items() if "wave_trace" in k)
     log(f"profile: wall {wall_us / 1e3:.1f} ms under the profiler, device "
         f"busy {busy / 1e3:.1f} ms ({busy / wall_us * 100:.1f} %, idle "
         f"{100 - busy / wall_us * 100:.1f} %), {launches} kernel launches; "
@@ -396,6 +633,23 @@ def profile_render(render_once) -> None:
 
 # -------------------------------------------------------------------- main
 
+def kernel_row(name, mode, m, launches, replaces, tol, extra):
+    """One row of the kernels JSON line."""
+    row = {"name": name, "route": "cuda",
+           "source": "tungsten_tpu_torch/csrc/wave_trace.cu",
+           "replaces": replaces, "launches": launches[mode],
+           "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+           "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+           "bound_by": m["bound_by"], "library_ms": None, "tolerance": tol}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "max_abs_err_final", "rays", "tests", "tests_run", "wrapper_ms",
+            "resident_ms", "resident_tests", "resident_tests_run")
+    row.update({x: m[x] for x in keys if x in m and x not in row})
+    for k, v in extra.items():
+        row[k] = {x: v[x] for x in keys if x in v}
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -408,14 +662,21 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
     from tungsten_tpu_torch import native
-    from tungsten_tpu_torch.integrators import path_tracer as tpt
     from tungsten_tpu_torch.ops import wave_trace as twt
     from tungsten_tpu_torch.render import render
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     from tungsten_tpu_torch.scene.parse import load_scene
 
     t_start = time.time()
-    dev = torch.device("cuda")
+    t_mark = [t_start]
+
+    def mark(phase: str) -> None:
+        """The seconds a phase took and the run's total so far."""
+        now = time.time()
+        log(f"  [{phase}: {now - t_mark[0]:.1f} s, total {now - t_start:.1f}"
+            f" s]")
+        t_mark[0] = now
+
     kind = torch.cuda.get_device_name(0)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {kind}")
@@ -442,13 +703,13 @@ def main() -> int:
         for line in f.read().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
+    mark("build")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 3. scene
         t0 = time.time()
         path = write_scene(tmp)
-        desc = load_scene(path)
-        scene, settings = flatten_scene(desc)
+        scene, settings = flatten_scene(load_scene(path))
         torch.cuda.synchronize()
         n_tri = scene.tri_v0.shape[0]
         attr_mb = scene.wk_attr.numel() * 4 / 2**20
@@ -456,103 +717,112 @@ def main() -> int:
             f"slots, wk_attr {attr_mb:.2f} MiB, sampler "
             f"{'sobol' if settings.stratified_sampler else 'pcg4d'}, "
             f"{time.time() - t0:.2f} s")
-        if not (90_000 <= n_tri <= 100_000 and attr_mb * 2**20 < 13e6):
+        if not (90_000 <= n_tri <= 100_000 and
+                twt.traversal_kind(scene) == "resident"):
             raise AssertionError("scene size off the resident-path range")
+        mark("scene")
 
         # 4. kernel checks at the main path's shapes
         log("kernels vs plain walk:")
-        n = settings.width * settings.height
-        pix = torch.arange(n, dtype=torch.int32, device=dev).repeat(SPP)
-        smp = torch.arange(SPP, dtype=torch.int32,
-                           device=dev).repeat_interleave(n)
-        s0 = tpt.init_wave(scene, settings, pix, smp, SEED)
-        inf = torch.full_like(s0["o"][:, 0], 3.0e38)
-        prim = check_closest(scene, "camera rays", s0["o"], s0["d"],
-                             torch.where(s0["alive"], inf, 0.0))
-        s1 = tpt._make_bounce_body(scene, settings, SEED)(s0)
-        cont = check_closest(scene, "continuation rays", s1["o"], s1["d"],
-                             torch.where(s1["alive"], inf, 0.0))
-        t_p, tri_p, kp = prim.pop("hits")
-        cont.pop("hits")
-        so, sd, stmax = shadow_segments(scene, kp["o"], kp["d"], t_p, tri_p,
-                                        SEED)
-        shadow = check_anyhit(scene, so, sd, stmax)
-        torch.cuda.synchronize()
+        prim, cont, shadow = check_scene_kernels(scene, settings)
+        mark("kernels")
 
         # 5. the main path, counts from zero
         log("render:")
-        for k in twt.LAUNCHES:
-            twt.LAUNCHES[k] = 0
-        desc = load_scene(path)
-        scene, settings = flatten_scene(desc)
-        img, stats = render(scene, settings, spp=SPP, seed=SEED,
-                            spp_chunk=SPP, return_stats=True)
-        launches = dict(twt.LAUNCHES)
+        scene, settings = flatten_scene(load_scene(path))
+        img, stats, launches = render_counted(scene, settings, twt)
         log(f"  {settings.width}x{settings.height} {SPP} spp max_bounces "
             f"{settings.max_bounces}: {stats['time']:.3f} s, "
             f"{stats['rays']} rays, {stats['mrays_per_s']:.3f} Mrays/s on "
             f"{card}; launches {launches}")
         if not (np.isfinite(img).all() and img.mean() > 0):
             raise AssertionError("render: image not finite or black")
-        if not all(v > 0 for v in launches.values()):
+        if not (launches["closest"] > 0 and launches["anyhit"] > 0):
             raise AssertionError(f"render: a kernel never launched {launches}")
         img2, stats2 = render(scene, settings, spp=SPP, seed=SEED,
                               spp_chunk=SPP, return_stats=True)
         log(f"  second render: {stats2['time']:.3f} s, "
             f"{stats2['mrays_per_s']:.3f} Mrays/s; image mean {img.mean():.6f}"
             f" vs {img2.mean():.6f}")
-
         profile_render(lambda: render(scene, settings, spp=SPP, seed=SEED,
                                       spp_chunk=SPP))
+        mark("render")
 
         # 6. kernel path vs plain path on the CPU, small frame
-        small = replace(settings, width=64, height=64)
-        t0 = time.time()
-        gpu = render(scene, small, spp=4, seed=SEED, spp_chunk=4)
-        cpu = render(scene.to("cpu"), small, spp=4, seed=SEED, spp_chunk=4,
-                     device="cpu")
-        close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1)
-        off = 1.0 - close.mean()
-        rel_mean = abs(gpu.mean() / cpu.mean() - 1.0)
-        log(f"cross-path 64x64 4 spp: {off * 100:.3f}% of pixels off by more "
-            f"than rtol 1e-3 (atol 1e-4), mean {gpu.mean():.6f} vs "
-            f"{cpu.mean():.6f} ({rel_mean * 100:.4f}%), {time.time() - t0:.1f}"
-            f" s")
-        if not (off <= 0.01 and rel_mean <= 0.005):
-            raise AssertionError("cross-path image check failed")
+        cross_path(scene, settings)
+        mark("cross-path")
+        del scene
 
-    # 7. kernels line and result
-    src = "tungsten_tpu_torch/csrc/wave_trace.cu"
-    rows = []
+        # 7. the large scene through the paged walk
+        log("large scene:")
+        t0 = time.time()
+        zpath = write_zoo_scene(tmp)
+        zscene, zsettings = flatten_scene(load_scene(zpath))
+        torch.cuda.synchronize()
+        z_tri = zscene.tri_v0.shape[0]
+        z_mb = zscene.wk_attr.numel() * 4 / 2**20
+        log(f"  (a) {z_tri} triangles, {zscene.wk_cbox.shape[0]} cluster "
+            f"slots, wk_attr {z_mb:.2f} MiB, {twt.n_pages_of(zscene)} pages "
+            f"of {twt.page_clusters()} clusters, walk "
+            f"{twt.traversal_kind(zscene)}; bsdf types "
+            f"{list(zsettings.present_bsdf_types)}; {time.time() - t0:.2f} s")
+        from tungsten_tpu_torch.bsdf.types import PORTED_TYPES
+        if not (z_tri >= 600_000 and z_mb * 2**20 >= twt.PAGED_ATTR_BYTES and
+                twt.traversal_kind(zscene) == "paged" and
+                set(zsettings.present_bsdf_types) == set(PORTED_TYPES)):
+            raise AssertionError("large scene off the paged-path range")
+        mark("large scene (a)")
+        log("  (b) paged kernels vs plain walk and resident kernels:")
+        zprim, zcont, zshadow = check_scene_kernels(zscene, zsettings)
+        mark("large scene (b)")
+        log("  (c) render:")
+        zimg, zstats, zlaunches = render_counted(zscene, zsettings, twt)
+        log(f"  {zsettings.width}x{zsettings.height} {SPP} spp max_bounces "
+            f"{zsettings.max_bounces}: {zstats['time']:.3f} s, "
+            f"{zstats['rays']} rays, {zstats['mrays_per_s']:.3f} Mrays/s on "
+            f"{card}; launches {zlaunches}; image mean {zimg.mean():.6f}")
+        if not (np.isfinite(zimg).all() and zimg.mean() > 0):
+            raise AssertionError("large render: image not finite or black")
+        if not (zlaunches["paged_closest"] > 0 and
+                zlaunches["paged_anyhit"] > 0 and
+                zlaunches["closest"] == 0 and zlaunches["anyhit"] == 0):
+            raise AssertionError(f"large render: not the paged walk alone "
+                                 f"{zlaunches}")
+        profile_render(lambda: render(zscene, zsettings, spp=SPP, seed=SEED,
+                                      spp_chunk=SPP))
+        mark("large scene (c)")
+        # (d) at 16 bounces: the CPU plain walk of 606k triangles costs
+        # seconds a bounce body, and glass keeps paths alive to the limit
+        log("  (d)")
+        cross_path(zscene, zsettings, max_bounces=ZOO_CROSS_BOUNCES)
+        mark("large scene (d)")
+
+    # 8. kernels line and result
     closest_tol = ("vs plain walk: hit-set agreement > 0.998, same triangle "
                    "> 0.999, t within rtol 2e-3 on > 0.999 (the kernel's "
                    "own t and after the finalize), u/v atol 2e-3; "
                    "max_abs_err is the kernel's own t")
     anyhit_tol = ("vs plain walk: occlusion agreement > 0.998; hit set "
                   "equal to the closest-hit kernel's")
-    for name, mode, m, tol, extra in (
-            ("wave_trace_closest", "closest", prim, closest_tol,
-             {"continuation": cont}),
-            ("wave_trace_anyhit", "anyhit", shadow, anyhit_tol, {})):
-        row = {"name": name, "route": "cuda", "source": src,
-               "replaces": "tungsten_tpu/ops/wave_trace.py:300",
-               "launches": launches[mode], "max_abs_err": m["max_abs_err"],
-               "ms": m["ms"], "plain_ms": m["plain_ms"],
-               "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-               "library_ms": None, "tolerance": tol,
-               "wrapper_ms": m["wrapper_ms"],
-               "rays": m["rays"], "tests": m["tests"],
-               "tests_run": m["tests_run"]}
-        if "max_abs_err_final" in m:
-            row["max_abs_err_final"] = m["max_abs_err_final"]
-        for k, v in extra.items():
-            row[k] = {x: v[x] for x in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "max_abs_err",
-                                        "max_abs_err_final", "rays", "tests",
-                                        "tests_run", "wrapper_ms")}
-        rows.append(row)
+    paged = ("; vs the resident kernel on the same rays: hit set equal, "
+             "winning slot equal except at equal t")
+    k1 = "tungsten_tpu/ops/wave_trace.py:300"
+    k3 = "tungsten_tpu/ops/wave_trace.py:724"
+    rows = [
+        kernel_row("wave_trace_closest", "closest", prim, launches, k1,
+                   closest_tol, {"continuation": cont}),
+        kernel_row("wave_trace_anyhit", "anyhit", shadow, launches, k1,
+                   anyhit_tol, {}),
+        kernel_row("wave_trace_paged_closest", "paged_closest", zprim,
+                   zlaunches, k3, closest_tol + paged,
+                   {"continuation": zcont}),
+        kernel_row("wave_trace_paged_anyhit", "paged_anyhit", zshadow,
+                   zlaunches, k3, anyhit_tol + paged, {}),
+    ]
     log(f"render_s {stats['time']:.3f} mrays_per_s "
-        f"{stats['mrays_per_s']:.3f} total_s {time.time() - t_start:.1f}")
+        f"{stats['mrays_per_s']:.3f} large_render_s {zstats['time']:.3f} "
+        f"large_mrays_per_s {zstats['mrays_per_s']:.3f} total_s "
+        f"{time.time() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,6 +8,9 @@ On the random-soup fixture of tests/test_wave.py (700 triangles, 2048
 rays; regenerated here with numpy) both kernel modes pass that file's
 gates against the f32 brute force and against the plain walk on the same
 device, and a small render through the kernels matches the plain path.
+The paged kernel (both modes) passes the same gates on the 5,000-triangle
+soup of tests/test_paged.py with the page shrunk to one super, and
+agrees with the resident kernel ray for ray.
 """
 from types import SimpleNamespace
 
@@ -208,10 +211,111 @@ def test_cuda_render_matches_plain_path(cuda_device):
     scene, settings = flatten_scene(desc)
     before = dict(twt.LAUNCHES)
     gpu = render(scene, settings, spp=4, seed=7, spp_chunk=4)
-    assert all(twt.LAUNCHES[k] > before[k] for k in before)
+    assert twt.traversal_kind(scene) == "resident"
+    assert all(twt.LAUNCHES[k] > before[k] for k in ("closest", "anyhit"))
+    assert all(twt.LAUNCHES[k] == before[k]
+               for k in ("paged_closest", "paged_anyhit"))
     cpu = render(scene.to("cpu"), settings, spp=4, seed=7, spp_chunk=4,
                  device="cpu")
     assert np.isfinite(gpu).all() and gpu.mean() > 0
     close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1)
     assert close.mean() >= 0.99
     assert abs(gpu.mean() / cpu.mean() - 1.0) <= 5e-3
+
+    # the same scene through the paged walk (the threshold lowered to 0
+    # and a page of one super): only the paged kernels launch, and the
+    # image is the resident path's up to traversal-order ties
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(twt, "PAGED_ATTR_BYTES", 0)
+        mp.setattr(twt, "PAGE_SUP", 1)
+        before = dict(twt.LAUNCHES)
+        paged = render(scene, settings, spp=4, seed=7, spp_chunk=4)
+        assert all(twt.LAUNCHES[k] > before[k]
+                   for k in ("paged_closest", "paged_anyhit"))
+        assert all(twt.LAUNCHES[k] == before[k] for k in ("closest", "anyhit"))
+    close = np.isclose(paged, gpu, rtol=1e-3, atol=1e-4).all(-1)
+    assert close.mean() >= 0.99
+    assert abs(paged.mean() / gpu.mean() - 1.0) <= 5e-3
+
+
+@pytest.fixture
+def one_super_pages(monkeypatch):
+    monkeypatch.setattr(twt, "PAGE_SUP", 1)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_kernel_passes_wave_gates(cuda_device, one_super_pages):
+    """The paged kernel over several pages: test_wave.py's gates against
+    the brute force and the plain walk, closest hit and any hit; against
+    the resident kernel on the same rays the hit set is equal and the
+    triangle too except where the two t are equal (ties)."""
+    v0, e1, e2 = _soup(num_tris=5000, seed=5)
+    R = 2 * twt.BLOCK
+    o, d = _rays(R, seed=6)
+    tmin = np.full((R,), 1e-4, np.float32)
+    tmax = np.full((R,), 3e38, np.float32)
+    tmax[::5] = 0.0
+    live = tmax > 0
+    sc, order = _scene(v0, e1, e2, cuda_device)
+    assert twt.n_pages_of(sc) >= 3
+    before = dict(twt.LAUNCHES)
+    t, tri, u, v = _hits(twt.wave_intersect_paged, sc, order, o, d, tmin,
+                         tmax, False)
+    assert twt.LAUNCHES["paged_closest"] == before["paged_closest"] + 1
+    bt, bi, uu, vv = _brute(v0, e1, e2, o, d, 1e-4, tmax)
+    _gates(t, tri, u, v, bt, bi, uu, vv, live)
+    pt, pi, _, _ = _hits(tis.bvh_walk, sc, order, o, d, tmin, tmax, False)
+    _gates(t, tri, u, v, pt, pi, uu, vv, live)
+    again = _hits(twt.wave_intersect_paged, sc, order, o, d, tmin, tmax,
+                  False)
+    assert all(np.array_equal(a, b) for a, b in zip((t, tri, u, v), again))
+
+    # raw kernel outputs against the resident kernel, any hit and closest
+    args = [torch.from_numpy(x).to(cuda_device) for x in (o, d, tmin, tmax)]
+    o_s, d_s, tmin_s, tmax_s, _ = tis.dispatch_rays(sc, *args)
+    f, sent, sids, pages, offs, offe, _ = twt.paged_kernel_inputs(
+        sc, o_s, d_s, tmin_s, tmax_s)
+    f1, sent1, sids1, _ = twt.kernel_inputs(sc, o_s, d_s, tmin_s, tmax_s)
+    assert torch.equal(f, f1)
+    for any_hit in (False, True):
+        t3, tri3, tests3 = twt.paged_kernel(f, sent, sids, pages, offs, offe,
+                                            sc.wk_cbox, sc.wk_attr, any_hit)
+        t1, tri1, _ = twt.wave_kernel(f1, sent1, sids1, sc.wk_cbox,
+                                      sc.wk_attr, any_hit)
+        assert torch.equal(tri3 >= 0, tri1 >= 0)
+        if any_hit:
+            assert torch.equal(t3 <= -1.0, tri3 >= 0)
+        else:
+            assert bool(((tri3 == tri1) | (t3 == t1)).all())
+            assert bool((tri3 == tri1).float().mean() > 0.999)
+        need, ran = tests3[0], tests3[1]
+        assert bool((need <= ran).all()) and int(need.sum()) > 0
+        assert bool((ran[tmax_s <= 0] == 0).all())
+
+    tmax_b = np.where(live, np.float32(1.25), np.float32(0.0))
+    _, tri_a, _, _ = _hits(twt.wave_intersect_paged, sc, order, o, d, tmin,
+                           tmax_b, True)
+    assert twt.LAUNCHES["paged_anyhit"] == before["paged_anyhit"] + 2
+    _, bi_b, _, _ = _brute(v0, e1, e2, o, d, 1e-4, tmax_b)
+    assert ((tri_a >= 0) == (bi_b >= 0))[live].mean() > 0.998
+    _, tri_k2, _, _ = _hits(twt.wave_intersect, sc, order, o, d, tmin,
+                            tmax_b, True)
+    assert np.array_equal(tri_a >= 0, tri_k2 >= 0)
+    assert (tri_a[~live] == -1).all()
+
+
+@pytest.mark.cuda
+def test_cuda_paged_wrapper_rejects_bad_inputs(cuda_device):
+    f = torch.zeros((twt.BLOCK, twt.FCOLS), device=cuda_device)
+    lists = torch.zeros((8, 128), device=cuda_device)
+    cbox = torch.zeros((256, 8), device=cuda_device)
+    attr = torch.zeros((256 * twt.ATTR_ROWS, twt.CLUSTER),
+                       device=cuda_device)
+    pages = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
+    rng = torch.zeros((8, 1), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="offs"):
+        twt.paged_kernel(f, lists, lists.int(), pages, rng.float(), rng,
+                         cbox, attr, False)
+    with pytest.raises(ValueError, match="pages"):
+        twt.paged_kernel(f, lists, lists.int(), pages.float(), rng, rng,
+                         cbox, attr, False)

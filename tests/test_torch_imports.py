@@ -41,6 +41,9 @@ def _forbidden(name: str) -> bool:
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert len(mods) >= 15
+    for m in ("bsdf.fresnel", "bsdf.microfacet", "bsdf.eval", "bsdf.types",
+              "ops.wave_trace"):
+        assert "tungsten_tpu_torch." + m in mods
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'flax', 'tungsten_tpu'):\n"
             "    sys.modules[m] = None\n"
@@ -71,6 +74,24 @@ def test_no_forbidden_import_statement(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+def test_cuda_sources_stand_alone():
+    """Every CUDA source of the port is built by the wave-kernel build and
+    has a plain C interface: no PyTorch, ATen or pybind header."""
+    from tungsten_tpu_torch.ops import wave_trace
+    csrc = os.path.join(PKG, "csrc")
+    cus = sorted(f for f in os.listdir(csrc) if f.endswith((".cu", ".cuh")))
+    assert cus == ["wave_trace.cu"]
+    with open(wave_trace.__file__) as f:
+        built = f.read()
+    for fn in cus:
+        assert f'"csrc/{fn}"' in built, fn
+        with open(os.path.join(csrc, fn)) as f:
+            includes = [ln for ln in f if ln.lstrip().startswith("#include")]
+        assert includes and not any(
+            h in ln for ln in includes
+            for h in ("torch", "ATen", "pybind", "Python.h")), includes
+
+
 def _tiny_scene():
     from tungsten_tpu_torch.scene.parse import SceneDesc
     return SceneDesc(
@@ -83,7 +104,8 @@ def _tiny_scene():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    from tungsten_tpu_torch.ops.wave_trace import wave_intersect
+    from tungsten_tpu_torch.ops.wave_trace import (wave_intersect,
+                                                   wave_intersect_paged)
     from tungsten_tpu_torch.render import render
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     scene, settings = flatten_scene(_tiny_scene(), device="cpu")
@@ -95,6 +117,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     o = torch.zeros((4, 3))
     with pytest.raises(RuntimeError, match="CUDA"):
         wave_intersect(scene, o, o + 1.0, 0.0, 1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wave_intersect_paged(scene, o, o + 1.0, 0.0, 1.0)
     # asked for the CPU, the same entry points run
     img = render(scene, settings, spp=1, device="cpu")
     assert img.shape == (8, 8, 3) and (img >= 0).all()
@@ -106,7 +130,10 @@ def test_unported_features_raise():
     desc.primitives.append({"type": "sphere", "bsdf_index": 0})
     with pytest.raises(NotImplementedError, match="sphere"):
         flatten_scene(desc, device="cpu")
-    desc = _tiny_scene()
-    desc.bsdfs[0] = {"type": "rough_plastic"}
-    with pytest.raises(NotImplementedError, match="rough_plastic"):
-        flatten_scene(desc, device="cpu")
+    # the forward-lobe and fiber BSDFs are not ported yet
+    for name in ("thinsheet", "transparency", "forward", "hair",
+                 "rough_wire", "lambertian_fiber"):
+        desc = _tiny_scene()
+        desc.bsdfs[0] = {"type": name}
+        with pytest.raises(NotImplementedError, match=name):
+            flatten_scene(desc, device="cpu")

@@ -10,7 +10,9 @@ bsdf sample doubles as the bsdf-side strategy, and emitter / env hits
 are power-heuristic-weighted against the light-selection-aware NEE
 density.  That branch is the one the JAX package takes for every scene
 the port flattens (no media, no forward-lobe BSDFs, no cap lights, no
-MMLT path-length restriction).
+MMLT path-length restriction).  The surface BSDFs of that branch are
+all ported (bsdf/eval.py); a scene with a forward-lobe or fiber BSDF
+raises NotImplementedError.
 
 Estimator guards mirror the reference: NEE at every shading vertex
 while bounce < max_bounces - 1; direct emitter and env hits weighted
@@ -45,10 +47,12 @@ def _check_supported(settings):
     if settings.has_media:
         raise NotImplementedError(
             "tungsten_tpu_torch: participating media are not ported yet")
-    forward = {bt.FORWARD, bt.TRANSPARENCY, bt.THINSHEET}
-    if forward & set(settings.present_bsdf_types):
+    unported = set(settings.present_bsdf_types) - set(bt.PORTED_TYPES)
+    if unported:
+        names = sorted(n for n, t in bt.NAME_TO_TYPE.items() if t in unported)
         raise NotImplementedError(
-            "tungsten_tpu_torch: forward-lobe BSDFs are not ported yet")
+            f"tungsten_tpu_torch: bsdf types {names} (forward-lobe or "
+            f"fiber) are not ported yet")
     if settings.num_caps or settings.has_points or settings.has_disk_lights \
             or settings.has_cyl_lights or settings.has_sphere_lights:
         raise NotImplementedError(
@@ -291,6 +295,9 @@ def _make_bounce_body(scene, settings, seed):
     sobol = settings.stratified_sampler
     types = settings.present_bsdf_types
     els = bool(settings.enable_light_sampling)
+    transmissive = torch.tensor(
+        [bt.DIELECTRIC, bt.ROUGH_DIELECTRIC, bt.DIFFUSE_TRANSMISSION],
+        dtype=scene.bsdf_type.dtype, device=scene.device)
 
     def body(s):
         if body_sort:
@@ -336,10 +343,12 @@ def _make_bounce_body(scene, settings, seed):
                     0.0)
 
         info = _expand_hit(scene, s["o"], s["d"], res)
-        # two-sided shading: flip the shading frame toward the ray
+        # two-sided shading: flip the shading frame toward the ray;
+        # transmissive BSDFs handle both hemispheres themselves — never flip
         backside = torch.sum(info["ng"] * s["d"], dim=-1) > 0.0
         flip = backside if settings.two_sided_shading else \
             torch.zeros_like(backside)
+        flip = flip & ~torch.isin(scene.bsdf_type[info["bsdf"]], transmissive)
         ns = torch.where(flip[..., None], -info["ns"], info["ns"])
         tan, bit = vm.ortho_frame(ns)
         wi_local = vm.to_local(tan, bit, ns, -s["d"])
@@ -347,9 +356,14 @@ def _make_bounce_body(scene, settings, seed):
         shade = active
 
         # ---- continuation: bsdf sample ----
+        ul = rng.random_1d(seed, pixel, sample_idx,
+                           dim_base + rng.BounceDims.BSDF_LOBE, sobol)
         u1, u2 = rng.random_2d(seed, pixel, sample_idx,
                                dim_base + rng.BounceDims.BSDF_SAMPLE, sobol)
-        wo, wt, pdf, flags = bsdf_sample(sp, wi_local, u1, u2, types)
+        ul2 = rng.random_1d(seed, pixel, sample_idx,
+                            dim_base + rng.BounceDims.BSDF_LOBE2, sobol)
+        wo, wt, pdf, flags = bsdf_sample(sp, wi_local, ul, u1, u2, types,
+                                         u_lobe2=ul2)
         ok = ((flags & FLAG_VALID) != 0) & (torch.amax(wt, dim=-1) > 0)
         new_d = vm.to_global(tan, bit, ns, wo)
         new_o = info["p"]

@@ -9,7 +9,9 @@ Two traversals compute the same hits:
     plain version of the CUDA wave kernels.
   * CUDA tensors: `_wave_dispatch` sorts the rays by `ray_sort_key`,
     pads them to 1024 and launches the wave kernel
-    (ops/wave_trace.py), then un-permutes the results.
+    (ops/wave_trace.py) — the resident walk, or the paged walk for a
+    scene whose attribute table is >= 13 MiB (`traversal_kind`) — then
+    un-permutes the results.
 The choice follows the device of the tensors; there is no switch and
 no fallback.  Analytic spheres, disks and cylinders are tested densely
 first (`_analytic_prims`), and the triangle traversal must beat them.
@@ -347,14 +349,17 @@ def dispatch_rays(scene, o, d, t_min, t_max, presorted: bool = False):
 
 def _wave_dispatch(scene, o, d, t_min, t_max, any_hit: bool,
                    presorted: bool = False):
-    """Sort + pad rays to 1024, run the wave kernel, scatter the results
-    back to submission order.  Returns (t, tri, u, v)."""
-    from tungsten_tpu_torch.ops.wave_trace import wave_intersect
+    """Sort + pad rays to 1024, run the scene's wave walk (resident or
+    paged, by traversal_kind), scatter the results back to submission
+    order.  Returns (t, tri, u, v)."""
+    from tungsten_tpu_torch.ops import wave_trace as wt
+    walk = wt.wave_intersect_paged if wt.traversal_kind(scene) == "paged" \
+        else wt.wave_intersect
     R = o.shape[0]
     o_s, d_s, tmin_s, tmax_s, order = dispatch_rays(scene, o, d, t_min,
                                                     t_max, presorted)
-    t, tri, u, v = wave_intersect(scene, o_s, d_s, tmin_s, tmax_s,
-                                  any_hit=any_hit, device=o.device)
+    t, tri, u, v = walk(scene, o_s, d_s, tmin_s, tmax_s, any_hit=any_hit,
+                        device=o.device)
     t, tri, u, v = t[:R], tri[:R], u[:R], v[:R]
     if order is None:
         return t, tri, u, v

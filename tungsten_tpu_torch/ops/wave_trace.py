@@ -1,4 +1,4 @@
-"""Cluster-table ray traversal: host table build, the traversal front,
+"""Cluster-table ray traversal: host table build, the traversal fronts,
 and the CUDA wave kernels (port of tungsten_tpu/ops/wave_trace.py).
 
 The JAX package's Pallas kernel (`_make_kernel`, launched by
@@ -13,10 +13,16 @@ block per 128-ray warp, one thread per ray, each surviving cluster's
 FMA chains.  The bf16 hi/lo split and the packed 7-bit winner key were
 TPU devices and are gone.
 
-On the CPU `wave_intersect` runs the kernel's plain version, the torch
-port of the skip-pointer BVH walk (ops/intersect.py::bvh_walk) — the
-same traversal the JAX package runs on its CPU backend.  On a CUDA
-tensor it launches the kernel or raises; it never falls back.
+Scenes whose attribute table is >= 13 MiB take the PAGED walk
+(`wave_intersect_paged`, the JAX package's `_make_kernel_paged`): the
+per-warp lists are sorted by (page, entry), a page being PAGE_SUP
+supers, and the CUDA kernel walks them page slot by page slot with best
+t carried across slots (csrc/wave_trace.cu, wave_trace_paged_kernel).
+
+On the CPU both wrappers run the kernels' plain version, the torch port
+of the skip-pointer BVH walk (ops/intersect.py::bvh_walk) — the same
+traversal the JAX package runs on its CPU backend.  On a CUDA tensor
+they launch their kernel or raise; they never fall back.
 """
 from __future__ import annotations
 
@@ -43,9 +49,18 @@ SUBWARP = 32        # rays per cull interval (phase A)
 # unit of the operation bound that chip_smoke.py reports.
 FLOPS_PER_TEST = 40
 
-# launches of the CUDA kernel per mode (plain integers; the plain CPU
-# version does not count)
-LAUNCHES = {"closest": 0, "anyhit": 0}
+# the paged walk: supers per page (read at call time, so a test can
+# shrink it, as tests/test_paged.py does); a page holds page_clusters()
+PAGE_SUP = 16
+MAX_PAGE_CLUSTERS = 256     # the kernel's shared-memory page of boxes
+# attribute-table bytes from which a scene takes the paged walk (the JAX
+# package's enable_pallas_if_suitable rule)
+PAGED_ATTR_BYTES = 13 * 1024 * 1024
+
+# launches of the CUDA kernels per walk and mode (plain integers; the
+# plain CPU version does not count)
+LAUNCHES = {"closest": 0, "anyhit": 0, "paged_closest": 0,
+            "paged_anyhit": 0}
 
 
 # --------------------------------------------------------------- host build
@@ -165,14 +180,13 @@ def build_wave_tables(tri_v0, tri_e1, tri_e2):
 
 # ------------------------------------------------------------------- front
 
-def _cull_sorted_supers(o, d, tmin_c, tmax_c, sbox, G):
-    """Phase A: subwarp-interval cull vs super boxes, unioned into
-    per-warp pending lists SORTED by conservative entry.
+def _warp_entries(o, d, tmin_c, tmax_c, sbox, G):
+    """Phase A: subwarp-interval cull vs super boxes, unioned per warp.
 
-    o/d (R,3); tmin_c/tmax_c (R,1); sbox (16, NSp).  Returns
-    (sent (G, 8, NSp) f32 entries INF-padded, sids (G, 8, NSp) i32).
-    The arithmetic (and so the rounding the 1.00000024 fudge covers) is
-    the JAX package's, op for op."""
+    o/d (R,3); tmin_c/tmax_c (R,1); sbox (16, NSp).  Returns (G, 8, NSp)
+    f32: per warp and super the conservative entry t, INF where no ray
+    of the warp can need the super.  The arithmetic (and so the rounding
+    the 1.00000024 fudge covers) is the JAX package's, op for op."""
     nsp = sbox.shape[1]
     R = o.shape[0]
     ns = R // SUBWARP
@@ -218,9 +232,67 @@ def _cull_sorted_supers(o, d, tmin_c, tmax_c, sbox, G):
     pend = (tn <= tf * 1.00000024) & (sbox[9][None, :] > 0.0) & \
         any_live[:, None]
     entry = torch.where(pend, tn, INF)                           # (ns, nsp)
-    entry_w = torch.amin(entry.reshape(G, 8, WARP // SUBWARP, nsp), dim=2)
+    return torch.amin(entry.reshape(G, 8, WARP // SUBWARP, nsp), dim=2)
+
+
+def _cull_sorted_supers(o, d, tmin_c, tmax_c, sbox, G):
+    """The resident walk's front: per-warp pending lists SORTED by
+    conservative entry.  Returns (sent (G, 8, NSp) f32 entries
+    INF-padded, sids (G, 8, NSp) i32)."""
+    entry_w = _warp_entries(o, d, tmin_c, tmax_c, sbox, G)
     sent, sids = torch.sort(entry_w, dim=-1, stable=True)
     return sent, sids.to(torch.int32)
+
+
+def _cull_paged(o, d, tmin_c, tmax_c, sbox, G, n_pages):
+    """The paged walk's front: the same cull, but per-warp lists sorted
+    by (page, entry) — a super's page is its id // PAGE_SUP — plus
+    per-(warp, page slot) index ranges and a compact per-block page list.
+
+    Returns (pages (G, S) i32 block page list, ascending, padded by
+    repeating the last needed page (all 0 on an all-dead block);
+    sent (G, 8, NSp) f32; sids (G, 8, NSp) i32; offs/offe (G, 8, S) i32
+    slot ranges, empty on pad slots); S = n_pages.  The JAX package sorts
+    on both keys at once with an unstable sort; here a stable sort by
+    entry and then a stable sort by page give the same order, with tied
+    entries in ascending super id."""
+    entry_w = _warp_entries(o, d, tmin_c, tmax_c, sbox, G)
+    nsp = entry_w.shape[-1]
+    dev = entry_w.device
+    page_col = (torch.arange(nsp, dtype=torch.int32, device=dev) //
+                PAGE_SUP).expand(entry_w.shape)
+    page_w = torch.where(entry_w < INF, page_col,
+                         torch.tensor(n_pages, dtype=torch.int32,
+                                      device=dev))      # sentinel: last
+    e1, ids = torch.sort(entry_w, dim=-1, stable=True)
+    spage, by_page = torch.sort(torch.gather(page_w, -1, ids), dim=-1,
+                                stable=True)
+    sent = torch.gather(e1, -1, by_page)
+    sids = torch.gather(ids, -1, by_page).to(torch.int32)
+    # per-(warp, page) offsets by a batched binary search
+    targets = torch.arange(n_pages + 1, dtype=torch.int32,
+                           device=dev).expand(G * 8, n_pages + 1)
+    off_pg = torch.searchsorted(spage.reshape(G * 8, nsp).contiguous(),
+                                targets.contiguous(), side="left",
+                                out_int32=True).reshape(G, 8, n_pages + 1)
+    # block page list (union over warps), compacted ascending
+    present = torch.any(off_pg[:, :, 1:] > off_pg[:, :, :-1], dim=1)  # (G,P)
+    order = torch.argsort((~present).to(torch.int32), dim=1,
+                          stable=True).to(torch.int32)
+    npg = torch.sum(present, dim=1, dtype=torch.int32)               # (G,)
+    slot = torch.arange(n_pages, dtype=torch.int32, device=dev)[None, :]
+    last = torch.gather(order, 1, torch.clamp(npg - 1, min=0)[:, None]
+                        .long())
+    pages = torch.where(slot < npg[:, None], order, last)
+    pages = torch.where((npg == 0)[:, None], 0, pages)
+    # per-slot ranges (empty on pad slots)
+    pages_b = pages[:, None, :].expand(G, 8, n_pages).long()
+    offs = torch.gather(off_pg[:, :, :-1], 2, pages_b)
+    offe = torch.gather(off_pg[:, :, 1:], 2, pages_b)
+    pad = (slot >= npg[:, None])[:, None, :]
+    offs = torch.where(pad, 0, offs)
+    offe = torch.where(pad, 0, offe)
+    return pages, sent, sids, offs, offe
 
 
 def ray_features(o, d, t_min, t_max):
@@ -241,10 +313,10 @@ def ray_features(o, d, t_min, t_max):
 
 
 def kernel_inputs(scene, o, d, t_min, t_max):
-    """The front of a launch: ray features and the per-warp super lists
-    for rays in dispatch order (R a multiple of BLOCK).  Returns
-    (f (R, 16), sent (R/128, NSp) f32, sids (R/128, NSp) i32, tmax_c
-    (R, 1))."""
+    """The front of a resident launch: ray features and the per-warp
+    super lists for rays in dispatch order (R a multiple of BLOCK).
+    Returns (f (R, 16), sent (R/128, NSp) f32, sids (R/128, NSp) i32,
+    tmax_c (R, 1))."""
     R = o.shape[0]
     if R % BLOCK:
         raise ValueError(f"ray count {R} is not a multiple of {BLOCK}")
@@ -253,6 +325,46 @@ def kernel_inputs(scene, o, d, t_min, t_max):
     sent, sids = _cull_sorted_supers(o, d, tmin_c, tmax_c, scene.wk_sbox, G)
     nsp = sent.shape[-1]
     return f, sent.reshape(G * 8, nsp), sids.reshape(G * 8, nsp), tmax_c
+
+
+def page_clusters() -> int:
+    """Clusters per page (the JAX package's PAGE_CLUSTERS): PAGE_SUP
+    supers, within the kernel's shared-memory page."""
+    n = PAGE_SUP * SUP
+    if not 0 < n <= MAX_PAGE_CLUSTERS:
+        raise ValueError(f"PAGE_SUP {PAGE_SUP}: a page of {n} clusters is "
+                         f"outside 1..{MAX_PAGE_CLUSTERS}")
+    return n
+
+
+def n_pages_of(scene) -> int:
+    """Pages of the paged walk: the cluster slots in page_clusters()
+    units."""
+    return -(-scene.wk_cbox.shape[0] // page_clusters())
+
+
+def paged_kernel_inputs(scene, o, d, t_min, t_max):
+    """The front of a paged launch (R a multiple of BLOCK).  Returns
+    (f (R, 16), sent/sids (R/128, NSp), pages (R/1024, S) i32,
+    offs/offe (R/128, S) i32, tmax_c (R, 1))."""
+    R = o.shape[0]
+    if R % BLOCK:
+        raise ValueError(f"ray count {R} is not a multiple of {BLOCK}")
+    G = R // BLOCK
+    f, tmin_c, tmax_c = ray_features(o, d, t_min, t_max)
+    pages, sent, sids, offs, offe = _cull_paged(
+        o, d, tmin_c, tmax_c, scene.wk_sbox, G, n_pages_of(scene))
+    nsp, S = sent.shape[-1], pages.shape[-1]
+    return (f, sent.reshape(G * 8, nsp), sids.reshape(G * 8, nsp),
+            pages.contiguous(), offs.reshape(G * 8, S).contiguous(),
+            offe.reshape(G * 8, S).contiguous(), tmax_c)
+
+
+def traversal_kind(scene) -> str:
+    """"paged" for a scene whose attribute table is >= 13 MiB, else
+    "resident" — the JAX package's rule (enable_pallas_if_suitable)."""
+    nbytes = scene.wk_attr.numel() * scene.wk_attr.element_size()
+    return "paged" if nbytes >= PAGED_ATTR_BYTES else "resident"
 
 
 # ------------------------------------------------------------ CUDA kernel
@@ -278,9 +390,10 @@ def load_kernels() -> ctypes.CDLL:
                         [_nvcc()] + NVCC_FLAGS)
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.wave_trace_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                      ci, ci, ci, ci, vp]
+    lib.wave_trace_launch.argtypes = [vp] * 8 + [ci] * 4 + [vp]
     lib.wave_trace_launch.restype = ci
+    lib.wave_trace_paged_launch.argtypes = [vp] * 11 + [ci] * 6 + [vp]
+    lib.wave_trace_paged_launch.restype = ci
     return lib
 
 
@@ -295,16 +408,8 @@ def _check(x, name, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def wave_kernel(f, sent, sids, cbox, attr, any_hit: bool):
-    """Launch the CUDA wave kernel on the current stream.
-
-    f (R, 16) f32 ray features (R % 128 == 0); sent/sids (R/128, NSp)
-    warp lists; cbox (NCp, 8) f32; attr (NCp*16, 128) f32.  Returns
-    (t (R,) f32, tri (R,) i32 cluster*128+slot or -1, tests (2, R) i32:
-    per ray the ray-triangle tests it needs (row 0: the real triangles of
-    the clusters whose slab accepts it, up to an any-hit ray's hit) and
-    the tests its thread ran (row 1)).  Closest hit: t is the nearest hit
-    (t_max clipped to 1e37 on a miss).  Any hit: t = -3e38 on a hit."""
+def _check_common(f, sent, sids, cbox, attr):
+    """Checks shared by both walks; returns (R, nb, nsp, ncp)."""
     R = f.shape[0]
     if R % WARP:
         raise ValueError(f"ray count {R} is not a multiple of {WARP}")
@@ -316,10 +421,29 @@ def wave_kernel(f, sent, sids, cbox, attr, any_hit: bool):
     _check(sids, "sids", torch.int32, (nb, nsp))
     _check(cbox, "cbox", torch.float32, (ncp, 8))
     _check(attr, "attr", torch.float32, (ncp * ATTR_ROWS, CLUSTER))
+    return R, nb, nsp, ncp
+
+
+def _outputs(f):
+    R = f.shape[0]
+    return (torch.empty((R,), dtype=torch.float32, device=f.device),
+            torch.empty((R,), dtype=torch.int32, device=f.device),
+            torch.empty((2, R), dtype=torch.int32, device=f.device))
+
+
+def wave_kernel(f, sent, sids, cbox, attr, any_hit: bool):
+    """Launch the resident CUDA wave kernel on the current stream.
+
+    f (R, 16) f32 ray features (R % 128 == 0); sent/sids (R/128, NSp)
+    warp lists; cbox (NCp, 8) f32; attr (NCp*16, 128) f32.  Returns
+    (t (R,) f32, tri (R,) i32 cluster*128+slot or -1, tests (2, R) i32:
+    per ray the ray-triangle tests it needs (row 0: the real triangles of
+    the clusters whose slab accepts it, up to an any-hit ray's hit) and
+    the tests its thread ran (row 1)).  Closest hit: t is the nearest hit
+    (t_max clipped to 1e37 on a miss).  Any hit: t = -3e38 on a hit."""
+    R, nb, nsp, ncp = _check_common(f, sent, sids, cbox, attr)
     lib = load_kernels()
-    t = torch.empty((R,), dtype=torch.float32, device=f.device)
-    tri = torch.empty((R,), dtype=torch.int32, device=f.device)
-    tests = torch.empty((2, R), dtype=torch.int32, device=f.device)
+    t, tri, tests = _outputs(f)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     err = lib.wave_trace_launch(
         f.data_ptr(), sent.data_ptr(), sids.data_ptr(), cbox.data_ptr(),
@@ -332,27 +456,50 @@ def wave_kernel(f, sent, sids, cbox, attr, any_hit: bool):
     return t, tri, tests
 
 
-def wave_intersect(scene, o, d, t_min, t_max, any_hit: bool = False,
-                   device=None):
-    """Closest-hit (or any-hit) triangle traversal.  o/d (R,3).
+def paged_kernel(f, sent, sids, pages, offs, offe, cbox, attr,
+                 any_hit: bool):
+    """Launch the paged CUDA wave kernel on the current stream.
 
-    Returns (t, tri, u, v); tri is a FlatScene triangle id, -1 on miss;
-    t is t_max on a miss.  For any_hit only `tri >= 0` is meaningful.
-    CUDA tensors launch the kernel (R must be a multiple of 1024, as the
-    dispatch pads it); CPU tensors run the plain version.  `device`
-    (None = CUDA, raising when absent) must be the device the rays live
-    on."""
+    As wave_kernel, plus the paged front's pages (R/1024, S) i32 and
+    offs/offe (R/128, S) i32 (R % 1024 == 0); the walk reads PAGE_SUP at
+    the call.  Returns (t, tri, tests) as wave_kernel does."""
+    R, nb, nsp, ncp = _check_common(f, sent, sids, cbox, attr)
+    if R % BLOCK:
+        raise ValueError(f"ray count {R} is not a multiple of {BLOCK}")
+    S = pages.shape[-1]
+    _check(pages, "pages", torch.int32, (R // BLOCK, S))
+    _check(offs, "offs", torch.int32, (nb, S))
+    _check(offe, "offe", torch.int32, (nb, S))
+    page_clusters()
+    lib = load_kernels()
+    t, tri, tests = _outputs(f)
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    err = lib.wave_trace_paged_launch(
+        f.data_ptr(), sent.data_ptr(), sids.data_ptr(), pages.data_ptr(),
+        offs.data_ptr(), offe.data_ptr(), cbox.data_ptr(), attr.data_ptr(),
+        t.data_ptr(), tri.data_ptr(), tests.data_ptr(), nb, nsp, S, ncp,
+        PAGE_SUP, int(bool(any_hit)), stream)
+    if err != 0:
+        raise RuntimeError(f"wave_trace paged kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["paged_anyhit" if any_hit else "paged_closest"] += 1
+    return t, tri, tests
+
+
+def _rays_on(o, device):
+    """The device the caller asked for, which must be the rays' device."""
     from tungsten_tpu_torch.device import resolve_device
     dev = resolve_device(device)
     if o.device.type != dev.type:
         raise ValueError(f"rays live on {o.device}, asked for {dev}")
-    if not o.is_cuda:
-        from tungsten_tpu_torch.ops.intersect import bvh_walk
-        return bvh_walk(scene, o, d, t_min, t_max, any_hit)
+    return dev
+
+
+def _finish(scene, o, d, t, tri, tmax_c, any_hit):
+    """Kernel output -> (t, tri, u, v): cluster slots remapped to
+    FlatScene triangle ids, misses (and every any-hit lane) at their
+    t_max, closest hits refined by one f32 Moller-Trumbore."""
     R = o.shape[0]
-    f, sent, sids, tmax_c = kernel_inputs(scene, o, d, t_min, t_max)
-    t, tri, _ = wave_kernel(f, sent, sids, scene.wk_cbox, scene.wk_attr,
-                            any_hit)
     hit_ok = t <= -1.0 if any_hit else tri >= 0
     tri = torch.where(
         hit_ok,
@@ -360,7 +507,6 @@ def wave_intersect(scene, o, d, t_min, t_max, any_hit: bool = False,
         -1)
     u = torch.zeros((R,), dtype=torch.float32, device=o.device)
     v = torch.zeros_like(u)
-    # misses (and every any-hit lane) report their t_max
     t = tmax_c[:, 0] if any_hit else torch.where(hit_ok, t, tmax_c[:, 0])
     if not any_hit and scene.tri_v0.shape[0] > 0:
         # winner finalize: one full-f32 Moller-Trumbore per hit ray from
@@ -375,3 +521,41 @@ def wave_intersect(scene, o, d, t_min, t_max, any_hit: bool = False,
         u = torch.where(fine, uf, u)
         v = torch.where(fine, vf, v)
     return t, tri, u, v
+
+
+def wave_intersect(scene, o, d, t_min, t_max, any_hit: bool = False,
+                   device=None):
+    """Closest-hit (or any-hit) triangle traversal through the resident
+    walk.  o/d (R,3).
+
+    Returns (t, tri, u, v); tri is a FlatScene triangle id, -1 on miss;
+    t is t_max on a miss.  For any_hit only `tri >= 0` is meaningful.
+    CUDA tensors launch the kernel (R must be a multiple of 1024, as the
+    dispatch pads it); CPU tensors run the plain version.  `device`
+    (None = CUDA, raising when absent) must be the device the rays live
+    on."""
+    _rays_on(o, device)
+    if not o.is_cuda:
+        from tungsten_tpu_torch.ops.intersect import bvh_walk
+        return bvh_walk(scene, o, d, t_min, t_max, any_hit)
+    f, sent, sids, tmax_c = kernel_inputs(scene, o, d, t_min, t_max)
+    t, tri, _ = wave_kernel(f, sent, sids, scene.wk_cbox, scene.wk_attr,
+                            any_hit)
+    return _finish(scene, o, d, t, tri, tmax_c, any_hit)
+
+
+def wave_intersect_paged(scene, o, d, t_min, t_max, any_hit: bool = False,
+                         device=None):
+    """The same traversal through the paged walk (the JAX package's
+    wave_intersect_paged), for scenes whose attribute table is >= 13 MiB.
+    Same arguments and results as wave_intersect; CPU tensors run the
+    plain version."""
+    _rays_on(o, device)
+    if not o.is_cuda:
+        from tungsten_tpu_torch.ops.intersect import bvh_walk
+        return bvh_walk(scene, o, d, t_min, t_max, any_hit)
+    f, sent, sids, pages, offs, offe, tmax_c = paged_kernel_inputs(
+        scene, o, d, t_min, t_max)
+    t, tri, _ = paged_kernel(f, sent, sids, pages, offs, offe, scene.wk_cbox,
+                             scene.wk_attr, any_hit)
+    return _finish(scene, o, d, t, tri, tmax_c, any_hit)

@@ -8,11 +8,13 @@ equirect env map carries its importance-sampling tables.  FlatScene is
 a dataclass of tensors on one device.
 
 The port flattens what the path-tracer main path renders: quad, cube,
-mesh and infinite_sphere (env map) primitives, lambert and mirror
-BSDFs, area lights and the env light, pinhole cameras, the path_tracer
-integrator.  Anything else raises NotImplementedError naming it.  The
-numbers are the JAX package's: the same host numpy code builds every
-table, so every field is equal to the JAX build (bf16 fields included).
+mesh and infinite_sphere (env map) primitives, the surface BSDFs of
+bsdf/types.py::PORTED_TYPES (nested children are table rows of their
+own, so present_bsdf_types lists them), area lights and the env light,
+pinhole cameras, the path_tracer integrator.  Anything else raises
+NotImplementedError naming it.  The numbers are the JAX package's: the
+same host numpy code builds every table, so every field is equal to the
+JAX build (bf16 fields included).
 """
 from __future__ import annotations
 
@@ -350,11 +352,16 @@ def _to_tensor(x, device, dtype=None) -> torch.Tensor:
 def flat_scene_from_numpy(flds: dict, device=None) -> FlatScene:
     """Build the port's FlatScene from a dict of numpy arrays keyed by
     FlatScene field name — e.g. the fields of a JAX FlatScene — so both
-    packages render the very same scene.  Extra keys are ignored, but a
-    scene with curves, media or analytic primitives (which the port's
-    shading does not handle yet) raises NotImplementedError; `tri_fin` is packed from tri_v0/e1/e2
-    when absent; `bitmaps` is a sequence of (H, W, 3) arrays."""
+    packages render the very same scene, BSDF table included.  Extra keys
+    are ignored, but a scene with curves, media, analytic primitives or
+    fiber BSDFs (which the port's shading does not handle yet) raises
+    NotImplementedError; `tri_fin` is packed from tri_v0/e1/e2 when
+    absent; `bitmaps` is a sequence of (H, W, 3) arrays."""
     dev = resolve_device(device)
+    fiber = {bsdf_types.HAIR, bsdf_types.ROUGH_WIRE,
+             bsdf_types.LAMBERTIAN_FIBER}
+    if fiber & {int(t) for t in np.asarray(flds["bsdf_type"]).ravel()}:
+        raise _unsupported("fiber BSDFs")
     for key, what in (("crv_seg_p0", "curves"),
                       ("med_sigma_a", "participating media"),
                       ("sph_radius", "analytic spheres"),
