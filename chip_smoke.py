@@ -6,8 +6,18 @@
 Phases (any failure exits non-zero):
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
   2. build: the CUDA wave kernels (csrc/wave_trace.cu, nvcc: the resident
-     and the paged walk) and the host BVH library (g++), both compiles
-     started together;
+     and the paged walk), the tensor-core leaf kernel (csrc/leaf_mma.cu,
+     nvcc) and the host BVH library (g++), the three compiles started
+     together;
+  2b. leaf kernels (K4, K5): each of the five kernel rows (mma_loop,
+     mma_loop_stores, leaf_variant_a/b/c) against its plain version,
+     exactly on the TPU tool's all-ones inputs and within the stated
+     tolerance on seeded random bf16 inputs (K4's scratch started random
+     too, since its zeros would hide the product); then the tool's main path
+     (tools/mxubench.py run_all: every K4 shape, the store chain, the
+     three variants) from zero launch counts, timed with CUDA events
+     (median of 5 after a warm-up), with the check that the time per
+     product grows with M*N (nothing dropped or hoisted);
   3. scene: a deterministic lambert + mirror scene written with the
      port's IO (24 UV spheres of 64x32 segments, ~95k triangles, a
      lambert floor, one emissive quad, a procedural 512x256 sky), loaded
@@ -34,7 +44,17 @@ Phases (any failure exits non-zero):
      zero launch counts, only the paged kernels launching, and one more
      under torch.profiler; (d) a 64x64 4-spp image of it against the
      plain path on the CPU;
-  8. the kernels JSON line, then the result line.
+  8. the CLI (cli.render_scene) on the smoke scene at 256x256: (a) with
+     the output buffers (color with sample variance and A/B halves,
+     depth, normal, albedo, visibility) at 16 spp, its color held
+     against phase 5's image of the same samples; (b) with adaptive
+     sampling at 64 spp, spp_step 16 (render_adaptive); launch counts
+     from zero for each, every written file loaded and checked;
+  9. resume: the buffers render to 8 spp with enable_resume_render, then
+     continued to 16, against 8a's uninterrupted 16-spp image;
+  10. the HTTP server on a free port rendering the smoke scene at 64x64
+     in two rounds: /status, /render (PNG) and /log;
+  11. the kernels JSON line, then the result line.
 """
 from __future__ import annotations
 
@@ -631,6 +651,249 @@ def profile_render(render_once) -> None:
             f"{name[:90]}")
 
 
+# ------------------------------------------------------------ leaf kernels
+
+# (row name, its shape (M, K, N), the TPU kernel it replaces)
+LEAF_ROWS = [("mma_loop", (512, 48, 128), "tools_mxubench.py:16"),
+             ("mma_loop_stores", (512, 48, 128), "tools_mxubench.py:16"),
+             ("leaf_variant_a", (2048, 48, 128), "tools_mxubench.py:86"),
+             ("leaf_variant_b", (2048, 48, 128), "tools_mxubench.py:110"),
+             ("leaf_variant_c", (2048, 48, 128), "tools_mxubench.py:122")]
+LEAF_TOL = ("vs plain (torch.matmul in f32 on the bf16 values, in a Python "
+            "loop): on the tool's all-ones inputs row and checksum exactly "
+            "equal; on seeded random bf16 inputs in [-1, 1) (for K4 the "
+            "scratch too starts random, as its zeros hide the product) the "
+            "last product "
+            "within 1e-5 x (max|P| + 1) per element, the row sums within "
+            "1e-5 x iters x (max|P| + 1), the f64 checksum within 1e-6 of "
+            "the l1 norm of what it sums; max_abs_err is the last product's")
+
+
+def leaf_call(mxb, name, a, tbl, plain: bool, full: bool = False):
+    """One run of a leaf row's kernel (or its plain version) at the TPU
+    tool's iteration count: (row, checksum, last product).  For K4 rows
+    `tbl` is the scratch's initial value (None: zeros)."""
+    if name.startswith("mma_loop"):
+        stores = name.endswith("stores")
+        if plain:
+            return mxb.mma_loop_plain(a, 512, mxb.LOOP_ITERS, stores, tbl)
+        return mxb.mma_loop(a, 512, mxb.LOOP_ITERS, stores, full=full,
+                            b0=tbl)
+    v = name[-1]
+    if plain:
+        return mxb.leaf_variant_plain(v, a, tbl)
+    return mxb.leaf_variant(v, a, tbl, full=full)
+
+
+def leaf_inputs(mxb, name, dev, seed=None):
+    """The row's inputs: the tool's all-ones (seed None) or seeded random
+    bf16 in [-1, 1): `a` and the variants' table at its full width, or
+    for K4 rows a random initial scratch (K, 512)."""
+    K, N = mxb.K_LEAF, mxb.N_LEAF
+    rows = mxb.TABLE_ROWS[name[-1]] if name.startswith("leaf") else None
+    if seed is None:
+        return mxb.ones_inputs(K, N, dev, rows)
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(shape):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) \
+            .to(torch.bfloat16)
+    if name.startswith("mma_loop"):
+        return rnd((K, N)), rnd((K, 512))
+    return rnd((K, N)), (rnd((rows, mxb.NCP * 512)) if rows else None)
+
+
+def check_leaf(mxb, dev) -> dict:
+    """Every leaf row against its plain version (exact on ones, the
+    stated tolerance on random inputs) and the plain version's ms per
+    product.  Returns {row name: measurements}."""
+    import torch
+    out = {}
+    for name, (M, K, N), _ in LEAF_ROWS:
+        iters = mxb.LOOP_ITERS if name.startswith("mma") else \
+            mxb.VARIANT_ITERS
+        a1, t1 = leaf_inputs(mxb, name, dev)
+        row, cs, _ = leaf_call(mxb, name, a1, t1, plain=False)
+        prow, pcs, _ = leaf_call(mxb, name, a1, t1, plain=True)
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(row, prow)) and cs.item() == pcs.item()
+        ones_cs = pcs.item()
+        a, t = leaf_inputs(mxb, name, dev, seed=17)
+        row, cs, last = leaf_call(mxb, name, a, t, plain=False, full=True)
+        prow, pcs, plast = leaf_call(mxb, name, a, t, plain=True)
+        torch.cuda.synchronize()
+        scale = plast.abs().amax().item() + 1.0
+        err = (last - plast).abs().amax().item()
+        row_err = (row - prow).abs().amax().item()
+        cs_err = abs(cs.item() - pcs.item())
+        l1 = plast.abs().sum().item() * iters
+        plain_ms = cuda_ms(lambda: leaf_call(mxb, name, a, t, plain=True)) \
+            / iters
+        log(f"  {name} ({M}, {K}, {N}) x {iters}: all-ones row and "
+            f"checksum equal {exact} (checksum {ones_cs:.0f}); random: "
+            f"max |dP| {err:.3e} (scale {scale:.2f}), max |d row| "
+            f"{row_err:.3e}, |d checksum| {cs_err:.3e} (l1 {l1:.3e}); plain "
+            f"{plain_ms * 1e3:.1f} us a product")
+        if not (exact and err <= 1e-5 * scale and
+                row_err <= 1e-5 * iters * scale and cs_err <= 1e-6 * l1 + 1e-6):
+            raise AssertionError(f"{name}: the leaf kernel disagrees with "
+                                 f"its plain version")
+        out[name] = dict(max_abs_err=err, row_err=row_err,
+                         checksum_err=cs_err, plain_ms=plain_ms)
+    return out
+
+
+def time_leaf(mxb, dev, checks) -> tuple[list, dict]:
+    """The tool's main path from zero launch counts; checks that the time
+    per product grows with M*N; returns (kernels-line rows, launches)."""
+    for k in mxb.LAUNCHES:
+        mxb.LAUNCHES[k] = 0
+    results = mxb.run_all(dev)
+    launches = dict(mxb.LAUNCHES)
+    log(f"  launches {launches}")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a leaf kernel never launched {launches}")
+    k4 = {(r["M"], r["K"], r["N"]): r["ns"] for r in results
+          if r["name"] == "mma_loop"}
+    series = [k4[(m, 48, 128)] for m in (128, 256, 512, 1024, 2048)]
+    grows = all(b > a for a, b in zip(series, series[1:])) and \
+        k4[(512, 48, 256)] > k4[(512, 48, 128)] and \
+        k4[(512, 128, 128)] > k4[(512, 48, 128)] > k4[(512, 16, 128)]
+    log(f"  ns per product, K 48 N 128, M 128..2048: "
+        f"{[round(x, 1) for x in series]}; grows with M*N and K {grows}")
+    if not grows:
+        raise AssertionError("leaf kernel time does not grow with the "
+                             "product's size (dropped or hoisted work)")
+    rows = []
+    for name, (M, K, N), replaces in LEAF_ROWS:
+        r = next(x for x in results if x["name"] == name and
+                 (x["M"], x["K"], x["N"]) == (M, K, N))
+        c = checks[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "tungsten_tpu_torch/csrc/leaf_mma.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": c["max_abs_err"], "ms": r["ns"] * 1e-6,
+            "plain_ms": c["plain_ms"], "bound_ms": r["bound_ns"] * 1e-6,
+            "bound_by": r["bound_by"], "library_ms": r["library_ns"] * 1e-6,
+            "sm_bound_ms": r["sm_bound_ns"] * 1e-6,
+            "tolerance": LEAF_TOL, "shape": [M, K, N], "iters": r["iters"],
+            "per": "product", "row_err": c["row_err"],
+            "checksum_err": c["checksum_err"],
+            "staged_bytes_per_iter": r.get("staged_bytes", 0)})
+    return rows, launches
+
+
+# -------------------------------------------------------- entry points
+
+BUFFER_SPECS = [{"type": "color", "hdr_output_file": "color.pfm",
+                 "sample_variance": True, "two_buffer_variance": True},
+                {"type": "depth", "hdr_output_file": "depth.pfm"},
+                {"type": "normal", "hdr_output_file": "normal.pfm"},
+                {"type": "albedo", "hdr_output_file": "albedo.pfm"},
+                {"type": "visibility", "hdr_output_file": "visibility.pfm"}]
+
+
+def scene_variant(path: str, name: str, res: int | None = None,
+                  **renderer) -> str:
+    """The scene file at `path` with its renderer block replaced by
+    `renderer` (and its resolution by `res`), written beside it."""
+    with open(path) as f:
+        sj = json.load(f)
+    sj["renderer"] = renderer
+    if res:
+        sj["camera"]["resolution"] = [res, res]
+    out = os.path.join(os.path.dirname(path), name)
+    with open(out, "w") as f:
+        json.dump(sj, f, indent=1)
+    return out
+
+
+def cli_run(path: str, out_dir: str, twt, res: int, spp=None) -> dict:
+    """cli.render_scene on the card with the wave kernels' launch counts
+    from zero; checks that the resident kernels launched and that every
+    written file exists, loads, is finite and has the frame's shape."""
+    import numpy as np
+    from tungsten_tpu_torch import cli
+    from tungsten_tpu_torch.integrators.checkpoint import (load_resume_state,
+                                                           scene_hash)
+    from tungsten_tpu_torch.io import image as im
+    with open(path) as f:
+        shash = scene_hash(json.load(f))
+    args = cli.build_parser().parse_args([path, "-d", out_dir])
+    args.spp = spp
+    for key in twt.LAUNCHES:
+        twt.LAUNCHES[key] = 0
+    out = cli.render_scene(path, args)
+    out["launches"] = dict(twt.LAUNCHES)
+    if not (out["launches"]["closest"] > 0 and out["launches"]["anyhit"] > 0):
+        raise AssertionError(f"cli: a kernel never launched {out['launches']}")
+    for fn in out["files"]:
+        if fn.endswith(".dat"):
+            ok = load_resume_state(fn, shash) is not None
+        elif fn.endswith(".png"):
+            with open(fn, "rb") as f:
+                ok = im.decode_png(f.read()).shape == (res, res, 3)
+        else:
+            img = im.load_hdr(fn)
+            ok = img.shape == (res, res, 3) and bool(np.isfinite(img).all())
+        if not ok:
+            raise AssertionError(f"cli: {fn} missing, unreadable, not finite "
+                                 f"or of the wrong shape")
+    out["mrays_per_s"] = out["rays"] / max(out["seconds"], 1e-9) / 1e6
+    log(f"  {os.path.basename(path)}: {out['spp']} spp, wall "
+        f"{out['seconds']:.3f} s, {out['rays']} rays, "
+        f"{out['mrays_per_s']:.3f} Mrays/s; launches {out['launches']}; "
+        f"{len(out['files'])} files written and checked")
+    return out
+
+
+def images_agree(name, a, b, rtol, atol, share, mean_tol) -> None:
+    """<= (1 - share) of pixels off by more than rtol/atol and the means
+    within mean_tol (relative)."""
+    import numpy as np
+    close = np.isclose(a, b, rtol=rtol, atol=atol).all(-1).mean()
+    rel = abs(a.mean() / b.mean() - 1.0)
+    log(f"  {name}: {close * 100:.3f} % of pixels within rtol {rtol} / atol "
+        f"{atol}, means {a.mean():.6f} vs {b.mean():.6f} ({rel:.2e})")
+    if not (close >= share and rel <= mean_tol):
+        raise AssertionError(f"{name}: images disagree")
+
+
+def server_run(path: str) -> None:
+    """The HTTP server on a free port rendering `path` in two rounds,
+    then its three endpoints."""
+    import socket
+    import urllib.request
+    from tungsten_tpu_torch import server
+    from tungsten_tpu_torch.io import image as im
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.time()
+    httpd = server.render_with_server([path], port=port, host="127.0.0.1")
+    try:
+        def get(what):
+            return urllib.request.urlopen(f"http://127.0.0.1:{port}/{what}",
+                                          timeout=60).read()
+        st = json.loads(get("status"))
+        png = get("render")
+        logtxt = get("log").decode()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    img = im.decode_png(png)
+    log(f"  server: {time.time() - t0:.2f} s; /status state {st['state']} "
+        f"spp {st['current_spp']}/{st['total_spp']} n_chips {st['n_chips']} "
+        f"{st['mrays_per_s']} Mrays/s; /render PNG {img.shape} max "
+        f"{img.max()}; /log {logtxt.count('Completed')} rounds")
+    if not (st["state"] == "done" and st["current_spp"] == st["total_spp"]
+            and png[:4] == b"\x89PNG" and img.max() > 0 and
+            logtxt.count("Completed") == 2 and st["rays_total"] > 0):
+        raise AssertionError("server: endpoints report no finished render")
+
+
 # -------------------------------------------------------------------- main
 
 def kernel_row(name, mode, m, launches, replaces, tol, extra):
@@ -662,10 +925,12 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
     from tungsten_tpu_torch import native
+    from tungsten_tpu_torch.io import image
     from tungsten_tpu_torch.ops import wave_trace as twt
     from tungsten_tpu_torch.render import render
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     from tungsten_tpu_torch.scene.parse import load_scene
+    from tungsten_tpu_torch.tools import mxubench as mxb
 
     t_start = time.time()
     t_mark = [t_start]
@@ -690,20 +955,32 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     log(card)
 
-    # 2. build (nvcc and g++ at once)
+    # 2. build (both nvcc and g++ at once)
     t0 = time.time()
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         k_fut = ex.submit(twt.load_kernels)
+        l_fut = ex.submit(mxb.load_kernels)
         b_fut = ex.submit(native.get_lib)
         lib = k_fut.result()
+        leaf_lib = l_fut.result()
         bvh_lib = b_fut.result()
-    log(f"build: {time.time() - t0:.2f} s (wave kernels {lib._name}; host "
-        f"BVH build {'native' if bvh_lib is not None else 'numpy'})")
-    with open(lib._name + ".log") as f:
-        for line in f.read().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+    log(f"build: {time.time() - t0:.2f} s (wave kernels {lib._name}; leaf "
+        f"kernel {leaf_lib._name}; host BVH build "
+        f"{'native' if bvh_lib is not None else 'numpy'})")
+    for built in (lib, leaf_lib):
+        with open(built._name + ".log") as f:
+            for line in f.read().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas: {line.strip()}")
     mark("build")
+
+    # 2b. the leaf kernels (K4, K5): checks, then the tool's main path
+    dev = torch.device("cuda")
+    log("leaf kernels vs plain:")
+    leaf_checks = check_leaf(mxb, dev)
+    log("leaf microbenchmark (tools/mxubench.py run_all):")
+    leaf_rows, _ = time_leaf(mxb, dev, leaf_checks)
+    mark("leaf kernels")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 3. scene
@@ -796,8 +1073,61 @@ def main() -> int:
         log("  (d)")
         cross_path(zscene, zsettings, max_bounces=ZOO_CROSS_BOUNCES)
         mark("large scene (d)")
+        del zscene
 
-    # 8. kernels line and result
+        # 8. the CLI at the bench size: output buffers, then adaptive
+        log("cli:")
+        bpath = scene_variant(path, "buffers.json", spp=SPP,
+                              output_file="buffers.png",
+                              hdr_output_file="buffers.pfm",
+                              output_buffers=BUFFER_SPECS)
+        cli_buf = cli_run(bpath, os.path.join(tmp, "cli_buffers"), twt, RES)
+        buf_hdr = image.load_hdr(os.path.join(tmp, "cli_buffers",
+                                              "buffers.pfm"))
+        # the same 16 samples as phase 5's staged render: equal up to the
+        # order of the sums (and ties the two traversal schedules break)
+        images_agree("cli color buffer vs phase 5 image", buf_hdr, img,
+                     1e-3, 1e-4, 0.99, 5e-3)
+        apath = scene_variant(path, "adaptive.json", spp=64, spp_step=16,
+                              output_file="adaptive.png",
+                              hdr_output_file="adaptive.pfm")
+        cli_ad = cli_run(apath, os.path.join(tmp, "cli_adaptive"), twt, RES)
+        if cli_ad["spp"] != 64:
+            raise AssertionError("cli: the adaptive render stopped early")
+        ad_hdr = image.load_hdr(os.path.join(tmp, "cli_adaptive",
+                                             "adaptive.pfm"))
+        # another estimate of the same image (64 adaptive spp): the means
+        images_agree("cli adaptive 64 spp vs phase 5 image (means)", ad_hdr,
+                     img, 1.0, 1.0, 0.0, 0.05)
+        mark("cli")
+
+        # 9. resume: 8 spp, then continued to 16
+        log("resume:")
+        rpath = scene_variant(path, "resume.json", spp=SPP, spp_step=8,
+                              output_file="resume.png",
+                              hdr_output_file="resume.pfm",
+                              enable_resume_render=True,
+                              output_buffers=BUFFER_SPECS)
+        rdir = os.path.join(tmp, "cli_resume")
+        first = cli_run(rpath, rdir, twt, RES, spp=8)
+        second = cli_run(rpath, rdir, twt, RES)
+        if not (first["spp"] == 8 and second["spp"] == SPP):
+            raise AssertionError("resume: wrong sample counts")
+        res_hdr = image.load_hdr(os.path.join(rdir, "resume.pfm"))
+        # the same rays as 8a's, summed in float64 atomics in another
+        # order and traced in other waves (a tie between two triangles at
+        # equal t may break another way)
+        images_agree("resumed 8 + 8 spp vs uninterrupted 16 spp", res_hdr,
+                     buf_hdr, 1e-4, 1e-5, 0.999, 1e-4)
+        mark("resume")
+
+        # 10. the server
+        log("server:")
+        server_run(scene_variant(path, "server.json", res=64, spp=8,
+                                 spp_step=4))
+        mark("server")
+
+    # 11. kernels line and result
     closest_tol = ("vs plain walk: hit-set agreement > 0.998, same triangle "
                    "> 0.999, t within rtol 2e-3 on > 0.999 (the kernel's "
                    "own t and after the finalize), u/v atol 2e-3; "
@@ -818,11 +1148,14 @@ def main() -> int:
                    {"continuation": zcont}),
         kernel_row("wave_trace_paged_anyhit", "paged_anyhit", zshadow,
                    zlaunches, k3, anyhit_tol + paged, {}),
-    ]
+    ] + leaf_rows
     log(f"render_s {stats['time']:.3f} mrays_per_s "
         f"{stats['mrays_per_s']:.3f} large_render_s {zstats['time']:.3f} "
-        f"large_mrays_per_s {zstats['mrays_per_s']:.3f} total_s "
-        f"{time.time() - t_start:.1f}")
+        f"large_mrays_per_s {zstats['mrays_per_s']:.3f} cli_buffers_s "
+        f"{cli_buf['seconds']:.3f} cli_buffers_mrays_per_s "
+        f"{cli_buf['mrays_per_s']:.3f} cli_adaptive_s "
+        f"{cli_ad['seconds']:.3f} cli_adaptive_mrays_per_s "
+        f"{cli_ad['mrays_per_s']:.3f} total_s {time.time() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,7 +10,10 @@ gates against the f32 brute force and against the plain walk on the same
 device, and a small render through the kernels matches the plain path.
 The paged kernel (both modes) passes the same gates on the 5,000-triangle
 soup of tests/test_paged.py with the page shrunk to one super, and
-agrees with the resident kernel ray for ray.
+agrees with the resident kernel ray for ray.  The tensor-core leaf
+kernel (K4, K5: csrc/leaf_mma.cu) agrees with its plain versions on
+seeded random bf16 inputs and exactly on the TPU tool's all-ones inputs,
+and the CLI renders a tiny scene file through the wave kernels.
 """
 from types import SimpleNamespace
 
@@ -302,6 +305,163 @@ def test_cuda_paged_kernel_passes_wave_gates(cuda_device, one_super_pages):
                             tmax_b, True)
     assert np.array_equal(tri_a >= 0, tri_k2 >= 0)
     assert (tri_a[~live] == -1).all()
+
+
+def _bf16(rng, shape, dev):
+    """Seeded uniform [-1, 1) values, rounded to bf16 on the device."""
+    x = rng.uniform(-1.0, 1.0, shape).astype(np.float32)
+    return torch.from_numpy(x).to(dev).to(torch.bfloat16)
+
+
+def _close_to_plain(got, want, iters):
+    """The leaf kernel's (row, checksum, last product) against its plain
+    version's.  bf16 products are exact in f32; the sums differ only in
+    order: the last product within 1e-5 of its l1 scale per element, the
+    row sums within 1e-5 * iters of theirs, the f64 checksum within 1e-6
+    of the l1 norm of everything it adds up."""
+    row, cs, last = got
+    prow, pcs, plast = want
+    scale = plast.abs().amax().item() + 1.0
+    assert torch.allclose(last, plast, rtol=0, atol=1e-5 * scale)
+    assert torch.allclose(row, prow, rtol=0, atol=1e-5 * iters * scale)
+    l1 = plast.abs().sum().item() * iters
+    assert abs(cs.item() - pcs.item()) <= 1e-6 * l1 + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["a", "b", "c"])
+def test_cuda_leaf_variants_match_plain(cuda_device, variant):
+    """K5 on seeded random bf16 inputs (the tables at their full width,
+    70 iterations so the slice index wraps) against the plain version;
+    on the tool's all-ones inputs, row and checksum exactly equal."""
+    from tungsten_tpu_torch.tools import mxubench as mxb
+    rng = np.random.default_rng(21)
+    a = _bf16(rng, (mxb.K_LEAF, mxb.N_LEAF), cuda_device)
+    rows = mxb.TABLE_ROWS[variant]
+    tbl = _bf16(rng, (rows, mxb.NCP * 512), cuda_device) if rows else None
+    before = dict(mxb.LAUNCHES)
+    got = mxb.leaf_variant(variant, a, tbl, iters=70, full=True)
+    assert mxb.LAUNCHES[f"leaf_variant_{variant}"] == \
+        before[f"leaf_variant_{variant}"] + 1
+    _close_to_plain(got, mxb.leaf_variant_plain(variant, a, tbl, 70), 70)
+    a1, t1 = mxb.ones_inputs(mxb.K_LEAF, mxb.N_LEAF, cuda_device, rows)
+    row, cs, _ = mxb.leaf_variant(variant, a1, t1)
+    prow, pcs, _ = mxb.leaf_variant_plain(variant, a1, t1)
+    assert torch.equal(row, prow) and cs.item() == pcs.item()
+    assert cs.item() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(128, 48, 128), (512, 16, 128),
+                                   (512, 128, 128), (256, 48, 256),
+                                   (2048, 48, 128)])
+def test_cuda_leaf_product_layout(cuda_device, M, K, N):
+    """The kernel's product at the K4 shapes on a full random B (staged
+    from a table, as kB stages it) against numpy: every element of the
+    last product, row 0 and the checksum.  K4 itself multiplies a zero
+    scratch or the store chain's few rows, which would hide a fragment
+    indexing mistake."""
+    from tungsten_tpu_torch.tools import mxubench as mxb
+    rng = np.random.default_rng(M + K + N)
+    a = _bf16(rng, (K, N), cuda_device)
+    tbl = _bf16(rng, (K, 3 * mxb.TBL_STEP), cuda_device)
+    p = mxb.make_params(M, N, K, K, 3, mxb._k_steps(None, K), tbl=tbl)
+    got = mxb.leaf_kernel("mma_loop", a, p, tbl, full=True)
+    af = a.float().cpu().numpy().astype(np.float64)
+    tf = tbl.float().cpu().numpy().astype(np.float64)
+    prods = [tf[:, i * mxb.TBL_STEP:i * mxb.TBL_STEP + M].T @ af
+             for i in range(3)]
+    want = (torch.from_numpy(sum(x[0:1] for x in prods)).float(),
+            torch.tensor(sum(x.sum() for x in prods), dtype=torch.float64),
+            torch.from_numpy(prods[-1]).float())
+    _close_to_plain(tuple(x.cpu() for x in got), want, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,stores", [(512, 48, 128, False),
+                                          (512, 48, 128, True),
+                                          (1024, 48, 128, True),
+                                          (512, 16, 128, True)])
+def test_cuda_mma_loop_matches_plain(cuda_device, M, K, N, stores):
+    """K4 against its plain version: random inputs (the scratch started
+    random too, since its zeros would hide the product) within the
+    stated tolerance, the tool's all-ones inputs exactly."""
+    from tungsten_tpu_torch.tools import mxubench as mxb
+    rng = np.random.default_rng(5)
+    a = _bf16(rng, (K, N), cuda_device)
+    b0 = _bf16(rng, (K, M), cuda_device)
+    got = mxb.mma_loop(a, M, iters=9, with_stores=stores, full=True, b0=b0)
+    want = mxb.mma_loop_plain(a, M, 9, stores, b0)
+    assert want[2].abs().amax().item() > 1.0
+    _close_to_plain(got, want, 9)
+    a1, _ = mxb.ones_inputs(K, N, cuda_device)
+    row, cs, _ = mxb.mma_loop(a1, M, with_stores=stores)
+    prow, pcs, _ = mxb.mma_loop_plain(a1, M, mxb.LOOP_ITERS, stores)
+    assert torch.equal(row, prow) and cs.item() == pcs.item()
+    assert (cs.item() > 0) == stores
+
+
+@pytest.mark.cuda
+def test_cuda_cli_renders_a_tiny_scene(cuda_device, tmp_path):
+    """The CLI on the card: a 32x24 scene file with output buffers and
+    more than 16 spp, adaptive sampling left on (so render_adaptive runs
+    for the main image and the buffers come from the AOV wavefront);
+    both wave kernel modes launch, every file it writes loads."""
+    import json
+    from tungsten_tpu_torch import cli
+    from tungsten_tpu_torch.io import image as im
+    scene = {
+        "bsdfs": [{"name": "d", "type": "lambert", "albedo": [0.6, 0.3, 0.2]},
+                  {"name": "m", "type": "mirror", "albedo": 1.0}],
+        "primitives": [
+            {"type": "quad", "bsdf": "d", "emission": [8.0, 8.0, 8.0],
+             "transform": {"position": [0, 2.4, 0], "rotation": [0, 0, 180]}},
+            {"type": "quad", "bsdf": "m",
+             "transform": {"position": [0, -1, 0], "scale": [10, 1, 10]}},
+            {"type": "cube", "bsdf": "d",
+             "transform": {"position": [0.3, -0.4, 0], "scale": 0.8}}],
+        "camera": {"type": "pinhole", "resolution": [32, 24], "fov": 60,
+                   "transform": {"position": [0, 0.6, 4.0],
+                                 "look_at": [0, 0, 0]}},
+        "integrator": {"max_bounces": 8},
+        "renderer": {"spp": 24, "spp_step": 8, "output_file": "tiny.png",
+                     "hdr_output_file": "tiny.pfm"}}
+    path = tmp_path / "tiny.json"
+    path.write_text(json.dumps(scene))
+    args = cli.build_parser().parse_args([str(path)])
+    assert args.device == "cuda"
+    before = dict(twt.LAUNCHES)
+    res = cli.render_scene(str(path), args)
+    assert res["spp"] == 24 and res["rays"] > 0
+    assert all(twt.LAUNCHES[k] > before[k] for k in ("closest", "anyhit"))
+    hdr = im.load_hdr(str(tmp_path / "tiny.pfm"))
+    assert hdr.shape == (24, 32, 3) and np.isfinite(hdr).all()
+    assert hdr.mean() > 0
+    with open(tmp_path / "tiny.png", "rb") as f:
+        assert im.decode_png(f.read()).shape == (24, 32, 3)
+    scene["renderer"] = {"spp": 4, "output_buffers": [
+        {"type": t, "hdr_output_file": f"{t}.pfm"}
+        for t in ("color", "depth", "normal", "albedo", "visibility")]}
+    path.write_text(json.dumps(scene))
+    res = cli.render_scene(str(path), args)
+    assert len(res["files"]) == 6
+    for fn in res["files"][1:]:
+        img = im.load_hdr(fn)
+        assert img.shape == (24, 32, 3) and np.isfinite(img).all(), fn
+
+
+@pytest.mark.cuda
+def test_cuda_leaf_rejects_bad_inputs(cuda_device):
+    from tungsten_tpu_torch.tools import mxubench as mxb
+    a = torch.ones((48, 128), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        mxb.mma_loop(a.float(), 512)
+    with pytest.raises(ValueError, match="slices"):
+        mxb.leaf_variant("b", a, torch.ones((48, 4096), dtype=torch.bfloat16,
+                                            device=cuda_device))
+    p = mxb.make_params(200, 128, 48, 48, 1, mxb._k_steps(None, 48))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mxb.leaf_kernel("mma_loop", a, p)     # M not a multiple of 16
 
 
 @pytest.mark.cuda

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -42,7 +43,10 @@ def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert len(mods) >= 15
     for m in ("bsdf.fresnel", "bsdf.microfacet", "bsdf.eval", "bsdf.types",
-              "ops.wave_trace"):
+              "ops.wave_trace", "cli", "server", "integrators.checkpoint",
+              "tools.mxubench", "tools.denoiser", "tools.hdrmanip",
+              "tools.scenemanip", "tools.obj2json", "tools.json2xml",
+              "utils.debug"):
         assert "tungsten_tpu_torch." + m in mods
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'flax', 'tungsten_tpu'):\n"
@@ -75,16 +79,16 @@ def test_no_forbidden_import_statement(path):
 
 
 def test_cuda_sources_stand_alone():
-    """Every CUDA source of the port is built by the wave-kernel build and
-    has a plain C interface: no PyTorch, ATen or pybind header."""
+    """Every CUDA source of the port is built by its module's kernel build
+    and has a plain C interface: no PyTorch, ATen or pybind header."""
     from tungsten_tpu_torch.ops import wave_trace
+    from tungsten_tpu_torch.tools import mxubench
     csrc = os.path.join(PKG, "csrc")
     cus = sorted(f for f in os.listdir(csrc) if f.endswith((".cu", ".cuh")))
-    assert cus == ["wave_trace.cu"]
-    with open(wave_trace.__file__) as f:
-        built = f.read()
-    for fn in cus:
-        assert f'"csrc/{fn}"' in built, fn
+    assert cus == ["leaf_mma.cu", "wave_trace.cu"]
+    for fn, mod in (("wave_trace.cu", wave_trace), ("leaf_mma.cu", mxubench)):
+        with open(mod.__file__) as f:
+            assert f'"csrc/{fn}"' in f.read(), fn
         with open(os.path.join(csrc, fn)) as f:
             includes = [ln for ln in f if ln.lstrip().startswith("#include")]
         assert includes and not any(
@@ -119,9 +123,26 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         wave_intersect(scene, o, o + 1.0, 0.0, 1.0)
     with pytest.raises(RuntimeError, match="CUDA"):
         wave_intersect_paged(scene, o, o + 1.0, 0.0, 1.0)
+    from tungsten_tpu_torch import cli, server
+    from tungsten_tpu_torch.tools import denoiser, mxubench
+    a = torch.ones((48, 128), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mxubench.bench(128, 48, 128, iters=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mxubench.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        server.render_with_server(["scene.json"], port=0)
+    img3 = np.zeros((4, 4, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        denoiser.nfor_denoise(img3, img3, img3, None, None, None)
+    args = cli.build_parser().parse_args(["scene.json"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.render_scene("scene.json", args)
     # asked for the CPU, the same entry points run
     img = render(scene, settings, spp=1, device="cpu")
     assert img.shape == (8, 8, 3) and (img >= 0).all()
+    assert mxubench.mma_loop(a, 128, 1, True)[0].shape == (1, 128)
 
 
 def test_unported_features_raise():

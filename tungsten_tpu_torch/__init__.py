@@ -8,13 +8,17 @@ The same renderer as the JAX package beside it, module for module:
   cameras/     ray generation, reconstruction filters, tonemaps
   ops/         ray traversal: the CUDA wave kernels (csrc/) and their
                plain PyTorch versions
-  integrators/ wavefront path tracer
-  render.py    the render loop
+  integrators/ wavefront path tracer, checkpoint / resume files
+  render.py    the render loop, adaptive sampling, output buffers
+  cli.py       the `tungsten` CLI;  server.py  the render server
+  tools/       hdrmanip, scenemanip, obj2json, json2xml, the NFOR
+               denoiser, and mxubench (the tensor-core leaf kernel)
 
-Entry points (`flatten_scene`, `render`, `wave_intersect`) run on the
-CUDA device unless the caller passes device="cpu"; they raise when CUDA
-is absent instead of falling back.  The package never imports JAX nor
-anything of `tungsten_tpu`.
+Entry points (`flatten_scene`, `render`, `wave_intersect`, the CLI, the
+server, `mxubench`, `nfor_denoise`) run on the CUDA device unless the
+caller passes device="cpu"; they raise when CUDA is absent instead of
+falling back.  The package never imports JAX nor anything of
+`tungsten_tpu`.
 """
 
 __version__ = "0.1.0"

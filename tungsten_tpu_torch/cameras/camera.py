@@ -90,3 +90,11 @@ def tonemap(name: str, c):
             c < 0.0031308, 12.92 * c,
             1.055 * torch.clamp(c, min=1e-20) ** (1.0 / 2.4) - 0.055)
     raise ValueError(f"unknown tonemap {name}")
+
+
+def tonemap_image(name: str, hdr):
+    """A linear HDR image (numpy, any float dtype) tonemapped and clipped
+    to [0, 1] as float32 numpy, ready for an 8-bit writer."""
+    import numpy as np
+    c = torch.from_numpy(np.ascontiguousarray(hdr, dtype=np.float32))
+    return np.clip(tonemap(name, c).numpy(), 0.0, 1.0)

@@ -77,12 +77,16 @@ def _light_select_pmf(scene, settings, p, li):
 
 # ----------------------------------------------------------------- NEE
 
-def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base):
+def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
+         want_tr: bool = False):
     """Next-event estimation toward one chosen light (one-sample MIS: the
     light strategy only; the continuation ray carries the bsdf strategy).
     The shadow segment runs through the any-hit traversal with its own
     ray sort.  Returns ((R,3) contribution excluding path throughput,
-    number of shadow rays traced)."""
+    number of shadow rays traced, and with want_tr (tr (R,3), tr_valid
+    (R,)): the shadow transmittance, valid only where the shadow ray was
+    traced — the visibility AOV's input, ref PathTracer.cpp:92-93 — else
+    None)."""
     p = ctx["p"]
     R = p.shape[0]
     sobol = settings.stratified_sampler
@@ -136,7 +140,8 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base):
     mis_l = L.power_heuristic(pdf * pmf, pdf_counter)
     out = f * tr * emis / torch.clamp(pdf, min=1e-20)[..., None] \
         * mis_l[..., None] * sel_weight[..., None]
-    return out, torch.sum(do_shadow.to(torch.int64))
+    return (out, torch.sum(do_shadow.to(torch.int64)),
+            (tr, do_shadow) if want_tr else None)
 
 
 # ------------------------------------------------------------ hit expand
@@ -284,6 +289,19 @@ def _init_state(scene, settings, pixel, sample_idx, seed):
     if _one_sample_mis(settings):
         # pdf of the bsdf sample that produced the current ray
         state["pdf_fwd"] = torch.zeros((R,), dtype=torch.float32, device=dev)
+    if settings.track_aovs:
+        # output-value tracking (ref PathTracer.cpp:43-44,78-96): recorded
+        # once per path at the first non-specular (or terminating) surface
+        # vertex; hit distance accumulates across the leading specular
+        # chain.  Each AOV is (value, count).
+        def z(c):
+            return torch.zeros((R, c), dtype=torch.float32, device=dev)
+        state.update(aov_recorded=torch.zeros((R,), dtype=torch.bool,
+                                              device=dev),
+                     aov_dist=torch.zeros((R,), dtype=torch.float32,
+                                          device=dev),
+                     aov_depth=z(2), aov_normal=z(4), aov_albedo=z(4),
+                     aov_vis=z(2))
     return state
 
 
@@ -390,12 +408,14 @@ def _make_bounce_body(scene, settings, seed):
 
         # ---- NEE; the continuation ray is traced at the NEXT body's top
         nee_rays = 0
+        tr_nee = None
         if els and settings.num_lights > 0:
             do_nee = shade & (bounce < settings.max_bounces - 1)
             ctx = dict(p=info["p"], sp=sp, frame=(tan, bit, ns),
                        wi_local=wi_local, gate=do_nee)
-            nee, nee_rays = _nee(scene, settings, ctx, seed, pixel,
-                                 sample_idx, dim_base)
+            nee, nee_rays, tr_nee = _nee(scene, settings, ctx, seed, pixel,
+                                         sample_idx, dim_base,
+                                         want_tr=settings.track_aovs)
             emission = emission + torch.where(do_nee[..., None],
                                               nee * throughput, 0.0)
 
@@ -435,6 +455,38 @@ def _make_bounce_body(scene, settings, seed):
         )
         if one_sample:
             out["pdf_fwd"] = torch.where(shade & ok, pdf, s["pdf_fwd"])
+        if "lane" in s:
+            out["lane"] = s["lane"]
+
+        # ---- output-value capture (ref PathTracer.cpp:78-96,133-140):
+        # depth/normal/albedo/visibility at the first non-specular or
+        # terminating surface vertex; escapes record normal/env-albedo ----
+        if settings.track_aovs:
+            def add(buf, val, mask):
+                c = mask.to(torch.float32)[..., None]
+                if val.ndim == 1:
+                    val = val[..., None]
+                return buf + torch.cat([val * c, c], dim=-1)
+
+            aov_dist = s["aov_dist"] + torch.where(active, res["t"], 0.0)
+            rec = shade & ~s["aov_recorded"] & (~was_specular | (active & ~ok))
+            esc = escaped & ~s["aov_recorded"]
+            depth = add(s["aov_depth"], aov_dist, rec)
+            # escaped primaries record depth 0 (PathTracer.cpp:134-135)
+            depth = add(depth, torch.zeros_like(aov_dist), esc & (bounce == 0))
+            normal = add(add(s["aov_normal"], info["ns"], rec), -s["d"], esc)
+            albedo = add(s["aov_albedo"], sp.albedo + torch.where(
+                is_emissive[..., None], e_hit, 0.0), rec)
+            if settings.has_env:
+                albedo = add(albedo, L.env_eval(scene, s["d"], active=esc),
+                             esc)
+            vis = s["aov_vis"]
+            if tr_nee is not None:
+                vis = add(vis, torch.mean(tr_nee[0], dim=-1),
+                          rec & tr_nee[1])
+            out.update(aov_recorded=s["aov_recorded"] | rec | esc,
+                       aov_dist=aov_dist, aov_depth=depth, aov_normal=normal,
+                       aov_albedo=albedo, aov_vis=vis)
         return out
 
     return body
@@ -454,17 +506,63 @@ def run_bounces(scene, settings, seed, state, bounce_end):
     return state
 
 
-def bank_emission(state, n_total):
-    """Scatter every ray's accumulated radiance into an (n_total, 3)
-    framebuffer by pixel id (rays with pixel >= n_total are dropped).
-    index_add_ uses atomics on CUDA, so the summation order of rays that
-    share a pixel varies from run to run there."""
-    pix = torch.clamp(state["pixel"], 0, n_total - 1).long()
-    em = state["emission"]
-    em = torch.where(torch.isfinite(em), em, 0.0)
-    em = torch.where((state["pixel"] < n_total)[..., None], em, 0.0)
-    fb = torch.zeros((n_total, 3), dtype=torch.float32, device=em.device)
-    return fb.index_add_(0, pix, em)
+def trace_wave(scene, settings, pixel, sample_idx, seed, with_stats=False,
+               min_wave: int = 4096, step: int = 2):
+    """Trace one radiance sample per entry; pixel/sample_idx (R,) int32.
+    Returns radiance (R,3), or (radiance, rays traced as a 0-d int64
+    tensor) with stats.  The staged loop, banking by lane."""
+    banks, rays = _staged(scene, settings, pixel, sample_idx, seed,
+                          pixel.shape[0], min_wave, step, key="lane")
+    if with_stats:
+        return banks["emission"], rays
+    return banks["emission"]
+
+
+def trace_wave_aovs(scene, settings, pixel, sample_idx, seed,
+                    with_stats=False, min_wave: int = 4096, step: int = 2):
+    """Trace one sample per entry with output-value tracking.  Returns
+    (radiance (R,3), aovs) where aovs maps depth/normal/albedo/visibility
+    to (value, count) arrays — count is 0 or 1 per sample, as the
+    reference's per-AOV OutputBuffer::addSample counts
+    (OutputBuffer.hpp:88-130); with stats also the rays traced."""
+    from dataclasses import replace
+    settings = replace(settings, track_aovs=True)
+    banks, rays = _staged(scene, settings, pixel, sample_idx, seed,
+                          pixel.shape[0], min_wave, step, key="lane")
+    aovs = dict(depth=banks["aov_depth"], normal=banks["aov_normal"],
+                albedo=banks["aov_albedo"], visibility=banks["aov_vis"])
+    if with_stats:
+        return banks["emission"], aovs, rays
+    return banks["emission"], aovs
+
+
+# per-ray sums that retire into banks: radiance and each AOV's (value,
+# count); everything else in the state is carried
+ACCUMULATORS = ("emission", "aov_depth", "aov_normal", "aov_albedo",
+                "aov_vis")
+
+
+def bank(state, n_total, key="pixel"):
+    """Scatter every ray's accumulators into (n_total, C) buffers by
+    state[key] (rays with key >= n_total are dropped).  By pixel (the
+    framebuffer) non-finite radiance is dropped too; by lane it is kept,
+    so each sample comes back as traced.  index_add_ uses atomics on
+    CUDA, so the summation order of rays that share a pixel varies from
+    run to run there."""
+    idx = state[key]
+    keep = (idx < n_total)[..., None]
+    idx = torch.clamp(idx, 0, n_total - 1).long()
+    out = {}
+    for k in ACCUMULATORS:
+        if k not in state:
+            continue
+        v = state[k]
+        if k == "emission" and key == "pixel":
+            v = torch.where(torch.isfinite(v), v, 0.0)
+        v = torch.where(keep, v, 0.0)
+        out[k] = torch.zeros((n_total, v.shape[1]), dtype=torch.float32,
+                             device=v.device).index_add_(0, idx, v)
+    return out
 
 
 def _gather_rows(state, idx):
@@ -500,13 +598,13 @@ def _gather_rows(state, idx):
 
 def compact_wave(state, new_r: int):
     """Gather alive rays to the front (stable) and slice to new_r rows;
-    zeroes the emission accumulator (bank_emission must be called
-    first)."""
+    zeroes the accumulators (bank must be called first)."""
     order = torch.argsort(torch.where(state["alive"], 0, 1).to(torch.int32),
                           stable=True)
     out = _gather_rows(state, order[:new_r])
-    out["emission"] = torch.zeros((new_r, 3), dtype=torch.float32,
-                                  device=out["alive"].device)
+    for k in ACCUMULATORS:
+        if k in out:
+            out[k] = torch.zeros_like(out[k])
     # compacted-away padding must not resurrect
     out["alive"] = out["alive"] & (
         torch.arange(new_r, device=out["alive"].device) <
@@ -514,27 +612,42 @@ def compact_wave(state, new_r: int):
     return out
 
 
-def trace_wave_staged(scene, settings, pixel, sample_idx, seed,
-                      n_total: int, min_wave: int = 4096, step: int = 2):
+def _staged(scene, settings, pixel, sample_idx, seed, n_total: int,
+            min_wave: int, step: int, key: str):
     """The width-staged bounce schedule: run the bounce body at a fixed
     width until the survivors fit the next width (width // step), bank
-    every ray's radiance into the framebuffer, compact, repeat down to
-    min_wave, then run the tail to extinction.  Returns ((n_total, 3)
-    framebuffer sum, rays traced as a 0-d int64 tensor)."""
+    every ray's accumulators by `key`, compact, repeat down to min_wave,
+    then run the tail to extinction.  key "pixel" banks into the
+    framebuffer; key "lane" banks by input entry (n_total = R), which
+    undoes the body's sort and the compactions.  Returns ({accumulator:
+    (n_total, C) sum}, rays traced as a 0-d int64 tensor)."""
     body = _make_bounce_body(scene, settings, seed)
     state = _init_state(scene, settings, pixel, sample_idx, seed)
-    fb = torch.zeros((n_total, 3), dtype=torch.float32, device=pixel.device)
+    if key == "lane":
+        state["lane"] = torch.arange(pixel.shape[0], dtype=torch.int32,
+                                     device=pixel.device)
+    banks = None
     w = pixel.shape[0]
-    while w // step >= min_wave:
+    while True:
         nxt = w // step
-        while state["bounce"] < settings.max_bounces and \
-                int(torch.sum(state["alive"])) > nxt:
+        last = nxt < min_wave
+        while state["bounce"] < settings.max_bounces and (
+                bool(state["alive"].any()) if last
+                else int(torch.sum(state["alive"])) > nxt):
             state = body(state)
-        fb = fb + bank_emission(state, n_total)
+        part = bank(state, n_total, key)
+        banks = part if banks is None else \
+            {k: banks[k] + v for k, v in part.items()}
+        if last:
+            return banks, state["rays"]
         state = compact_wave(state, nxt)
         w = nxt
-    while state["bounce"] < settings.max_bounces and \
-            bool(state["alive"].any()):
-        state = body(state)
-    fb = fb + bank_emission(state, n_total)
-    return fb, state["rays"]
+
+
+def trace_wave_staged(scene, settings, pixel, sample_idx, seed,
+                      n_total: int, min_wave: int = 4096, step: int = 2):
+    """The staged loop banking into the framebuffer.  Returns ((n_total,
+    3) framebuffer sum, rays traced as a 0-d int64 tensor)."""
+    banks, rays = _staged(scene, settings, pixel, sample_idx, seed, n_total,
+                          min_wave, step, key="pixel")
+    return banks["emission"], rays

@@ -1,12 +1,16 @@
 """Host-side image IO (port of tungsten_tpu/io/image.py): Radiance HDR
-(RGBE), PFM and uncompressed/zip EXR in numpy, and LDR formats
-(PNG/JPG/..., load only, through PIL).
+(RGBE), PFM and uncompressed/zip EXR in numpy, LDR loads through PIL,
+and 8-bit PNG written and read with zlib alone (other LDR writes need
+PIL).
 
 Parity notes (ref: src/core/io/ImageIO.cpp:159-163,367-375,493,610-622):
 extension dispatch; HDR formats hold linear radiance; LDR loads are
 gamma-2.2 expanded to linear unless the caller asks for raw values.
 """
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -318,5 +322,98 @@ def load_ldr(path, gamma: bool = True) -> np.ndarray:
     return img
 
 
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data +
+            struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """An (H, W, 3) [0, 1] float image as 8-bit RGB PNG bytes (zlib and
+    struct only: the machines the port runs on may lack PIL)."""
+    arr = np.clip(np.asarray(img, np.float64) * 255.0 + 0.5, 0, 255) \
+        .astype(np.uint8)
+    if arr.ndim == 2:
+        arr = np.repeat(arr[..., None], 3, axis=-1)
+    h, w = arr.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           arr[..., :3].reshape(h, w * 3)], axis=1)
+    return (b"\x89PNG\r\n\x1a\n" +
+            _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """8-bit RGB or RGBA, non-interlaced PNG bytes -> (H, W, 3) uint8 (the
+    PNGs encode_png writes, and those of other 8-bit writers)."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, idat, w = 8, [], 0
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB",
+                                                                body)
+            if depth != 8 or ctype not in (2, 6) or interlace:
+                raise ValueError("only 8-bit RGB/RGBA non-interlaced PNG")
+            bpp = 3 if ctype == 2 else 4
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    stride = w * bpp
+    raw = raw.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.int32)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ft, line = raw[y, 0], raw[y, 1:].astype(np.int32)
+        cur = np.zeros(stride, np.int32)
+        if ft in (0, 2):   # none / up: no dependence along the row
+            out[y] = prev = (line + (prev if ft == 2 else 0)) & 0xFF
+            continue
+        for x in range(stride):
+            a = cur[x - bpp] if x >= bpp else 0
+            b = prev[x]
+            c = prev[x - bpp] if x >= bpp else 0
+            if ft == 0:
+                pred = 0
+            elif ft == 1:
+                pred = a
+            elif ft == 2:
+                pred = b
+            elif ft == 3:
+                pred = (a + b) // 2
+            else:
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            cur[x] = (line[x] + pred) & 0xFF
+        out[y] = cur
+        prev = cur
+    return out.reshape(h, w, bpp)[..., :3].astype(np.uint8)
+
+
+def save_ldr(path, img: np.ndarray) -> None:
+    """Save a [0,1] float image as 8-bit (values assumed display-ready —
+    tonemapping happens upstream, as in the reference's Camera outputs).
+    PNG is written by encode_png; other formats need PIL."""
+    if str(path).lower().endswith(".png"):
+        with open(path, "wb") as f:
+            f.write(encode_png(img))
+        return
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            f"saving {path}: only .png is written without PIL, which is not "
+            f"installed; use a .png or an HDR (.pfm/.exr/.hdr) name") from e
+    arr = np.clip(np.asarray(img) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    Image.fromarray(arr).save(str(path))
+
+
 def load_image(path) -> np.ndarray:
     return load_hdr(path) if is_hdr(path) else load_ldr(path)
+

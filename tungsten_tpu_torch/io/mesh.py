@@ -130,6 +130,22 @@ def load_mesh(path) -> Mesh:
     raise ValueError(f"unsupported mesh format: {p}")
 
 
+def save_obj(path, mesh: Mesh) -> None:
+    """Write a Wavefront OBJ (v/vn/vt + unified-index faces) — the
+    wo3 -> obj export path (ref MeshIO::save + json2xml)."""
+    with open(path, "w") as f:
+        f.write("# exported by tungsten_tpu\n")
+        for p in mesh.pos:
+            f.write(f"v {p[0]:g} {p[1]:g} {p[2]:g}\n")
+        for n in mesh.normal:
+            f.write(f"vn {n[0]:g} {n[1]:g} {n[2]:g}\n")
+        for t in mesh.uv:
+            f.write(f"vt {t[0]:g} {t[1]:g}\n")
+        for tri in mesh.indices:
+            a, b, c = (int(i) + 1 for i in tri)
+            f.write(f"f {a}/{a}/{a} {b}/{b}/{b} {c}/{c}/{c}\n")
+
+
 def compute_smooth_normals(mesh: Mesh) -> np.ndarray:
     """Area-weighted vertex normals (used when `recompute_normals` is set or
     a mesh has no normals)."""

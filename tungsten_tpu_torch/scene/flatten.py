@@ -205,6 +205,10 @@ class RenderSettings:
     has_sphere_lights: bool = False
     has_area_lights: bool = True
     integrator_type: str = "path_tracer"
+    # output buffers (ref OutputBufferSettings): when True the wavefront
+    # tracks depth/normal/albedo/visibility at the first non-specular
+    # vertex (PathTracer.cpp:78-96) alongside the radiance
+    track_aovs: bool = False
 
 
 _UNIT_QUAD_UV = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
