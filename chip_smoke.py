@@ -12,12 +12,15 @@ Phases (any failure exits non-zero):
   2b. leaf kernels (K4, K5): each of the five kernel rows (mma_loop,
      mma_loop_stores, leaf_variant_a/b/c) against its plain version,
      exactly on the TPU tool's all-ones inputs and within the stated
-     tolerance on seeded random bf16 inputs (K4's scratch started random
-     too, since its zeros would hide the product); then the tool's main path
-     (tools/mxubench.py run_all: every K4 shape, the store chain, the
-     three variants) from zero launch counts, timed with CUDA events
-     (median of 5 after a warm-up), with the check that the time per
-     product grows with M*N (nothing dropped or hoisted);
+     tolerance on seeded random bf16 inputs over the whole last product
+     (K4's scratch started random too, since its zeros would hide the
+     product), and its launch held to one block bitwise equal to the full
+     grid; then the tool's main path (tools/mxubench.py run_all: every K4
+     shape, the store chain, the three variants, each on one block a
+     64x64 tile) from zero launch counts, timed with CUDA events (median
+     of 5 after a warm-up), and the check that nothing is dropped or
+     hoisted (time per product growing with M*N on the one-block launch,
+     with K on the tool's grid);
   3. scene: a deterministic lambert + mirror scene written with the
      port's IO (24 UV spheres of 64x32 segments, ~95k triangles, a
      lambert floor, one emissive quad, a procedural 512x256 sky), loaded
@@ -39,7 +42,10 @@ Phases (any failure exits non-zero):
      type, glass spheres, a mixed and a coated BSDF with children, a
      null-BSDF light): (a) its size and walk; (b) both paged kernel modes
      on its camera, continuation and shadow rays against the plain walk
-     and against the resident kernels on the same rays, all timed;
+     and against the resident kernels on the same rays, all timed, the
+     closest-hit kernel running at most 1.5x the tests its rays need
+     (the resident kernel's count on the same rays), and timed against
+     the resident kernel on 1,024 to 65,536 rays;
      (c) its full-width render (256x256, 16 spp, max_bounces 64) from
      zero launch counts, only the paged kernels launching, and one more
      under torch.profiler; (d) a 64x64 4-spp image of it against the
@@ -448,6 +454,20 @@ def check_closest(scene, name, o, d, t_max):
     n_tests, n_ran = tri_test_counts(tests)
     b, by = bound_ms(scene, k, min(n_tests, out.get("resident_tests",
                                                      n_tests)))
+    if k["paged"]:
+        # the closest-hit paged kernel tests only each ray's own clusters;
+        # its own needed count comes from the same loop as its run count,
+        # so the gate holds the tests it ran against the resident
+        # kernel's needed count on the same rays, counted on its own
+        need = min(n_tests, out["resident_tests"])
+        log(f"  {name}: tests run / needed {n_ran / max(need, 1):.4f} "
+            f"(own needed {n_tests}, resident needed "
+            f"{out['resident_tests']}), kernel / resident kernel time "
+            f"{ms / out['resident_ms']:.3f}")
+        if n_ran > 1.5 * need:
+            raise AssertionError(f"{name}: the paged kernel ran more than "
+                                 f"1.5x the tests its rays need")
+        out["by_width"] = closest_by_width(scene, o, d, t_max, name)
     hit_share = (tri >= 0).float().mean().item()
     log(f"  {name}: {o.shape[0]} rays ({int(live.sum())} live, hit share "
         f"{hit_share:.4f}), {n_tests} ray-triangle tests needed, {n_ran} run"
@@ -461,6 +481,27 @@ def check_closest(scene, name, o, d, t_max):
                bound_by=by, max_abs_err=err, max_abs_err_final=err_final,
                rays=int(o.shape[0]), tests=n_tests, tests_run=n_ran,
                hits=(t, tri, k))
+    return out
+
+
+WIDTHS = (1024, 8192, 65536)   # narrow waves, as late bounces leave
+
+
+def closest_by_width(scene, o, d, t_max, name) -> dict:
+    """The paged closest-hit kernel against the resident one on the first
+    w rays of a ray set, for the narrow widths of a render's late bounces:
+    a cost that each block pays whatever its rays (the merge over the
+    slot heads) shows as a ratio that grows as the wave narrows."""
+    out = {}
+    for w in WIDTHS:
+        if w > o.shape[0]:
+            break
+        k = kernel_inputs(scene, o[:w], d[:w], t_max[:w])
+        ms = cuda_ms(lambda: launch(scene, k, False))
+        res_ms = cuda_ms(lambda: launch(scene, k, False, resident=True))
+        out[str(w)] = {"ms": ms, "resident_ms": res_ms}
+        log(f"  {name}, first {w} rays: kernel {ms:.4f} ms, resident "
+            f"kernel {res_ms:.4f} ms ({ms / res_ms:.3f})")
     return out
 
 
@@ -669,20 +710,22 @@ LEAF_TOL = ("vs plain (torch.matmul in f32 on the bf16 values, in a Python "
             "the l1 norm of what it sums; max_abs_err is the last product's")
 
 
-def leaf_call(mxb, name, a, tbl, plain: bool, full: bool = False):
+def leaf_call(mxb, name, a, tbl, plain: bool, full: bool = False,
+              blocks: int = 0):
     """One run of a leaf row's kernel (or its plain version) at the TPU
     tool's iteration count: (row, checksum, last product).  For K4 rows
-    `tbl` is the scratch's initial value (None: zeros)."""
+    `tbl` is the scratch's initial value (None: zeros); blocks > 0 caps
+    the kernel's grid."""
     if name.startswith("mma_loop"):
         stores = name.endswith("stores")
         if plain:
             return mxb.mma_loop_plain(a, 512, mxb.LOOP_ITERS, stores, tbl)
         return mxb.mma_loop(a, 512, mxb.LOOP_ITERS, stores, full=full,
-                            b0=tbl)
+                            b0=tbl, blocks=blocks)
     v = name[-1]
     if plain:
         return mxb.leaf_variant_plain(v, a, tbl)
-    return mxb.leaf_variant(v, a, tbl, full=full)
+    return mxb.leaf_variant(v, a, tbl, full=full, blocks=blocks)
 
 
 def leaf_inputs(mxb, name, dev, seed=None):
@@ -706,8 +749,10 @@ def leaf_inputs(mxb, name, dev, seed=None):
 
 def check_leaf(mxb, dev) -> dict:
     """Every leaf row against its plain version (exact on ones, the
-    stated tolerance on random inputs) and the plain version's ms per
-    product.  Returns {row name: measurements}."""
+    stated tolerance on random inputs, over the whole last product), the
+    one-block launch bitwise equal to the tool's grid on the random
+    inputs, and the plain version's ms per product.  Returns {row name:
+    measurements}."""
     import torch
     out = {}
     for name, (M, K, N), _ in LEAF_ROWS:
@@ -721,8 +766,11 @@ def check_leaf(mxb, dev) -> dict:
         ones_cs = pcs.item()
         a, t = leaf_inputs(mxb, name, dev, seed=17)
         row, cs, last = leaf_call(mxb, name, a, t, plain=False, full=True)
+        one = leaf_call(mxb, name, a, t, plain=False, full=True, blocks=1)
         prow, pcs, plast = leaf_call(mxb, name, a, t, plain=True)
         torch.cuda.synchronize()
+        same_grid = all(bool(torch.equal(x, y))
+                        for x, y in zip((row, cs, last), one))
         scale = plast.abs().amax().item() + 1.0
         err = (last - plast).abs().amax().item()
         row_err = (row - prow).abs().amax().item()
@@ -733,9 +781,10 @@ def check_leaf(mxb, dev) -> dict:
         log(f"  {name} ({M}, {K}, {N}) x {iters}: all-ones row and "
             f"checksum equal {exact} (checksum {ones_cs:.0f}); random: "
             f"max |dP| {err:.3e} (scale {scale:.2f}), max |d row| "
-            f"{row_err:.3e}, |d checksum| {cs_err:.3e} (l1 {l1:.3e}); plain "
+            f"{row_err:.3e}, |d checksum| {cs_err:.3e} (l1 {l1:.3e}); one "
+            f"block equals the grid {same_grid}; plain "
             f"{plain_ms * 1e3:.1f} us a product")
-        if not (exact and err <= 1e-5 * scale and
+        if not (exact and same_grid and err <= 1e-5 * scale and
                 row_err <= 1e-5 * iters * scale and cs_err <= 1e-6 * l1 + 1e-6):
             raise AssertionError(f"{name}: the leaf kernel disagrees with "
                                  f"its plain version")
@@ -744,9 +793,18 @@ def check_leaf(mxb, dev) -> dict:
     return out
 
 
+# the anti-hoisting series: K 48, N 128, M from 128 to 2048
+GUARD_M = (128, 256, 512, 1024, 2048)
+
+
 def time_leaf(mxb, dev, checks) -> tuple[list, dict]:
-    """The tool's main path from zero launch counts; checks that the time
-    per product grows with M*N; returns (kernels-line rows, launches)."""
+    """The tool's main path from zero launch counts, every row on more
+    than one block; then the check that nothing is dropped or hoisted.
+    On the tool's grid (one 64x64 tile a block) the time per product is
+    flat in M and N by design, so the M series and the N step run on a
+    launch held to one block, which walks every tile: there the time must
+    grow with M*N; the K steps (more wgmma a tile) must grow on the
+    tool's grid.  Returns (kernels-line rows, launches)."""
     for k in mxb.LAUNCHES:
         mxb.LAUNCHES[k] = 0
     results = mxb.run_all(dev)
@@ -754,14 +812,21 @@ def time_leaf(mxb, dev, checks) -> tuple[list, dict]:
     log(f"  launches {launches}")
     if not all(v > 0 for v in launches.values()):
         raise AssertionError(f"a leaf kernel never launched {launches}")
+    if not all(r["blocks"] > 1 for r in results):
+        raise AssertionError("a leaf row ran on one block")
     k4 = {(r["M"], r["K"], r["N"]): r["ns"] for r in results
           if r["name"] == "mma_loop"}
-    series = [k4[(m, 48, 128)] for m in (128, 256, 512, 1024, 2048)]
+    one = {(m, 48, n): mxb.bench(m, 48, n, device=dev, blocks=1)["ns"]
+           for m, n in [(m, 128) for m in GUARD_M] + [(512, 256)]}
+    series = [one[(m, 48, 128)] for m in GUARD_M]
     grows = all(b > a for a, b in zip(series, series[1:])) and \
-        k4[(512, 48, 256)] > k4[(512, 48, 128)] and \
+        one[(512, 48, 256)] > one[(512, 48, 128)] and \
         k4[(512, 128, 128)] > k4[(512, 48, 128)] > k4[(512, 16, 128)]
-    log(f"  ns per product, K 48 N 128, M 128..2048: "
-        f"{[round(x, 1) for x in series]}; grows with M*N and K {grows}")
+    log(f"  ns per product on one block, K 48 N 128, M {list(GUARD_M)}: "
+        f"{[round(x, 1) for x in series]}, N 256 at M 512: "
+        f"{one[(512, 48, 256)]:.1f}; on the tool's grid at (512, N 128), K "
+        f"16 / 48 / 128: {k4[(512, 16, 128)]:.1f} / {k4[(512, 48, 128)]:.1f}"
+        f" / {k4[(512, 128, 128)]:.1f}; grows with M*N and K {grows}")
     if not grows:
         raise AssertionError("leaf kernel time does not grow with the "
                              "product's size (dropped or hoisted work)")
@@ -777,7 +842,7 @@ def time_leaf(mxb, dev, checks) -> tuple[list, dict]:
             "max_abs_err": c["max_abs_err"], "ms": r["ns"] * 1e-6,
             "plain_ms": c["plain_ms"], "bound_ms": r["bound_ns"] * 1e-6,
             "bound_by": r["bound_by"], "library_ms": r["library_ns"] * 1e-6,
-            "sm_bound_ms": r["sm_bound_ns"] * 1e-6,
+            "blocks": r["blocks"], "sm_bound_ms": r["sm_bound_ns"] * 1e-6,
             "tolerance": LEAF_TOL, "shape": [M, K, N], "iters": r["iters"],
             "per": "product", "row_err": c["row_err"],
             "checksum_err": c["checksum_err"],
@@ -906,7 +971,8 @@ def kernel_row(name, mode, m, launches, replaces, tol, extra):
            "bound_by": m["bound_by"], "library_ms": None, "tolerance": tol}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
             "max_abs_err_final", "rays", "tests", "tests_run", "wrapper_ms",
-            "resident_ms", "resident_tests", "resident_tests_run")
+            "resident_ms", "resident_tests", "resident_tests_run",
+            "by_width")
     row.update({x: m[x] for x in keys if x in m and x not in row})
     for k, v in extra.items():
         row[k] = {x: v[x] for x in keys if x in v}

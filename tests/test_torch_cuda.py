@@ -10,10 +10,15 @@ gates against the f32 brute force and against the plain walk on the same
 device, and a small render through the kernels matches the plain path.
 The paged kernel (both modes) passes the same gates on the 5,000-triangle
 soup of tests/test_paged.py with the page shrunk to one super, and
-agrees with the resident kernel ray for ray.  The tensor-core leaf
-kernel (K4, K5: csrc/leaf_mma.cu) agrees with its plain versions on
-seeded random bf16 inputs and exactly on the TPU tool's all-ones inputs,
-and the CLI renders a tiny scene file through the wave kernels.
+agrees with the resident kernel ray for ray; its closest-hit kernel
+does so too where coherent bundles spread each block over several pages
+with interleaved entries, running at most 1.5x the tests its rays need,
+and where zero-area triangles sit inside clusters before real ones.
+The tensor-core leaf kernel (K4, K5: csrc/leaf_mma.cu) agrees with its
+plain versions on seeded random bf16 inputs and exactly on the TPU
+tool's all-ones inputs at every shape of the tool, and a launch held to
+one block equals the full grid bitwise; the CLI renders a tiny scene
+file through the wave kernels.
 """
 from types import SimpleNamespace
 
@@ -365,7 +370,8 @@ def test_cuda_leaf_product_layout(cuda_device, M, K, N):
     rng = np.random.default_rng(M + K + N)
     a = _bf16(rng, (K, N), cuda_device)
     tbl = _bf16(rng, (K, 3 * mxb.TBL_STEP), cuda_device)
-    p = mxb.make_params(M, N, K, K, 3, mxb._k_steps(None, K), tbl=tbl)
+    p = mxb.make_params(M, N, K, K, 3, mxb._k_steps(None, K),
+                        tbl_ld=tbl.shape[1])
     got = mxb.leaf_kernel("mma_loop", a, p, tbl, full=True)
     af = a.float().cpu().numpy().astype(np.float64)
     tf = tbl.float().cpu().numpy().astype(np.float64)
@@ -381,11 +387,18 @@ def test_cuda_leaf_product_layout(cuda_device, M, K, N):
 @pytest.mark.parametrize("M,K,N,stores", [(512, 48, 128, False),
                                           (512, 48, 128, True),
                                           (1024, 48, 128, True),
-                                          (512, 16, 128, True)])
+                                          (512, 16, 128, True),
+                                          (128, 48, 128, True),
+                                          (256, 48, 128, False),
+                                          (512, 128, 128, True),
+                                          (512, 48, 256, False),
+                                          (2048, 48, 128, False)])
 def test_cuda_mma_loop_matches_plain(cuda_device, M, K, N, stores):
-    """K4 against its plain version: random inputs (the scratch started
+    """K4 against its plain version at every shape of the TPU tool, from
+    4 blocks (M 128) to 64 (M 2048): random inputs (the scratch started
     random too, since its zeros would hide the product) within the
-    stated tolerance, the tool's all-ones inputs exactly."""
+    stated tolerance over the whole last product, the tool's all-ones
+    inputs exactly."""
     from tungsten_tpu_torch.tools import mxubench as mxb
     rng = np.random.default_rng(5)
     a = _bf16(rng, (K, N), cuda_device)
@@ -479,3 +492,127 @@ def test_cuda_paged_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="pages"):
         twt.paged_kernel(f, lists, lists.int(), pages.float(), rng, rng,
                          cbox, attr, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mma_loop", "mma_loop_stores",
+                                  "leaf_variant_a", "leaf_variant_b",
+                                  "leaf_variant_c"])
+def test_cuda_leaf_one_block_equals_grid(cuda_device, name):
+    """A launch held to one block (which walks every tile through all
+    iterations) gives bitwise the full grid's row, checksum and last
+    product, on random inputs."""
+    from tungsten_tpu_torch.tools import mxubench as mxb
+    rng = np.random.default_rng(8)
+    a = _bf16(rng, (mxb.K_LEAF, mxb.N_LEAF), cuda_device)
+    if name.startswith("mma_loop"):
+        b0 = _bf16(rng, (mxb.K_LEAF, 1024), cuda_device)
+
+        def run(blocks):
+            return mxb.mma_loop(a, 1024, 9, name.endswith("stores"),
+                                full=True, b0=b0, blocks=blocks)
+    else:
+        rows = mxb.TABLE_ROWS[name[-1]]
+        tbl = _bf16(rng, (rows, 4 * mxb.TBL_STEP), cuda_device) \
+            if rows else None
+
+        def run(blocks):
+            return mxb.leaf_variant(name[-1], a, tbl, iters=4, full=True,
+                                    blocks=blocks)
+    grid, one = run(0), run(1)
+    assert all(torch.equal(x, y) for x, y in zip(grid, one))
+
+
+def _bundle_rays(R, seed):
+    """Rays from outside the soup in coherent 32-ray bundles (one origin,
+    a narrow cone), as the dispatch's sort makes them, so a block's
+    supers lie on several pages with their entries interleaved."""
+    rng = np.random.default_rng(seed)
+    nb = R // twt.SUBWARP
+    o = rng.normal(size=(nb, 3))
+    o = np.repeat(o * 8.0 / np.linalg.norm(o, axis=-1, keepdims=True),
+                  twt.SUBWARP, axis=0)
+    aim = np.repeat(rng.uniform(-2, 2, (nb, 3)), twt.SUBWARP, axis=0)
+    d = aim + rng.uniform(-0.3, 0.3, aim.shape) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_closest_interleaved_pages(cuda_device, one_super_pages):
+    """The closest-hit paged kernel where each block's supers span several
+    pages with entries interleaved across them (coherent bundles through
+    a 20,000-triangle soup, a page of one super): its hit set equals the
+    resident kernel's, its winning slot too except at equal t, it runs at
+    most 1.5x the tests its rays need, and the wrapper passes the gates
+    against the brute force."""
+    v0, e1, e2 = _soup(num_tris=20000, seed=9)
+    R = 4 * twt.BLOCK
+    o, d = _bundle_rays(R, seed=10)
+    tmin = np.full((R,), 1e-4, np.float32)
+    tmax = np.full((R,), 3e38, np.float32)
+    tmax[::7] = 0.0
+    live = tmax > 0
+    sc, order = _scene(v0, e1, e2, cuda_device)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (o, d, tmin, tmax)]
+    o_s, d_s, tmin_s, tmax_s, _ = tis.dispatch_rays(sc, *args)
+    f, sent, sids, pages, offs, offe, _ = twt.paged_kernel_inputs(
+        sc, o_s, d_s, tmin_s, tmax_s)
+    slots = (offe > offs).sum(dim=1)
+    assert int(slots.max()) >= 4             # blocks walk several pages
+    f1, sent1, sids1, _ = twt.kernel_inputs(sc, o_s, d_s, tmin_s, tmax_s)
+    t3, tri3, tests3 = twt.paged_kernel(f, sent, sids, pages, offs, offe,
+                                        sc.wk_cbox, sc.wk_attr, False)
+    t1, tri1, _ = twt.wave_kernel(f1, sent1, sids1, sc.wk_cbox, sc.wk_attr,
+                                  False)
+    assert torch.equal(tri3 >= 0, tri1 >= 0)
+    assert bool(((tri3 == tri1) | (t3 == t1)).all())
+    need, ran = int(tests3[0].sum()), int(tests3[1].sum())
+    assert 0 < need and ran <= 1.5 * need
+    assert bool((tests3[:, tmax_s <= 0] == 0).all())
+    t, tri, u, v = _hits(twt.wave_intersect_paged, sc, order, o, d, tmin,
+                         tmax, False)
+    bt, bi, uu, vv = _brute(v0, e1, e2, o, d, 1e-4, tmax)
+    _gates(t, tri, u, v, bt, bi, uu, vv, live)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_closest_zero_area_triangles(cuda_device,
+                                                one_super_pages):
+    """Zero-area triangles (n = 0) sit inside clusters, before real ones,
+    wherever the BVH order puts them: the closest-hit paged kernel still
+    tests every real triangle, so it equals the resident kernel ray for
+    ray (the slot too except at equal t), counts only the real triangles
+    as needed, and its wrapper passes the gates against the brute force."""
+    v0, e1, e2 = _soup(num_tris=5000, seed=5)
+    e1[::8] = 0.0
+    e2[4::8] = 0.0
+    R = 2 * twt.BLOCK
+    o, d = _rays(R, seed=6)
+    tmin = np.full((R,), 1e-4, np.float32)
+    tmax = np.full((R,), 3e38, np.float32)
+    tmax[::5] = 0.0
+    live = tmax > 0
+    sc, order = _scene(v0, e1, e2, cuda_device)
+    attr = sc.wk_attr.reshape(-1, twt.ATTR_ROWS, twt.CLUSTER)
+    real = (attr[:, 12:15] != 0).any(dim=1)
+    last = twt.CLUSTER - real.flip(1).int().argmax(1)
+    holes = (torch.arange(twt.CLUSTER, device=cuda_device) < last[:, None])
+    assert int((holes & ~real & real.any(1, keepdim=True)).sum()) > 100
+    args = [torch.from_numpy(x).to(cuda_device) for x in (o, d, tmin, tmax)]
+    o_s, d_s, tmin_s, tmax_s, _ = tis.dispatch_rays(sc, *args)
+    f, sent, sids, pages, offs, offe, _ = twt.paged_kernel_inputs(
+        sc, o_s, d_s, tmin_s, tmax_s)
+    f1, sent1, sids1, _ = twt.kernel_inputs(sc, o_s, d_s, tmin_s, tmax_s)
+    t3, tri3, tests3 = twt.paged_kernel(f, sent, sids, pages, offs, offe,
+                                        sc.wk_cbox, sc.wk_attr, False)
+    t1, tri1, tests1 = twt.wave_kernel(f1, sent1, sids1, sc.wk_cbox,
+                                       sc.wk_attr, False)
+    assert torch.equal(tri3 >= 0, tri1 >= 0)
+    assert bool(((tri3 == tri1) | (t3 == t1)).all())
+    assert torch.equal(tests3[0], tests1[0])       # the same walk's needs
+    assert bool((tests3[0] < tests3[1]).any())     # holes run, not needed
+    t, tri, u, v = _hits(twt.wave_intersect_paged, sc, order, o, d, tmin,
+                         tmax, False)
+    bt, bi, uu, vv = _brute(v0, e1, e2, o, d, 1e-4, tmax)
+    _gates(t, tri, u, v, bt, bi, uu, vv, live)

@@ -134,17 +134,23 @@ def test_kernel_parameters():
     pairs the slice's first 16 rows with a[32:48]), the store list and
     the table stride."""
     p = mxb.make_params(2048, 128, 32, 48, 256, mxb._k_steps("c", 48),
-                        tbl=torch.zeros((32, mxb.NCP * 512),
-                                        dtype=torch.bfloat16))
+                        tbl_ld=mxb.NCP * 512)
     assert p.nk == 3 and list(p.kstep_b)[:3] == [0, 1, 0]
     assert list(p.kstep_a)[:3] == [0, 1, 2]
     assert p.table == 1 and p.tbl_ld == mxb.NCP * 512
     assert (p.tbl_period, p.tbl_step) == (64, 2048)
     q = mxb.make_params(512, 128, 48, 48, 512, mxb._k_steps(None, 48),
                         mxb.loop_stores(512, 48))
-    assert q.nk == 3 and q.n_stores == 12 and q.table == 0
-    assert [(q.st_row[i], q.st_col[i], q.st_rows[i]) for i in range(12)] \
-        == mxb.loop_stores(512, 48)
+    # the 12 stores of 128 columns, each split over two 64-column tiles
+    assert q.nk == 3 and q.n_pieces == 24 and q.table == 0
+    pieces, starts = mxb.split_stores(512, mxb.loop_stores(512, 48))
+    assert [(q.pc_row[i], q.pc_rows[i], q.pc_col[i], q.pc_src[i],
+             q.pc_width[i]) for i in range(24)] == pieces
+    assert list(q.tile_piece)[:9] == starts and q.src_rows == 6
+    assert q.blocks == 0 and mxb.grid_blocks(q) == 16
+    q1 = mxb.make_params(512, 128, 48, 48, 512, mxb._k_steps(None, 48),
+                         blocks=1)
+    assert q1.n_pieces == 0 and q1.src_rows == 0 and mxb.grid_blocks(q1) == 1
 
 
 def test_bound_and_report():
@@ -159,9 +165,12 @@ def test_bound_and_report():
     # kB's bytes: a, the 64 slices it touches and the outputs at 3.35 TB/s
     nbytes = 48 * 128 * 2 + 64 * staged_b + 128 * 4 + 8
     assert ns_b > nbytes / 3.35e12 * 1e9 / 256
+    # the bound beside it is at the SMs of the launch's grid: (128, 48,
+    # 128) is four 64x64 tiles, four blocks
     r = mxb.bench(128, 48, 128, iters=2, with_stores=True, device="cpu")
     assert r["name"] == "mma_loop_stores" and r["library_ns"] is None
-    assert r["sm_bound_ns"] == pytest.approx(132 * r["bound_ns"])
+    assert r["blocks"] == 4
+    assert r["sm_bound_ns"] == pytest.approx(132 / 4 * r["bound_ns"])
     assert "ns/matmul" in mxb.format_result(r)
 
 
@@ -195,3 +204,40 @@ def test_cpu_wrapper_counts_no_launch():
     assert mxb.LAUNCHES == before
     with pytest.raises(ValueError, match="variant"):
         mxb.leaf_variant("d", a)
+
+
+@pytest.mark.parametrize("M,K,stores", [
+    (128, 48, "loop"), (512, 16, "loop"), (512, 48, "loop"),
+    (1024, 48, "loop"), (2048, 48, "loop"), (2048, 48, "a")])
+def test_split_over_blocks_covers_chain_and_slice_once(M, K, stores):
+    """The host's split of the store chain over the kernel's 64-column
+    tiles writes every element the tool's chain writes exactly once, from
+    the same element of a, each piece inside its own tile; the tiles'
+    columns of a table slice cover the slice exactly once for every
+    column of tiles."""
+    chain = mxb.loop_stores(M, K) if stores == "loop" else \
+        mxb.variant_a_stores()
+    rows = max(r0 + n for r0, _, n in chain)
+    want = np.full((rows, M), -1)        # a's column each B element gets
+    for r0, c0, n in chain:
+        want[r0:r0 + n, c0:c0 + 128] = np.arange(128)
+    got = np.full((rows, M), -1)
+    hits = np.zeros((rows, M), int)
+    pieces, starts = mxb.split_stores(M, chain)
+    assert len(starts) == M // mxb.TILE + 1 and starts[-1] == len(pieces)
+    for mt in range(M // mxb.TILE):
+        for r0, n, col, src, width in pieces[starts[mt]:starts[mt + 1]]:
+            assert mt * 64 <= col and col + width <= (mt + 1) * 64
+            assert col % 8 == 0 and src % 8 == 0 and width % 8 == 0
+            got[r0:r0 + n, col:col + width] = np.arange(src, src + width)
+            hits[r0:r0 + n, col:col + width] += 1
+    assert np.array_equal(got, want)
+    assert hits.max() == 1 and hits.sum() == (want >= 0).sum()
+    tiles = mxb.tile_origins(M, 128)
+    assert len(tiles) == (M // 64) * 2
+    for n0 in (0, 64):
+        cover = np.zeros(M, int)
+        for m0, n in tiles:
+            if n == n0:
+                cover[m0:m0 + mxb.TILE] += 1
+        assert (cover == 1).all()

@@ -181,3 +181,112 @@ def test_paged_wrapper_refuses_bad_page_size(monkeypatch):
         monkeypatch.setattr(twt, "PAGE_SUP", bad)
         with pytest.raises(ValueError, match="PAGE_SUP"):
             twt.n_pages_of(sc)
+
+
+def _merged_walk(sent, sids, offs, offe):
+    """The closest-hit paged kernel's walk order (csrc/wave_trace.cu,
+    wave_trace_paged_closest_kernel), transcribed: repeatedly the least
+    (entry, slot) over the heads of the block's slot ranges.  Returns the
+    walk's (entries, super ids, slots)."""
+    heads, ends = list(offs), list(offe)
+    es, ids, slots = [], [], []
+    while True:
+        best, bp = np.inf, -1
+        for p, (h, e) in enumerate(zip(heads, ends)):
+            if h < e and sent[h] < best:     # strict: ties to the lower slot
+                best, bp = sent[h], p
+        if bp < 0:
+            return np.asarray(es), np.asarray(ids), np.asarray(slots)
+        k = heads[bp]
+        es.append(sent[k])
+        ids.append(sids[k])
+        slots.append(bp)
+        heads[bp] += 1
+
+
+@pytest.mark.parametrize("page_sup", [1, 4])
+def test_merged_paged_walk_is_the_resident_order(monkeypatch, page_sup):
+    """The closest-hit paged kernel merges _cull_paged's slot ranges back
+    into entry order: per warp the walk is non-decreasing in entry and,
+    entry by entry, the resident front's pending list (_cull_sorted_supers)
+    on the same rays, super ids included; on these coherent bundles the
+    walk goes back and forth between pages."""
+    monkeypatch.setattr(twt, "PAGE_SUP", page_sup)
+    v0, e1, e2, _ = _soup(num_tris=20000)
+    cbox, sbox = twt.build_wave_tables(v0, e1, e2)[1::3]
+    n_pages = -(-cbox.shape[0] // twt.page_clusters())
+    assert n_pages >= 3
+    o, d, tmin, tmax = _bundles(2 * twt.BLOCK)
+    G = o.shape[0] // twt.BLOCK
+    args = (torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(tmin)[:, None], torch.from_numpy(tmax)[:, None],
+            torch.from_numpy(sbox), G)
+    _, ps, pi, po, pe = (x.numpy() for x in twt._cull_paged(*args, n_pages))
+    rs, ri = (x.numpy() for x in twt._cull_sorted_supers(*args))
+    interleaved = 0
+    for g in range(G):
+        for w in range(8):
+            es, ids, slots = _merged_walk(ps[g, w], pi[g, w], po[g, w],
+                                          pe[g, w])
+            fin = rs[g, w] < twt.INF
+            assert (np.diff(es) >= 0).all()
+            assert es.tobytes() == rs[g, w][fin].tobytes()
+            assert np.array_equal(ids, ri[g, w][fin])
+            interleaved += int((np.diff(slots) < 0).any())
+    assert interleaved > 0
+
+
+def _zero_area_soup(num_tris=5000, seed=5):
+    """The 5,000-triangle soup with every fourth triangle of zero area
+    (e1 = 0 or e2 = 0, so n = e1 x e2 is exactly 0): after the BVH sort
+    they sit inside clusters, before real triangles."""
+    v0, e1, e2, _ = _soup(num_tris=num_tris, seed=seed)
+    e1, e2 = e1.copy(), e2.copy()
+    e1[::8] = 0.0
+    e2[4::8] = 0.0
+    return v0, e1, e2
+
+
+def test_paged_zero_area_triangles_match_jax(one_super_pages):
+    """Zero-area triangles before a cluster's last real one: the tables
+    keep their zero normal rows in place, and the port's paged wrapper on
+    CPU tensors (the plain walk) equals the JAX paged kernel (interpret
+    mode, every slot tested) on the same leaf-ordered tables, and both
+    pass the brute-force gates."""
+    v0, e1, e2 = _zero_area_soup()
+    sc, order = _bvh_scene(v0, e1, e2, torch.from_numpy, build_bvh)
+    attr = sc.wk_attr.numpy().reshape(-1, twt.ATTR_ROWS, twt.CLUSTER)
+    real = (attr[:, 12:15] != 0).any(axis=1)              # (NCp, 128)
+    n_last = np.where(real.any(1), 128 - np.argmax(real[:, ::-1], 1), 0)
+    holes = np.arange(128)[None] < n_last[:, None]
+    assert (holes & ~real).sum(1).min(where=real.any(1), initial=128) > 0
+    R = twt.BLOCK
+    o, d = _rays(R, seed=6)
+    tmin = np.full((R,), 1e-4, np.float32)
+    tmax = np.full((R,), 3e38, np.float32)
+    tmax[::5] = 0.0
+    t, tri, _, _ = twt.wave_intersect_paged(
+        sc, *(torch.from_numpy(x) for x in (o, d, tmin, tmax)),
+        device="cpu")
+    t, tri = t.numpy(), tri.numpy()
+    jt, jtri, _, _ = map(np.asarray, jwt.wave_intersect_paged(
+        *(jnp.asarray(getattr(sc, n).numpy()) for n in
+          ("wk_boxes", "wk_cbox", "wk_attr", "wk_remap", "wk_sbox")),
+        *(jnp.asarray(x) for x in (o, d, tmin, tmax)),
+        ncp=sc.wk_boxes.shape[1], interpret=True,
+        tri_v0=jnp.asarray(sc.tri_v0.numpy()),
+        tri_e1=jnp.asarray(sc.tri_e1.numpy()),
+        tri_e2=jnp.asarray(sc.tri_e2.numpy())))
+    assert np.array_equal(tri >= 0, jtri >= 0)
+    both = (tri >= 0) & (jtri >= 0)
+    assert ((tri == jtri) | (t == jt))[both].all()
+    np.testing.assert_allclose(t[both], jt[both], rtol=1e-4)
+    tri = np.where(tri >= 0, order[np.clip(tri, 0, None)], -1)
+    bt, bi, _, _ = _brute(v0, e1, e2, o, d, 1e-4, tmax)
+    live = tmax > 0
+    hit_ref = (bi >= 0) & live
+    assert ((tri >= 0) == hit_ref).mean() > 0.998
+    both = hit_ref & (tri >= 0)
+    np.testing.assert_allclose(t[both], bt[both], rtol=1e-4)
+    assert (tri[both] == bi[both]).mean() > 0.99
+    assert not np.isin(bi[both], np.r_[0:len(v0):8, 4:len(v0):8]).any()

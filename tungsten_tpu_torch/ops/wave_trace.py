@@ -16,8 +16,10 @@ TPU devices and are gone.
 Scenes whose attribute table is >= 13 MiB take the PAGED walk
 (`wave_intersect_paged`, the JAX package's `_make_kernel_paged`): the
 per-warp lists are sorted by (page, entry), a page being PAGE_SUP
-supers, and the CUDA kernel walks them page slot by page slot with best
-t carried across slots (csrc/wave_trace.cu, wave_trace_paged_kernel).
+supers.  The any-hit CUDA kernel walks them page slot by page slot with
+best t carried across slots; the closest-hit one merges the slots' ranges
+back into entry order and splits each ray's own clusters over four
+threads (csrc/wave_trace.cu).
 
 On the CPU both wrappers run the kernels' plain version, the torch port
 of the skip-pointer BVH walk (ops/intersect.py::bvh_walk) — the same
@@ -462,7 +464,9 @@ def paged_kernel(f, sent, sids, pages, offs, offe, cbox, attr,
 
     As wave_kernel, plus the paged front's pages (R/1024, S) i32 and
     offs/offe (R/128, S) i32 (R % 1024 == 0); the walk reads PAGE_SUP at
-    the call.  Returns (t, tri, tests) as wave_kernel does."""
+    the call, and only the any-hit walk reads the page list (the
+    closest-hit walk merges the slot ranges in entry order).  Returns
+    (t, tri, tests) as wave_kernel does."""
     R, nb, nsp, ncp = _check_common(f, sent, sids, cbox, attr)
     if R % BLOCK:
         raise ValueError(f"ray count {R} is not a multiple of {BLOCK}")
@@ -475,7 +479,8 @@ def paged_kernel(f, sent, sids, pages, offs, offe, cbox, attr,
     t, tri, tests = _outputs(f)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     err = lib.wave_trace_paged_launch(
-        f.data_ptr(), sent.data_ptr(), sids.data_ptr(), pages.data_ptr(),
+        f.data_ptr(), sent.data_ptr(), sids.data_ptr(),
+        pages.data_ptr() if any_hit else None,
         offs.data_ptr(), offe.data_ptr(), cbox.data_ptr(), attr.data_ptr(),
         t.data_ptr(), tri.data_ptr(), tests.data_ptr(), nb, nsp, S, ncp,
         PAGE_SUP, int(bool(any_hit)), stream)

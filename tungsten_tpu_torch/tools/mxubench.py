@@ -7,8 +7,9 @@ chain of block stores) at several (M, K, N), and K5, three quad-cluster
 leaf layouts (`kA` 48 stores + one product, `kB` / `kC` resident tables
 read slice by slice).  On this card the MXU's counterpart is the tensor
 cores: every variant is the hand-written CUDA kernel
-csrc/leaf_mma.cu (mma.sync m16n8k16 bf16 -> f32 from shared memory, one
-block, as the TPU ran grid=(1,) on one core).  Each returns what the TPU
+csrc/leaf_mma.cu (wgmma m64n64k16 bf16 -> f32 from shared memory, one
+64x64 tile of the product a block over the whole card, as the TPU's one
+core was its whole chip).  Each returns what the TPU
 kernel returned, the (1, N) f32 sum of row 0 of every product, plus a
 checksum: the sum of every element of every product, accumulated in
 float64 so that it is exact on the tool's all-ones inputs.  The checksum
@@ -18,9 +19,9 @@ Beside each kernel, its plain version (`*_plain`: torch.matmul on bf16
 values upcast to f32, in a Python loop), a launch count (LAUNCHES) and
 its bound: 2*M*K*N operations a product at the card's dense bf16 peak
 (989 TFLOP/s), or the bytes the function must move from device memory
-at 3.35 TB/s, whichever is larger.  The same at one SM's share of both
-rates (1/132) is reported beside it as `sm_bound_ns`: the least time of
-one block, as the TPU tool ran one core.  The wrappers take the plain
+at 3.35 TB/s, whichever is larger.  The same at the share of both rates
+of the SMs the launch's grid can occupy is reported beside it as
+`sm_bound_ns`, with the blocks launched.  The wrappers take the plain
 version for CPU tensors and launch the kernel for CUDA tensors; they
 never fall back.
 
@@ -28,8 +29,9 @@ never fall back.
 
 runs the TPU tool's shapes (tools_mxubench.py:69-75) and the three
 variants and prints, for each, ns per product (per quad for the
-variants), TFLOP/s, the bound and torch.matmul's time for the same
-(M, K, N): a yardstick only, which the port never calls.  Unlike the TPU
+variants), TFLOP/s, the bound and torch.matmul's device time for the
+same (M, K, N) (calls replayed from a CUDA graph): a yardstick only,
+which the port never calls.  Unlike the TPU
 tool it catches no failure, and it runs the variants (the TPU tool's
 `__main__` calls bench_variants before defining it).
 """
@@ -60,12 +62,13 @@ PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 N_SM = 132
 TIMED_RUNS = 5
+TILE = 64                   # the kernel's (rows, columns) of product a block
 
 # launches of the CUDA kernel per variant (the plain version does not count)
 LAUNCHES = {"mma_loop": 0, "mma_loop_stores": 0, "leaf_variant_a": 0,
             "leaf_variant_b": 0, "leaf_variant_c": 0}
 
-_MAX_KSTEPS, _MAX_STORES = 8, 48
+_MAX_KSTEPS, _MAX_PIECES, _MAX_MTILES = 8, 128, 32
 
 
 class LeafParams(ctypes.Structure):
@@ -76,12 +79,17 @@ class LeafParams(ctypes.Structure):
                 ("iters", ctypes.c_int), ("nk", ctypes.c_int),
                 ("kstep_b", ctypes.c_int * _MAX_KSTEPS),
                 ("kstep_a", ctypes.c_int * _MAX_KSTEPS),
-                ("n_stores", ctypes.c_int),
-                ("st_row", ctypes.c_int * _MAX_STORES),
-                ("st_col", ctypes.c_int * _MAX_STORES),
-                ("st_rows", ctypes.c_int * _MAX_STORES),
+                ("n_pieces", ctypes.c_int),
+                ("pc_row", ctypes.c_int * _MAX_PIECES),
+                ("pc_rows", ctypes.c_int * _MAX_PIECES),
+                ("pc_col", ctypes.c_int * _MAX_PIECES),
+                ("pc_src", ctypes.c_int * _MAX_PIECES),
+                ("pc_width", ctypes.c_int * _MAX_PIECES),
+                ("tile_piece", ctypes.c_int * (_MAX_MTILES + 1)),
+                ("src_rows", ctypes.c_int),
                 ("table", ctypes.c_int),
-                ("tbl_period", ctypes.c_int), ("tbl_step", ctypes.c_int)]
+                ("tbl_period", ctypes.c_int), ("tbl_step", ctypes.c_int),
+                ("blocks", ctypes.c_int)]
 
 
 # ------------------------------------------------------- what each computes
@@ -103,6 +111,37 @@ def variant_a_stores() -> list[tuple[int, int, int]]:
             out += [(ko + 4, c + 128, 6), (ko + 4, c + 256, 6),
                     (ko, c + 384, 4), (ko + 4, c, 3)]
     return out
+
+
+def split_stores(M: int, stores):
+    """The store chain split over the kernel's 64-column tiles of B (the
+    product's rows): (pieces, starts).  A piece (B row, rows, B column,
+    a column, width) writes a[0:rows, a column:+width] into B[row:+rows,
+    column:+width]; tile mt (columns 64*mt .. 64*mt+63) applies pieces
+    [starts[mt], starts[mt+1]) in chain order."""
+    pieces, starts = [], []
+    for m0 in range(0, M, TILE):
+        starts.append(len(pieces))
+        for r0, c0, rows in stores:
+            lo, hi = max(c0, m0), min(c0 + 128, m0 + TILE)
+            if lo < hi:
+                pieces.append((r0, rows, lo, lo - c0, hi - lo))
+    starts.append(len(pieces))
+    return pieces, starts
+
+
+def tile_origins(M: int, N: int) -> list[tuple[int, int]]:
+    """(first product row, first column) of each 64x64 tile in the
+    kernel's tile order, in which the checksum's partials are summed.  A
+    tile's block stages columns [row, row + 64) of each table slice."""
+    return [(m0, n0) for m0 in range(0, M, TILE) for n0 in range(0, N, TILE)]
+
+
+def grid_blocks(p) -> int:
+    """Blocks one launch with these parameters runs: one a tile, or
+    p.blocks of them walking the tiles in turn."""
+    tiles = (p.M // TILE) * (p.N // TILE)
+    return min(p.blocks, tiles) if p.blocks > 0 else tiles
 
 
 def _k_steps(variant: str | None, K: int):
@@ -178,7 +217,7 @@ def load_kernels() -> ctypes.CDLL:
                         [_nvcc()] + NVCC_FLAGS)
     lib = ctypes.CDLL(path)
     vp = ctypes.c_void_p
-    lib.leaf_mma_launch.argtypes = [vp] * 5 + [ctypes.POINTER(LeafParams),
+    lib.leaf_mma_launch.argtypes = [vp] * 6 + [ctypes.POINTER(LeafParams),
                                                vp]
     lib.leaf_mma_launch.restype = ctypes.c_int
     lib.leaf_mma_smem_bytes.argtypes = [ctypes.POINTER(LeafParams)]
@@ -187,21 +226,48 @@ def load_kernels() -> ctypes.CDLL:
 
 
 def make_params(M: int, N: int, kb_rows: int, ka_rows: int, iters: int,
-                k_steps, stores=(), tbl=None) -> LeafParams:
-    """The kernel's launch parameters."""
+                k_steps, stores=(), tbl_ld: int = 0,
+                blocks: int = 0) -> LeafParams:
+    """The kernel's launch parameters: the store chain split over tiles;
+    tbl_ld > 0 is table mode (the table's row stride); blocks > 0 caps
+    the grid (a check of the kernel; the tool's rows run one block a
+    tile)."""
     p = LeafParams()
     p.M, p.N, p.kb_rows, p.ka_rows, p.iters = M, N, kb_rows, ka_rows, iters
     kb, ka = k_steps
     p.nk = len(kb)
     for j, (x, y) in enumerate(zip(kb, ka)):
         p.kstep_b[j], p.kstep_a[j] = x, y
-    p.n_stores = len(stores)
-    for s, (r0, c0, rows) in enumerate(stores):
-        p.st_row[s], p.st_col[s], p.st_rows[s] = r0, c0, rows
-    if tbl is not None:
-        p.table, p.tbl_ld = 1, tbl.shape[1]
+    pieces, starts = split_stores(M, stores)
+    if len(pieces) > _MAX_PIECES or len(starts) > _MAX_MTILES + 1:
+        raise ValueError(f"{len(pieces)} store pieces over {len(starts) - 1}"
+                         f" tiles: the kernel takes {_MAX_PIECES} over "
+                         f"{_MAX_MTILES}")
+    p.n_pieces = len(pieces)
+    for i, (r0, rows, col, src, width) in enumerate(pieces):
+        p.pc_row[i], p.pc_rows[i], p.pc_col[i] = r0, rows, col
+        p.pc_src[i], p.pc_width[i] = src, width
+    for i, s0 in enumerate(starts):
+        p.tile_piece[i] = s0
+    p.src_rows = max((rows for _, _, rows in stores), default=0)
+    p.blocks = blocks
+    if tbl_ld:
+        p.table, p.tbl_ld = 1, tbl_ld
         p.tbl_period, p.tbl_step = TBL_PERIOD, TBL_STEP
     return p
+
+
+@functools.lru_cache(maxsize=None)
+def _row_params(M: int, N: int, K: int, iters: int, variant: str | None,
+                with_stores: bool, tbl_ld: int, blocks: int) -> LeafParams:
+    """A tool row's launch parameters, built once: the kernel only reads
+    them, and building them (the split of kA's chain) costs the host
+    more than a launch's device time, which the timing would count."""
+    rows = TABLE_ROWS[variant] if variant else None
+    stores = variant_a_stores() if variant == "a" else \
+        loop_stores(M, K) if with_stores else ()
+    return make_params(M, N, rows or K, K, iters, _k_steps(variant, K),
+                       stores, tbl_ld, blocks)
 
 
 def _check(x, name, shape):
@@ -228,16 +294,17 @@ def leaf_kernel(name: str, a, p: LeafParams, tbl=None, full: bool = False):
                              f"slices {p.iters} iterations read")
     elif tbl is not None:
         _check(tbl, "b0", (p.kb_rows, p.M))
-        p.tbl_ld = p.M
     lib = load_kernels()
     dev = a.device
     row = torch.empty((1, p.N), dtype=torch.float32, device=dev)
     cs = torch.empty((), dtype=torch.float64, device=dev)
+    partial = torch.empty(((p.M // TILE) * (p.N // TILE),),
+                          dtype=torch.float64, device=dev)
     last = torch.empty((p.M, p.N), dtype=torch.float32, device=dev) \
         if full else None
     err = lib.leaf_mma_launch(
         a.data_ptr(), tbl.data_ptr() if tbl is not None else None,
-        row.data_ptr(), cs.data_ptr(),
+        row.data_ptr(), partial.data_ptr(), cs.data_ptr(),
         last.data_ptr() if last is not None else None, ctypes.byref(p),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -247,35 +314,33 @@ def leaf_kernel(name: str, a, p: LeafParams, tbl=None, full: bool = False):
 
 
 def mma_loop(a, M: int, iters: int = LOOP_ITERS, with_stores: bool = False,
-             full: bool = False, b0=None):
+             full: bool = False, b0=None, blocks: int = 0):
     """K4: `iters` products of the (K, M) scratch with a (K, N) bf16.
     b0, a (K, M) bf16, starts the scratch in place of the TPU kernel's
     zeros: without it K4's product is zero but for the stored rows, so a
-    check of the product needs it.  Returns (row, checksum, last product
-    or None) as leaf_kernel; on a CPU tensor the plain version (which
-    always returns the product)."""
+    check of the product needs it.  blocks > 0 caps the grid (checks
+    only).  Returns (row, checksum, last product or None) as leaf_kernel;
+    on a CPU tensor the plain version (which always returns the
+    product)."""
     if a.device.type == "cpu":
         return mma_loop_plain(a, M, iters, with_stores, b0)
     K, N = a.shape
-    p = make_params(M, N, K, K, iters, _k_steps(None, K),
-                    loop_stores(M, K) if with_stores else ())
+    p = _row_params(M, N, K, iters, None, with_stores, 0, blocks)
     return leaf_kernel("mma_loop_stores" if with_stores else "mma_loop", a,
                        p, b0, full=full)
 
 
 def leaf_variant(variant: str, a, tbl=None, iters: int = VARIANT_ITERS,
-                 full: bool = False):
+                 full: bool = False, blocks: int = 0):
     """K5: variant "a", "b" or "c" on a (48, 128) bf16 (and the table of
-    variants b and c).  Returns as mma_loop."""
+    variants b and c); blocks as mma_loop's.  Returns as mma_loop."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
     if a.device.type == "cpu":
         return leaf_variant_plain(variant, a, tbl, iters)
     rows = TABLE_ROWS[variant]
-    p = make_params(M_LEAF, a.shape[1], rows or K_LEAF, a.shape[0], iters,
-                    _k_steps(variant, K_LEAF),
-                    variant_a_stores() if variant == "a" else (),
-                    tbl if rows else None)
+    p = _row_params(M_LEAF, a.shape[1], a.shape[0], iters, variant, False,
+                    tbl.shape[1] if rows else 0, blocks)
     return leaf_kernel(f"leaf_variant_{variant}", a, p,
                        tbl if rows else None, full=full)
 
@@ -311,13 +376,16 @@ def bound_ns(M: int, K: int, N: int, iters: int, table_rows=None,
 
 def time_ms(fn, device, runs: int = TIMED_RUNS) -> float:
     """Median ms of fn() over `runs` after one warm-up: CUDA events on the
-    card, the host clock on the CPU."""
+    card, the host clock on the CPU.  On the card each timed call is
+    queued behind an untimed one, so the host's work for the call
+    overlaps that one's device time and the events see the device's."""
     fn()
     times = []
     for _ in range(runs):
         if device.type == "cuda":
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
+            fn()
             e0.record()
             fn()
             e1.record()
@@ -331,19 +399,27 @@ def time_ms(fn, device, runs: int = TIMED_RUNS) -> float:
 
 
 def library_ms(M: int, K: int, N: int, device, calls: int = 50) -> float | None:
-    """torch.matmul's ms for one (M, K) x (K, N) bf16 product on the card
-    (the B^T view of a (K, M) tensor, as the kernel reads it): the
-    yardstick of the kernels' rows.  None on the CPU."""
+    """torch.matmul's device ms for one (M, K) x (K, N) bf16 product on the
+    card (the B^T view of a (K, M) tensor, as the kernel reads it): the
+    yardstick of the kernels' rows.  `calls` products are captured in a
+    CUDA graph and its replay is timed with events, so the host's launch
+    rate does not enter.  None on the CPU."""
     if device.type != "cuda":
         return None
     g = torch.Generator(device=device).manual_seed(1)
     b = torch.rand((K, M), generator=g, device=device).to(torch.bfloat16)
     a = torch.rand((K, N), generator=g, device=device).to(torch.bfloat16)
-
-    def run():
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):   # cuBLAS's handle and workspace
+        for _ in range(3):
+            torch.matmul(b.T, a)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(calls):
             torch.matmul(b.T, a)
-    return time_ms(run, device) / calls
+    return time_ms(graph.replay, device) / calls
 
 
 def ones_inputs(K: int, N: int, device, table_rows=None):
@@ -354,49 +430,53 @@ def ones_inputs(K: int, N: int, device, table_rows=None):
     return a, tbl
 
 
+def _result(name, M, K, N, iters, ms, blocks, dev, table_rows=None):
+    """One row's numbers: ns per product, TFLOP/s, the bound at the whole
+    card and at the SMs `blocks` can occupy, and torch.matmul's device
+    time (on the tool's own grid only: a capped grid is a check)."""
+    ns = ms * 1e6 / iters
+    b_ns, by, staged = bound_ns(M, K, N, iters, table_rows)
+    lib = library_ms(M, K, N, dev) if blocks == len(tile_origins(M, N)) \
+        else None
+    return dict(name=name, M=M, K=K, N=N, iters=iters, ns=ns,
+                tflops=flops_per_product(M, K, N) / ns * 1e-3,
+                bound_ns=b_ns, bound_by=by, blocks=blocks,
+                sm_bound_ns=bound_ns(M, K, N, iters, table_rows,
+                                     sms=min(blocks, N_SM))[0],
+                staged_bytes=staged,
+                library_ns=None if lib is None else lib * 1e6,
+                device=str(dev))
+
+
 def bench(M: int, K: int, N: int, iters: int = LOOP_ITERS,
-          with_stores: bool = False, device=None) -> dict:
+          with_stores: bool = False, device=None, blocks: int = 0) -> dict:
     """One K4 shape on the tool's inputs: the kernel's ns per product
-    against its bound and torch.matmul's time."""
+    against its bound and torch.matmul's device time; blocks > 0 caps
+    the grid (the anti-hoisting check; no yardstick then)."""
     from tungsten_tpu_torch.device import resolve_device
     dev = resolve_device(device)
     a, _ = ones_inputs(K, N, dev)
-    ms = time_ms(lambda: mma_loop(a, M, iters, with_stores), dev)
-    b_ns, by, _ = bound_ns(M, K, N, iters)
-    lib = library_ms(M, K, N, dev)
-    ns = ms * 1e6 / iters
-    return dict(name="mma_loop_stores" if with_stores else "mma_loop",
-                M=M, K=K, N=N, iters=iters, ns=ns,
-                tflops=flops_per_product(M, K, N) / ns * 1e-3,
-                bound_ns=b_ns, bound_by=by,
-                sm_bound_ns=bound_ns(M, K, N, iters, sms=1)[0],
-                library_ns=None if lib is None else lib * 1e6,
-                device=str(dev))
+    ms = time_ms(lambda: mma_loop(a, M, iters, with_stores, blocks=blocks),
+                 dev)
+    p = _row_params(M, N, K, iters, None, with_stores, 0, blocks)
+    return _result("mma_loop_stores" if with_stores else "mma_loop", M, K, N,
+                   iters, ms, grid_blocks(p), dev)
 
 
 def bench_variant(variant: str, iters: int = VARIANT_ITERS,
                   device=None) -> dict:
     """One K5 variant on the tool's inputs: ns per quad (one product),
     its bound, the bytes it stages per iteration and torch.matmul's
-    time for the (2048, 48, 128) product."""
+    device time for the (2048, 48, 128) product."""
     from tungsten_tpu_torch.device import resolve_device
     dev = resolve_device(device)
     rows = TABLE_ROWS[variant]
     a, tbl = ones_inputs(K_LEAF, N_LEAF, dev, rows)
     ms = time_ms(lambda: leaf_variant(variant, a, tbl, iters), dev)
-    b_ns, by, staged = bound_ns(M_LEAF, K_LEAF, N_LEAF, iters, rows)
-    lib = library_ms(M_LEAF, K_LEAF, N_LEAF, dev)
-    ns = ms * 1e6 / iters
-    return dict(name=f"leaf_variant_{variant}", M=M_LEAF, K=K_LEAF,
-                N=N_LEAF, iters=iters, ns=ns,
-                tflops=flops_per_product(M_LEAF, K_LEAF, N_LEAF) / ns * 1e-3,
-                bound_ns=b_ns, bound_by=by,
-                sm_bound_ns=bound_ns(M_LEAF, K_LEAF, N_LEAF, iters, rows,
-                                     sms=1)[0],
-                staged_bytes=staged,
-                table_mb=(rows * NCP * 512 * 2 >> 20) if rows else 0,
-                library_ns=None if lib is None else lib * 1e6,
-                device=str(dev))
+    r = _result(f"leaf_variant_{variant}", M_LEAF, K_LEAF, N_LEAF, iters, ms,
+                len(tile_origins(M_LEAF, N_LEAF)), dev, rows)
+    r["table_mb"] = (rows * NCP * 512 * 2 >> 20) if rows else 0
+    return r
 
 
 def format_result(r: dict) -> str:
@@ -413,8 +493,8 @@ def format_result(r: dict) -> str:
         head = (f"M={r['M']:5d} K={r['K']:3d} N={r['N']:4d} {label}: "
                 f"{r['ns']:9.1f} ns/matmul")
     return (f"{head} ({r['tflops']:6.2f} TFLOP/s), bound {r['bound_ns']:.2f} "
-            f"ns ({r['bound_by']}; one SM {r['sm_bound_ns']:.1f} ns), "
-            f"torch.matmul {lib}{extra}")
+            f"ns ({r['bound_by']}; {r['blocks']} blocks: "
+            f"{r['sm_bound_ns']:.1f} ns), torch.matmul {lib}{extra}")
 
 
 def run_all(device=None, verbose: bool = True) -> list[dict]:
