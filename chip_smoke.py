@@ -5,10 +5,10 @@
 
 Phases (any failure exits non-zero):
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
-  2. build: the CUDA wave kernels (csrc/wave_trace.cu, nvcc: the resident
-     and the paged walk), the tensor-core leaf kernel (csrc/leaf_mma.cu,
-     nvcc) and the host BVH library (g++), the three compiles started
-     together;
+  2. build: the CUDA wave kernels (csrc/wave_trace.cu, nvcc: the
+     closest-hit, resident any-hit and paged any-hit kernels), the
+     tensor-core leaf kernel (csrc/leaf_mma.cu, nvcc) and the host BVH
+     library (g++), the three compiles started together;
   2b. leaf kernels (K4, K5): each of the five kernel rows (mma_loop,
      mma_loop_stores, leaf_variant_a/b/c) against its plain version,
      exactly on the TPU tool's all-ones inputs and within the stated
@@ -25,31 +25,40 @@ Phases (any failure exits non-zero):
      port's IO (24 UV spheres of 64x32 segments, ~95k triangles, a
      lambert floor, one emissive quad, a procedural 512x256 sky), loaded
      with load_scene and flattened on the card;
-  4. kernels: both resident kernel modes on the main path's shapes (the
-     1,048,576 camera rays of the 16-spp wave, one bounce's continuation
-     rays, and NEE-style shadow segments) against the plain walk on the
-     same inputs, with the gates of tests/test_torch_wave.py, timed with
-     CUDA events (median of 5 after a warm-up);
+  4. kernels: the closest-hit kernel (K1) and the resident any-hit
+     kernel (K2) on the main path's shapes (the 1,048,576 camera rays of
+     the 16-spp wave, one bounce's continuation rays, and NEE-style
+     shadow segments) against the plain walk on the same inputs, with
+     the gates of tests/test_torch_wave.py; K1 at splits=1 against
+     list_walk (the kernels' schedule in plain PyTorch) on the first
+     8,192 rays of each set (the triangle equal on >= 0.9999 of live
+     rays, the needed totals within 0.01 %), bitwise equal at the
+     launcher's choice of CTAs a block and at 8, running at most 1.5x
+     list_walk's needed count at full width (which the bound takes);
+     timed with CUDA events (median of 5 after a warm-up), also on the
+     first 1,024, 4,096, 8,192 and 65,536 rays and on a sparse tail wave
+     (4,096 rays, the first 256 live), at splits=1 and at the launcher's
+     choice;
   5. render: the main path, load_scene -> flatten_scene -> render at
      256x256, 16 spp, max_bounces 64, with the kernels' launch counts set
      to zero just before and read just after; then a second, warm render,
-     and a third under torch.profiler (device busy share, top kernels);
+     and a third under torch.profiler (device busy share, top kernels,
+     each traversal kernel's launches and device ms by rays a launch);
   6. cross-path: a 64x64 4-spp image from the kernel path against the
      port's plain path on the CPU;
   7. large scene: the same layout at production size (24 spheres of
      160x80 segments, 606,724 triangles, over 13 MiB of cluster tables,
      so it takes the paged walk) with the surface BSDF zoo (every ported
      type, glass spheres, a mixed and a coated BSDF with children, a
-     null-BSDF light): (a) its size and walk; (b) both paged kernel modes
-     on its camera, continuation and shadow rays against the plain walk
-     and against the resident kernels on the same rays, all timed, the
-     closest-hit kernel running at most 1.5x the tests its rays need
-     (the resident kernel's count on the same rays), and timed against
-     the resident kernel on 1,024 to 65,536 rays;
-     (c) its full-width render (256x256, 16 spp, max_bounces 64) from
-     zero launch counts, only the paged kernels launching, and one more
-     under torch.profiler; (d) a 64x64 4-spp image of it against the
-     plain path on the CPU;
+     null-BSDF light): (a) its size and walk; (b) the paged route's
+     kernels on its camera, continuation and shadow rays as in phase 4:
+     the closest hit (K3's, the closest-hit kernel on the resident front)
+     and the paged any-hit kernel (K3's) against the plain walk and
+     list_walk, splits, by width; the any hit also against K2 on the
+     same segments; (c) its full-width render (256x256, 16 spp,
+     max_bounces 64) from zero launch counts, only the paged route
+     launching, and one more under torch.profiler, as in phase 5; (d) a
+     64x64 4-spp image of it against the plain path on the CPU;
   8. the CLI (cli.render_scene) on the smoke scene at 256x256: (a) with
      the output buffers (color with sample variance and A/B halves,
      depth, normal, albedo, visibility) at 16 spp, its color held
@@ -319,16 +328,23 @@ def kernel_inputs(scene, o, d, t_max):
     return k
 
 
-def launch(scene, k, any_hit: bool, resident: bool = False):
-    """One raw launch of the scene's kernel (the resident one when asked):
-    (t, tri cluster*128+slot, tests)."""
+def launch(scene, k, any_hit: bool, resident: bool = False, splits=None):
+    """One raw launch of the scene's kernel, `splits` CTAs a block (None:
+    the launcher's choice): the closest-hit kernel (counted as the
+    scene's route), or the scene's any-hit kernel (the resident one, K2,
+    when asked).  Returns (t, tri cluster*128+slot, tests)."""
     from tungsten_tpu_torch.ops import wave_trace as twt
-    if k["paged"] and not resident:
-        return twt.paged_kernel(k["f"], k["psent"], k["psids"], k["pages"],
-                                k["offs"], k["offe"], scene.wk_cbox,
-                                scene.wk_attr, any_hit)
+    paged = k["paged"] and not resident
+    if not any_hit:
+        return twt.closest_kernel(k["f"], k["sent"], k["sids"],
+                                  scene.wk_cbox, scene.wk_attr, splits,
+                                  "paged_closest" if paged else "closest")
+    if paged:
+        return twt.paged_anyhit_kernel(k["f"], k["psent"], k["psids"],
+                                       k["pages"], k["offs"], k["offe"],
+                                       scene.wk_cbox, scene.wk_attr, splits)
     return twt.wave_kernel(k["f"], k["sent"], k["sids"], scene.wk_cbox,
-                           scene.wk_attr, any_hit)
+                           scene.wk_attr, True)
 
 
 def wrapper(scene, k, any_hit: bool):
@@ -396,28 +412,21 @@ def raw_t_error(scene, name, t_raw, tri_raw, pt, ptri, live) -> float:
     return err
 
 
-def vs_resident(scene, name, k, any_hit: bool, t3, tri3) -> dict:
-    """A paged launch against the resident kernel on the very same rays:
-    the hit set equal, and the winning slot equal wherever the two t
-    differ (equal t are ties the two walk orders may break apart).
-    Returns the resident kernel's ms and the tests it needed and ran on
-    these rays: a walk's needed count depends on its order (a super
-    reached later is culled against a worse best t), so the bound takes
-    the smaller of the two walks' counts."""
+def vs_resident(scene, name, k, t3, tri3) -> dict:
+    """The paged any-hit launch against the resident any-hit kernel (K2,
+    the yardstick) on the very same segments: the occluded set equal.
+    Returns K2's ms and the tests it needed and ran on these segments."""
     import torch
-    t1, tri1, tests1 = launch(scene, k, any_hit, resident=True)
+    t1, tri1, tests1 = launch(scene, k, True, resident=True)
     torch.cuda.synchronize()
-    same_hits = bool(torch.equal(tri3 >= 0, tri1 >= 0))
-    ties = int(((tri3 != tri1) & (t3 == t1)).sum())
-    slots_ok = bool(((tri3 == tri1) | (t3 == t1)).all())
-    log(f"  {name}: paged vs resident kernel on the same rays: hit set "
-        f"equal {same_hits}, winning slot equal except at t ties "
-        f"{slots_ok} ({ties} ties)")
-    if not (same_hits and (any_hit or slots_ok)):
-        raise AssertionError(f"{name}: the paged and resident kernels "
-                             f"disagree")
+    same = bool(torch.equal(tri3 >= 0, tri1 >= 0))
+    log(f"  {name}: paged vs resident any-hit kernel on the same segments: "
+        f"occluded set equal {same}")
+    if not same:
+        raise AssertionError(f"{name}: the paged and resident any-hit "
+                             f"kernels disagree")
     needed, ran = tri_test_counts(tests1)
-    return {"resident_ms": cuda_ms(lambda: launch(scene, k, any_hit,
+    return {"resident_ms": cuda_ms(lambda: launch(scene, k, True,
                                                   resident=True)),
             "resident_tests": needed, "resident_tests_run": ran}
 
@@ -429,10 +438,124 @@ def tri_test_counts(tests) -> tuple[int, int]:
             int(tests[1].sum(dtype=torch.int64)))
 
 
+LIST_WALK_RAYS = 8192   # the rays held against list_walk ray for ray
+
+
+def list_front(k, any_hit: bool, n: int | None = None):
+    """The launch's front (f, sent, sids), for the first n rays."""
+    paged = any_hit and k["paged"]
+    names = ("f", "psent", "psids") if paged else ("f", "sent", "sids")
+    if n is None:
+        return tuple(k[x] for x in names)
+    return (k["f"][:n],) + tuple(k[x][:n // 128] for x in names[1:])
+
+
+def vs_list_walk(scene, name, k, any_hit: bool, t, tri, tests) -> dict:
+    """A splits=1 launch against list_walk (the kernels' schedule in plain
+    PyTorch): on the first LIST_WALK_RAYS rays the triangle (closest
+    hit) or the occluded flag (any hit) equal on >= 0.9999 of live rays
+    (nvcc contracts the leaf's multiply-adds into FMAs, PyTorch does
+    not, so a near-tie may part) and the needed totals within 0.01 %;
+    at full width list_walk's needed count, which the bound and the
+    run/needed gate take, and the kernel's beside it."""
+    import torch
+    from tungsten_tpu_torch.ops import wave_trace as twt
+    n = min(LIST_WALK_RAYS, k["f"].shape[0])
+    t0 = time.time()
+    lt, ltri, lneed = twt.list_walk(*list_front(k, any_hit, n),
+                                    scene.wk_cbox, scene.wk_attr, any_hit)
+    live = k["tmax"][:n] > 0
+    if any_hit:
+        same = ((tri[:n] >= 0) == (ltri >= 0))[live]
+    else:
+        same = (tri[:n] == ltri)[live]
+    same = same.float().mean().item()
+    kn = int(tests[0][:n].sum(dtype=torch.int64))
+    ln = int(lneed.sum(dtype=torch.int64))
+    rel = abs(kn - ln) / max(ln, 1)
+    _, _, fneed = twt.list_walk(*list_front(k, any_hit), scene.wk_cbox,
+                                scene.wk_attr, any_hit)
+    full = int(fneed.sum(dtype=torch.int64))
+    torch.cuda.synchronize()
+    log(f"  {name}: vs list_walk on the first {n} rays: "
+        f"{'occluded flag' if any_hit else 'triangle'} equal on {same:.6f}"
+        f" of live rays, needed {kn} vs {ln} ({rel:.2e}); at full width "
+        f"list_walk needs {full}, the kernel at splits=1 counts "
+        f"{tri_test_counts(tests)[0]} ({time.time() - t0:.1f} s)")
+    if not (same >= 0.9999 and rel <= 1e-4):
+        raise AssertionError(f"{name}: the kernel disagrees with list_walk")
+    return {"list_walk_tests": full, "list_walk_agreement": same,
+            "list_walk_needed_rel": rel}
+
+
+def result_of(t, tri, any_hit: bool):
+    """What the CTA split must not change: t and tri (closest hit), the
+    occluded flag (any hit)."""
+    return (tri >= 0,) if any_hit else (t, tri)
+
+
+def splits_equal(scene, name, k, any_hit: bool, one) -> dict:
+    """The launcher's choice of splits and splits=8 against splits=1:
+    bitwise equal results."""
+    import torch
+    from tungsten_tpu_torch.ops import wave_trace as twt
+    want = result_of(*one[:2], any_hit)
+    S = twt.launch_splits(k["f"].shape[0] // 128, k["f"].device)
+    for splits in (None, 8):
+        got = result_of(*launch(scene, k, any_hit, splits=splits)[:2],
+                        any_hit)
+        if not all(bool(torch.equal(a, b)) for a, b in zip(want, got)):
+            raise AssertionError(f"{name}: splits={splits} differs from "
+                                 f"splits=1")
+    log(f"  {name}: splits=1, the launcher's {S} and 8 bitwise equal")
+    return {"splits": S}
+
+
+WIDTHS = (1024, 4096, 8192, 65536)   # narrow waves, as late bounces leave
+TAIL = (4096, 256)                   # a sparse tail wave: rays, live rays
+
+
+def by_width(scene, name, o, d, t_max, any_hit: bool) -> dict:
+    """The kernel on the first w rays of a ray set, and on a sparse tail
+    wave (the first 4,096 rays, 256 of them live, gathered to the front
+    as compact_wave leaves them), at splits=1 and at the launcher's
+    choice: bitwise equal, and their times."""
+    import torch
+    from tungsten_tpu_torch.ops import wave_trace as twt
+    out = {}
+    for w in WIDTHS + ("tail",):
+        tm = t_max
+        if w == "tail":
+            w = TAIL[0]
+            tm = t_max[:w].clone()
+            tm[TAIL[1]:] = 0.0
+        if w > o.shape[0]:
+            break
+        k = kernel_inputs(scene, o[:w], d[:w], tm[:w])
+        one = launch(scene, k, any_hit, splits=1)
+        auto = launch(scene, k, any_hit)
+        if not all(bool(torch.equal(a, b)) for a, b in
+                   zip(result_of(*one[:2], any_hit),
+                       result_of(*auto[:2], any_hit))):
+            raise AssertionError(f"{name}: splits change the result at "
+                                 f"{w} rays")
+        S = twt.launch_splits(w // 128, o.device)
+        ms1 = cuda_ms(lambda: launch(scene, k, any_hit, splits=1))
+        ms = cuda_ms(lambda: launch(scene, k, any_hit))
+        live = int((k["tmax"] > 0).sum())
+        key = "tail" if tm is not t_max else str(w)
+        out[key] = {"rays": w, "live": live, "splits": S, "ms": ms,
+                    "ms_splits1": ms1}
+        log(f"  {name}, {key} ({w} rays, {live} live): {ms:.4f} ms at the "
+            f"launcher's {S} CTAs a block, {ms1:.4f} ms at 1 "
+            f"({ms1 / ms:.2f}x), bitwise equal")
+    return out
+
+
 def check_closest(scene, name, o, d, t_max):
-    """The scene's closest-hit kernel on one ray set: gates against the
-    plain walk (and, on a paged scene, against the resident kernel), and
-    times."""
+    """The closest-hit kernel on one ray set, as the scene's route: gates
+    against the plain walk and against list_walk, splits bitwise equal,
+    tests run against list_walk's needed count, and times, by width too."""
     import torch
     from tungsten_tpu_torch.ops import intersect as tis
     k = kernel_inputs(scene, o, d, t_max)
@@ -442,66 +565,33 @@ def check_closest(scene, name, o, d, t_max):
                                     k["tmax"])
     torch.cuda.synchronize()
     err_final = hit_gates(name, t, tri, u, v, pt, ptri, pu, pv, live)
-    t_raw, tri_raw, tests = launch(scene, k, False)
+    t_raw, tri_raw, tests = launch(scene, k, False, splits=1)
     err = raw_t_error(scene, name, t_raw, tri_raw, pt, ptri, live)
-    out = {}
-    if k["paged"]:
-        out = vs_resident(scene, name, k, False, t_raw, tri_raw)
+    out = vs_list_walk(scene, name, k, False, t_raw, tri_raw, tests)
+    out.update(splits_equal(scene, name, k, False, (t_raw, tri_raw)))
     ms = cuda_ms(lambda: launch(scene, k, False))
     wrap_ms = cuda_ms(lambda: wrapper(scene, k, False))
     plain_ms = cuda_ms(lambda: tis.bvh_walk(scene, k["o"], k["d"], k["tmin"],
                                             k["tmax"]))
     n_tests, n_ran = tri_test_counts(tests)
-    b, by = bound_ms(scene, k, min(n_tests, out.get("resident_tests",
-                                                     n_tests)))
-    if k["paged"]:
-        # the closest-hit paged kernel tests only each ray's own clusters;
-        # its own needed count comes from the same loop as its run count,
-        # so the gate holds the tests it ran against the resident
-        # kernel's needed count on the same rays, counted on its own
-        need = min(n_tests, out["resident_tests"])
-        log(f"  {name}: tests run / needed {n_ran / max(need, 1):.4f} "
-            f"(own needed {n_tests}, resident needed "
-            f"{out['resident_tests']}), kernel / resident kernel time "
-            f"{ms / out['resident_ms']:.3f}")
-        if n_ran > 1.5 * need:
-            raise AssertionError(f"{name}: the paged kernel ran more than "
-                                 f"1.5x the tests its rays need")
-        out["by_width"] = closest_by_width(scene, o, d, t_max, name)
+    need = out["list_walk_tests"]
+    b, by = bound_ms(scene, k, need)
+    log(f"  {name}: tests run / list_walk's needed "
+        f"{n_ran / max(need, 1):.4f}")
+    if n_ran > 1.5 * need:
+        raise AssertionError(f"{name}: the kernel ran more than 1.5x the "
+                             f"tests its rays need")
     hit_share = (tri >= 0).float().mean().item()
     log(f"  {name}: {o.shape[0]} rays ({int(live.sum())} live, hit share "
-        f"{hit_share:.4f}), {n_tests} ray-triangle tests needed, {n_ran} run"
-        f"; kernel {ms:.3f} ms"
-        + (f" (resident kernel {out['resident_ms']:.3f} ms, "
-           f"{out['resident_tests']} tests needed, "
-           f"{out['resident_tests_run']} run)" if out else "")
-        + f", wrapper (front + kernel + finalize) {wrap_ms:.3f} ms, plain "
-        f"walk {plain_ms:.3f} ms, bound {b:.4f} ms ({by})")
+        f"{hit_share:.4f}), {n_tests} ray-triangle tests needed at "
+        f"splits=1, {n_ran} run; kernel {ms:.3f} ms, wrapper (front + "
+        f"kernel + finalize) {wrap_ms:.3f} ms, plain walk {plain_ms:.3f} "
+        f"ms, bound {b:.4f} ms ({by})")
+    out["by_width"] = by_width(scene, name, o, d, t_max, False)
     out.update(ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b,
                bound_by=by, max_abs_err=err, max_abs_err_final=err_final,
                rays=int(o.shape[0]), tests=n_tests, tests_run=n_ran,
                hits=(t, tri, k))
-    return out
-
-
-WIDTHS = (1024, 8192, 65536)   # narrow waves, as late bounces leave
-
-
-def closest_by_width(scene, o, d, t_max, name) -> dict:
-    """The paged closest-hit kernel against the resident one on the first
-    w rays of a ray set, for the narrow widths of a render's late bounces:
-    a cost that each block pays whatever its rays (the merge over the
-    slot heads) shows as a ratio that grows as the wave narrows."""
-    out = {}
-    for w in WIDTHS:
-        if w > o.shape[0]:
-            break
-        k = kernel_inputs(scene, o[:w], d[:w], t_max[:w])
-        ms = cuda_ms(lambda: launch(scene, k, False))
-        res_ms = cuda_ms(lambda: launch(scene, k, False, resident=True))
-        out[str(w)] = {"ms": ms, "resident_ms": res_ms}
-        log(f"  {name}, first {w} rays: kernel {ms:.4f} ms, resident "
-            f"kernel {res_ms:.4f} ms ({ms / res_ms:.3f})")
     return out
 
 
@@ -534,8 +624,8 @@ def shadow_segments(scene, o, d, t, tri, seed: int):
 def check_anyhit(scene, o, d, t_max):
     """The scene's any-hit kernel on shadow segments: against the plain
     any-hit walk, its hit set against the closest-hit kernel's on the very
-    same segments (and, on a paged scene, the resident any-hit kernel's);
-    times."""
+    same segments; on a paged scene also against K2 on the same segments
+    and against list_walk, splits bitwise equal, by width; times."""
     import torch
     from tungsten_tpu_torch.ops import intersect as tis
     k = kernel_inputs(scene, o, d, t_max)
@@ -555,18 +645,29 @@ def check_anyhit(scene, o, d, t_max):
         f"{same_as_k1}")
     if not (agree > 0.998 and same_as_k1 and bool((tri_a[~live] == -1).all())):
         raise AssertionError("any-hit kernel disagrees")
-    t_raw, tri_raw, tests = launch(scene, k, True)
+    split = k["paged"]   # K2 runs one CTA a block
+    t_raw, tri_raw, tests = launch(scene, k, True,
+                                   splits=1 if split else None)
     out = {}
-    if k["paged"]:
-        out = vs_resident(scene, "shadow segments", k, True, t_raw,
-                          tri_raw)
+    if split:
+        out = vs_resident(scene, "shadow segments", k, t_raw, tri_raw)
+        out.update(vs_list_walk(scene, "shadow segments", k, True, t_raw,
+                                tri_raw, tests))
+        out.update(splits_equal(scene, "shadow segments", k, True,
+                                (t_raw, tri_raw)))
     ms = cuda_ms(lambda: launch(scene, k, True))
     wrap_ms = cuda_ms(lambda: wrapper(scene, k, True))
     plain_ms = cuda_ms(lambda: tis.bvh_walk(scene, k["o"], k["d"], k["tmin"],
                                             k["tmax"], any_hit=True))
     n_tests, n_ran = tri_test_counts(tests)
-    b, by = bound_ms(scene, k, min(n_tests, out.get("resident_tests",
-                                                     n_tests)))
+    need = out.get("list_walk_tests", n_tests)
+    b, by = bound_ms(scene, k, need)
+    if split:
+        log(f"  shadow segments: tests run / list_walk's needed "
+            f"{n_ran / max(need, 1):.4f}")
+        if n_ran > 1.5 * need:
+            raise AssertionError("shadow segments: the kernel ran more than "
+                                 "1.5x the tests its rays need")
     log(f"  shadow segments: {n_tests} ray-triangle tests needed, {n_ran} "
         f"run; kernel {ms:.3f} ms"
         + (f" (resident kernel {out['resident_ms']:.3f} ms, "
@@ -574,6 +675,9 @@ def check_anyhit(scene, o, d, t_max):
            f"{out['resident_tests_run']} run)" if out else "")
         + f", wrapper {wrap_ms:.3f} ms, plain walk {plain_ms:.3f} ms, bound "
         f"{b:.4f} ms ({by})")
+    if split:
+        out["by_width"] = by_width(scene, "shadow segments", o, d, t_max,
+                                   True)
     out.update(ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b,
                bound_by=by, max_abs_err=err, agreement=agree,
                rays=int(o.shape[0]), tests=n_tests, tests_run=n_ran)
@@ -642,28 +746,45 @@ def cross_path(scene, settings, max_bounces: int | None = None) -> None:
         raise AssertionError("cross-path image check failed")
 
 
-def profile_render(render_once) -> None:
+KERNEL_OF_ROUTE = {"closest": "wave_trace_closest_kernel",
+                   "paged_closest": "wave_trace_closest_kernel",
+                   "anyhit": "wave_trace_anyhit_kernel",
+                   "paged_anyhit": "wave_trace_paged_anyhit_kernel"}
+
+
+def profile_render(render_once) -> dict:
     """One more render under torch.profiler (device activity only): device
     busy time (the union of kernel intervals) against the profiled wall
     time, and the kernels that take the most device time.  The profiler's
     own host cost is in the wall time, so the idle share is an upper
     bound.  The raw device events are read directly: the profiler's
-    per-event Python parse takes minutes at a million launches."""
+    per-event Python parse takes minutes at a million launches.  The
+    wrappers log each traversal launch (route, rays, splits) meanwhile,
+    and the traversal kernels' device events, in launch order, are
+    tallied by route and width: returns {route: {"launches", "ms",
+    "by_width": {rays: {"launches", "splits", "ms"}}}}, or {} where the
+    events do not pair with the launches (then not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        render_once()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    from tungsten_tpu_torch.ops import wave_trace as twt
+    twt.LAUNCH_LOG = []
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            render_once()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        launched = twt.LAUNCH_LOG
+    finally:
+        twt.LAUNCH_LOG = None
     kern = [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
             for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA]
     if not kern:
         log("profile: the profiler recorded no device activity (device "
             "busy share not measured)")
-        return
+        return {}
     spans = sorted((s, e) for s, e, _ in kern)
     busy, (cs, ce) = 0, spans[0]
     for s, e in spans[1:]:
@@ -690,6 +811,31 @@ def profile_render(render_once) -> None:
     for name, (us, n) in top:
         log(f"  {us / 1e3:9.2f} ms {n:6d}x {us / total * 100:5.1f} %  "
             f"{name[:90]}")
+    trav = sorted((s, e, name) for s, e, name in kern
+                  if "wave_trace" in name)
+    if len(trav) != len(launched) or not all(
+            KERNEL_OF_ROUTE[route] in name
+            for (_, _, name), (route, _, _) in zip(trav, launched)):
+        log(f"  traversal launches by width: not measured ({len(trav)} "
+            f"device events, {len(launched)} launches logged)")
+        return {}
+    tally: dict[str, dict] = {}
+    for (s, e, _), (route, rays, splits) in zip(trav, launched):
+        r = tally.setdefault(route, {"launches": 0, "ms": 0.0,
+                                     "by_width": {}})
+        w = r["by_width"].setdefault(str(rays), {"launches": 0,
+                                                 "splits": splits,
+                                                 "ms": 0.0})
+        for x in (r, w):
+            x["launches"] += 1
+            x["ms"] += (e - s) / 1e3
+    for route, r in tally.items():
+        log(f"  {route}: {r['launches']} launches, {r['ms']:.3f} ms device "
+            f"time; by rays a launch (launches, CTAs a block, ms): " +
+            ", ".join(f"{w}: {x['launches']}x{x['splits']} "
+                      f"{x['ms']:.3f}" for w, x in sorted(
+                          r["by_width"].items(), key=lambda i: -int(i[0]))))
+    return tally
 
 
 # ------------------------------------------------------------ leaf kernels
@@ -961,8 +1107,10 @@ def server_run(path: str) -> None:
 
 # -------------------------------------------------------------------- main
 
-def kernel_row(name, mode, m, launches, replaces, tol, extra):
-    """One row of the kernels JSON line."""
+def kernel_row(name, mode, m, launches, replaces, tol, extra, prof):
+    """One row of the kernels JSON line, with the route's device time in
+    the profiled render (render_ms, render_by_width; None where not
+    measured)."""
     row = {"name": name, "route": "cuda",
            "source": "tungsten_tpu_torch/csrc/wave_trace.cu",
            "replaces": replaces, "launches": launches[mode],
@@ -972,10 +1120,13 @@ def kernel_row(name, mode, m, launches, replaces, tol, extra):
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
             "max_abs_err_final", "rays", "tests", "tests_run", "wrapper_ms",
             "resident_ms", "resident_tests", "resident_tests_run",
-            "by_width")
+            "list_walk_tests", "list_walk_agreement", "splits", "by_width")
     row.update({x: m[x] for x in keys if x in m and x not in row})
     for k, v in extra.items():
         row[k] = {x: v[x] for x in keys if x in v}
+    p = prof.get(mode)
+    row["render_ms"] = p["ms"] if p else None
+    row["render_by_width"] = p["by_width"] if p else None
     return row
 
 
@@ -1087,8 +1238,8 @@ def main() -> int:
         log(f"  second render: {stats2['time']:.3f} s, "
             f"{stats2['mrays_per_s']:.3f} Mrays/s; image mean {img.mean():.6f}"
             f" vs {img2.mean():.6f}")
-        profile_render(lambda: render(scene, settings, spp=SPP, seed=SEED,
-                                      spp_chunk=SPP))
+        prof = profile_render(lambda: render(scene, settings, spp=SPP,
+                                             seed=SEED, spp_chunk=SPP))
         mark("render")
 
         # 6. kernel path vs plain path on the CPU, small frame
@@ -1131,8 +1282,8 @@ def main() -> int:
                 zlaunches["closest"] == 0 and zlaunches["anyhit"] == 0):
             raise AssertionError(f"large render: not the paged walk alone "
                                  f"{zlaunches}")
-        profile_render(lambda: render(zscene, zsettings, spp=SPP, seed=SEED,
-                                      spp_chunk=SPP))
+        zprof = profile_render(lambda: render(zscene, zsettings, spp=SPP,
+                                              seed=SEED, spp_chunk=SPP))
         mark("large scene (c)")
         # (d) at 16 bounces: the CPU plain walk of 606k triangles costs
         # seconds a bounce body, and glass keeps paths alive to the limit
@@ -1200,20 +1351,22 @@ def main() -> int:
                    "max_abs_err is the kernel's own t")
     anyhit_tol = ("vs plain walk: occlusion agreement > 0.998; hit set "
                   "equal to the closest-hit kernel's")
-    paged = ("; vs the resident kernel on the same rays: hit set equal, "
-             "winning slot equal except at equal t")
+    split = ("; vs list_walk on the first 8192 rays: the result equal on "
+             ">= 0.9999 of live rays, needed totals within 0.01 %; splits=1 "
+             "bitwise equal to the launcher's choice and to 8")
+    paged = "; vs the resident any-hit kernel on the same rays: hit set equal"
     k1 = "tungsten_tpu/ops/wave_trace.py:300"
     k3 = "tungsten_tpu/ops/wave_trace.py:724"
     rows = [
         kernel_row("wave_trace_closest", "closest", prim, launches, k1,
-                   closest_tol, {"continuation": cont}),
+                   closest_tol + split, {"continuation": cont}, prof),
         kernel_row("wave_trace_anyhit", "anyhit", shadow, launches, k1,
-                   anyhit_tol, {}),
+                   anyhit_tol, {}, prof),
         kernel_row("wave_trace_paged_closest", "paged_closest", zprim,
-                   zlaunches, k3, closest_tol + paged,
-                   {"continuation": zcont}),
+                   zlaunches, k3, closest_tol + split,
+                   {"continuation": zcont}, zprof),
         kernel_row("wave_trace_paged_anyhit", "paged_anyhit", zshadow,
-                   zlaunches, k3, anyhit_tol + paged, {}),
+                   zlaunches, k3, anyhit_tol + split + paged, {}, zprof),
     ] + leaf_rows
     log(f"render_s {stats['time']:.3f} mrays_per_s "
         f"{stats['mrays_per_s']:.3f} large_render_s {zstats['time']:.3f} "

@@ -8,12 +8,17 @@ On the random-soup fixture of tests/test_wave.py (700 triangles, 2048
 rays; regenerated here with numpy) both kernel modes pass that file's
 gates against the f32 brute force and against the plain walk on the same
 device, and a small render through the kernels matches the plain path.
-The paged kernel (both modes) passes the same gates on the 5,000-triangle
-soup of tests/test_paged.py with the page shrunk to one super, and
-agrees with the resident kernel ray for ray; its closest-hit kernel
-does so too where coherent bundles spread each block over several pages
-with interleaved entries, running at most 1.5x the tests its rays need,
-and where zero-area triangles sit inside clusters before real ones.
+The paged walk (its any hit a kernel of its own, its closest hit the
+resident kernel on the resident front) passes the same gates on the
+5,000-triangle soup of tests/test_paged.py with the page shrunk to one
+super; its any hit agrees with the resident one ray for ray.  The
+closest-hit kernel and the paged any-hit kernel agree with list_walk
+(their schedule in plain PyTorch) on the same rays, also where coherent
+bundles spread each block over several pages and where zero-area
+triangles sit inside clusters before real ones; their launches split
+over 1, 2, 8 or the launcher's count of CTAs a block, and two launches,
+are bitwise equal, and a block with a few live rays among dead ones
+gives them their full block's results.
 The tensor-core leaf kernel (K4, K5: csrc/leaf_mma.cu) agrees with its
 plain versions on seeded random bf16 inputs and exactly on the TPU
 tool's all-ones inputs at every shape of the tool, and a launch held to
@@ -253,10 +258,12 @@ def one_super_pages(monkeypatch):
 
 @pytest.mark.cuda
 def test_cuda_paged_kernel_passes_wave_gates(cuda_device, one_super_pages):
-    """The paged kernel over several pages: test_wave.py's gates against
-    the brute force and the plain walk, closest hit and any hit; against
-    the resident kernel on the same rays the hit set is equal and the
-    triangle too except where the two t are equal (ties)."""
+    """The paged walk over several pages: test_wave.py's gates against
+    the brute force and the plain walk, closest hit and any hit; the
+    paged any hit's occluded set equals the resident any hit's on the
+    same rays, and its closest hit (the closest-hit kernel on the
+    resident front) equals list_walk's, the triangle too except where
+    the two t are equal (ties)."""
     v0, e1, e2 = _soup(num_tris=5000, seed=5)
     R = 2 * twt.BLOCK
     o, d = _rays(R, seed=6)
@@ -278,25 +285,31 @@ def test_cuda_paged_kernel_passes_wave_gates(cuda_device, one_super_pages):
                   False)
     assert all(np.array_equal(a, b) for a, b in zip((t, tri, u, v), again))
 
-    # raw kernel outputs against the resident kernel, any hit and closest
+    # raw kernel outputs: the paged any hit against the resident one on
+    # the same rays, the closest hit (the resident kernel on the resident
+    # front) against list_walk
     args = [torch.from_numpy(x).to(cuda_device) for x in (o, d, tmin, tmax)]
     o_s, d_s, tmin_s, tmax_s, _ = tis.dispatch_rays(sc, *args)
     f, sent, sids, pages, offs, offe, _ = twt.paged_kernel_inputs(
         sc, o_s, d_s, tmin_s, tmax_s)
     f1, sent1, sids1, _ = twt.kernel_inputs(sc, o_s, d_s, tmin_s, tmax_s)
     assert torch.equal(f, f1)
-    for any_hit in (False, True):
-        t3, tri3, tests3 = twt.paged_kernel(f, sent, sids, pages, offs, offe,
-                                            sc.wk_cbox, sc.wk_attr, any_hit)
-        t1, tri1, _ = twt.wave_kernel(f1, sent1, sids1, sc.wk_cbox,
-                                      sc.wk_attr, any_hit)
-        assert torch.equal(tri3 >= 0, tri1 >= 0)
-        if any_hit:
-            assert torch.equal(t3 <= -1.0, tri3 >= 0)
-        else:
-            assert bool(((tri3 == tri1) | (t3 == t1)).all())
-            assert bool((tri3 == tri1).float().mean() > 0.999)
-        need, ran = tests3[0], tests3[1]
+    t3, tri3, tests3 = twt.paged_anyhit_kernel(f, sent, sids, pages, offs,
+                                               offe, sc.wk_cbox, sc.wk_attr)
+    t1, tri1, _ = twt.wave_kernel(f1, sent1, sids1, sc.wk_cbox, sc.wk_attr,
+                                  True)
+    assert torch.equal(tri3 >= 0, tri1 >= 0)
+    assert torch.equal(t3 <= -1.0, tri3 >= 0)
+    t3, tri3, tests3c = twt.closest_kernel(f1, sent1, sids1, sc.wk_cbox,
+                                           sc.wk_attr, route="paged_closest")
+    lt, ltri, _ = twt.list_walk(f1, sent1, sids1, sc.wk_cbox, sc.wk_attr,
+                                False)
+    assert torch.equal(tri3 >= 0, ltri >= 0)
+    assert bool(((tri3 == ltri) | torch.isclose(t3, lt, rtol=1e-6,
+                                                atol=0)).all())
+    assert bool((tri3 == ltri).float().mean() > 0.999)
+    for tests in (tests3, tests3c):
+        need, ran = tests[0], tests[1]
         assert bool((need <= ran).all()) and int(need.sum()) > 0
         assert bool((ran[tmax_s <= 0] == 0).all())
 
@@ -304,6 +317,7 @@ def test_cuda_paged_kernel_passes_wave_gates(cuda_device, one_super_pages):
     _, tri_a, _, _ = _hits(twt.wave_intersect_paged, sc, order, o, d, tmin,
                            tmax_b, True)
     assert twt.LAUNCHES["paged_anyhit"] == before["paged_anyhit"] + 2
+    assert twt.LAUNCHES["paged_closest"] == before["paged_closest"] + 3
     _, bi_b, _, _ = _brute(v0, e1, e2, o, d, 1e-4, tmax_b)
     assert ((tri_a >= 0) == (bi_b >= 0))[live].mean() > 0.998
     _, tri_k2, _, _ = _hits(twt.wave_intersect, sc, order, o, d, tmin,
@@ -487,11 +501,16 @@ def test_cuda_paged_wrapper_rejects_bad_inputs(cuda_device):
     pages = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
     rng = torch.zeros((8, 1), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="offs"):
-        twt.paged_kernel(f, lists, lists.int(), pages, rng.float(), rng,
-                         cbox, attr, False)
+        twt.paged_anyhit_kernel(f, lists, lists.int(), pages, rng.float(),
+                                rng, cbox, attr)
     with pytest.raises(ValueError, match="pages"):
-        twt.paged_kernel(f, lists, lists.int(), pages.float(), rng, rng,
-                         cbox, attr, False)
+        twt.paged_anyhit_kernel(f, lists, lists.int(), pages.float(), rng,
+                                rng, cbox, attr)
+    with pytest.raises(ValueError, match="splits"):
+        twt.paged_anyhit_kernel(f, lists, lists.int(), pages, rng, rng,
+                                cbox, attr, splits=0)
+    with pytest.raises(ValueError, match="one CTA"):
+        twt.wave_kernel(f, lists, lists.int(), cbox, attr, True, splits=2)
 
 
 @pytest.mark.cuda
@@ -538,14 +557,123 @@ def _bundle_rays(R, seed):
     return o.astype(np.float32), d.astype(np.float32)
 
 
+def _front(sc, dev, o, d, tmin, tmax, paged=False):
+    """The kernels' inputs for rays in the given order (no dispatch
+    sort): the resident front, or with `paged` the paged one."""
+    args = [torch.from_numpy(x).to(dev) for x in (o, d, tmin, tmax)]
+    if paged:
+        return twt.paged_kernel_inputs(sc, *args)[:6]
+    return twt.kernel_inputs(sc, *args)[:3]
+
+
+def _launch(sc, front, any_hit, splits=None):
+    """The closest-hit kernel on a resident front, or the paged any-hit
+    kernel on a paged one."""
+    if any_hit:
+        return twt.paged_anyhit_kernel(*front, sc.wk_cbox, sc.wk_attr,
+                                       splits=splits)
+    return twt.closest_kernel(*front, sc.wk_cbox, sc.wk_attr, splits=splits)
+
+
+def _vs_list_walk(sc, front, any_hit, t, tri, tests):
+    """A splits=1 launch against list_walk on the same front: closest hit
+    the hit set, t within rtol 1e-5 / atol 1e-5 (nvcc contracts the
+    leaf's multiply-adds into FMAs, PyTorch does not, and t*det cancels
+    for a hit near the origin, so its error is absolute there), the
+    triangle on > 0.999 of hits and elsewhere a t within rtol 1e-6 (a
+    near-tie the two roundings break apart); any hit the occluded set;
+    row 0 equal to list_walk's needed count ray for ray; row 0 <= row
+    1."""
+    lt, ltri, lneed = twt.list_walk(front[0], front[1], front[2],
+                                    sc.wk_cbox, sc.wk_attr, any_hit)
+    assert torch.equal(tri >= 0, ltri >= 0)
+    if any_hit:
+        assert torch.equal(t <= -1.0, lt <= -1.0)
+    else:
+        hit = tri >= 0
+        assert bool((tri == ltri)[hit].float().mean() > 0.999)
+        assert bool(((tri == ltri) | torch.isclose(t, lt, rtol=1e-6,
+                                                   atol=0)).all())
+        assert torch.allclose(t, lt, rtol=1e-5, atol=1e-5)
+    assert torch.equal(tests[0], lneed)
+    assert bool((tests[0] <= tests[1]).all())
+
+
+def _flag(t, tri, any_hit):
+    """What splits must not change: t and tri for closest hit, the
+    occluded flag for any hit."""
+    return (tri >= 0,) if any_hit else (t, tri)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cuda_splits_are_bitwise_equal(cuda_device, one_super_pages,
+                                       any_hit):
+    """The closest-hit kernel (K1, K3's closest hit) and the paged any-hit
+    kernel on 8 blocks of coherent bundles through a 20,000-triangle
+    soup: splits 1, 2, 8 and the launcher's choice give bitwise the same
+    t and tri (closest) or occluded flag (any hit), two launches are
+    bitwise equal, and splits=1 is list_walk's walk, its row 0 equal to
+    list_walk's needed count."""
+    v0, e1, e2 = _soup(num_tris=20000, seed=9)
+    R = twt.BLOCK
+    o, d = _bundle_rays(R, seed=10)
+    tmin = np.full((R,), 1e-4, np.float32)
+    tmax = np.full((R,), 3e38, np.float32)
+    tmax[::7] = 0.0
+    if any_hit:
+        tmax = np.where(tmax > 0, np.float32(8.0), np.float32(0.0))
+    sc, _ = _scene(v0, e1, e2, cuda_device)
+    front = _front(sc, cuda_device, o, d, tmin, tmax, paged=any_hit)
+    assert twt.launch_splits(R // twt.WARP, cuda_device) > 8
+    t, tri, tests = _launch(sc, front, any_hit, splits=1)
+    _vs_list_walk(sc, front, any_hit, t, tri, tests)
+    assert 0.05 < float((tri >= 0).float().mean()) < 0.95
+    want = _flag(t, tri, any_hit)
+    for splits in (2, 8, None, None):
+        got = _flag(*_launch(sc, front, any_hit, splits)[:2], any_hit)
+        assert all(torch.equal(a, b) for a, b in zip(want, got)), splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cuda_few_live_rays_in_a_block(cuda_device, any_hit):
+    """A block with 1 to 3 live rays among dead ones gives those rays the
+    results of their full block (the launcher's split): closest hit the
+    same t bitwise and the same triangle except at equal t, any hit the
+    same occluded flag."""
+    v0, e1, e2 = _soup(num_tris=5000, seed=5)
+    R = twt.BLOCK
+    o, d = _rays(R, seed=6)
+    tmin = np.full((R,), 1e-4, np.float32)
+    tmax = np.full((R,), np.float32(1.25) if any_hit else 3e38, np.float32)
+    sc, _ = _scene(v0, e1, e2, cuda_device)
+    t, tri, _ = _launch(sc, _front(sc, cuda_device, o, d, tmin, tmax,
+                                   any_hit), any_hit)
+    keep = np.zeros((R,), bool)
+    for b, rays in enumerate(([5], [0, 127], [17, 64, 100])):
+        keep[[b * twt.WARP + r for r in rays]] = True
+    tmax_s = np.where(keep, tmax, np.float32(0.0))
+    ts, tris, tests = _launch(sc, _front(sc, cuda_device, o, d, tmin, tmax_s,
+                                         any_hit), any_hit)
+    k = torch.from_numpy(keep).to(cuda_device)
+    assert bool((tris[~k] == -1).all()) and int(tests[:, ~k].sum()) == 0
+    assert torch.equal(tri[k] >= 0, tris[k] >= 0)
+    assert bool((tri[k] >= 0).any())
+    if not any_hit:
+        assert torch.equal(t[k], ts[k])
+        assert bool(((tri[k] == tris[k]) | (t[k] == ts[k])).all())
+
+
 @pytest.mark.cuda
 def test_cuda_paged_closest_interleaved_pages(cuda_device, one_super_pages):
-    """The closest-hit paged kernel where each block's supers span several
-    pages with entries interleaved across them (coherent bundles through
-    a 20,000-triangle soup, a page of one super): its hit set equals the
-    resident kernel's, its winning slot too except at equal t, it runs at
-    most 1.5x the tests its rays need, and the wrapper passes the gates
-    against the brute force."""
+    """K3's closest hit where each block's supers span several pages with
+    entries interleaved across them (coherent bundles through a
+    20,000-triangle soup, a page of one super): the paged wrapper's
+    closest hit launches the closest-hit kernel on the resident front,
+    which equals list_walk on those rays (its row 0 list_walk's needed
+    count) and runs at most 1.5x the tests they need, and the wrapper
+    passes the gates against the brute force."""
     v0, e1, e2 = _soup(num_tris=20000, seed=9)
     R = 4 * twt.BLOCK
     o, d = _bundle_rays(R, seed=10)
@@ -556,22 +684,21 @@ def test_cuda_paged_closest_interleaved_pages(cuda_device, one_super_pages):
     sc, order = _scene(v0, e1, e2, cuda_device)
     args = [torch.from_numpy(x).to(cuda_device) for x in (o, d, tmin, tmax)]
     o_s, d_s, tmin_s, tmax_s, _ = tis.dispatch_rays(sc, *args)
-    f, sent, sids, pages, offs, offe, _ = twt.paged_kernel_inputs(
-        sc, o_s, d_s, tmin_s, tmax_s)
+    offs, offe = twt.paged_kernel_inputs(sc, o_s, d_s, tmin_s, tmax_s)[4:6]
     slots = (offe > offs).sum(dim=1)
-    assert int(slots.max()) >= 4             # blocks walk several pages
-    f1, sent1, sids1, _ = twt.kernel_inputs(sc, o_s, d_s, tmin_s, tmax_s)
-    t3, tri3, tests3 = twt.paged_kernel(f, sent, sids, pages, offs, offe,
-                                        sc.wk_cbox, sc.wk_attr, False)
-    t1, tri1, _ = twt.wave_kernel(f1, sent1, sids1, sc.wk_cbox, sc.wk_attr,
-                                  False)
-    assert torch.equal(tri3 >= 0, tri1 >= 0)
-    assert bool(((tri3 == tri1) | (t3 == t1)).all())
+    assert int(slots.max()) >= 4             # blocks span several pages
+    front = twt.kernel_inputs(sc, o_s, d_s, tmin_s, tmax_s)[:3]
+    t3, tri3, tests3 = twt.closest_kernel(*front, sc.wk_cbox, sc.wk_attr,
+                                          splits=1, route="paged_closest")
+    _vs_list_walk(sc, front, False, t3, tri3, tests3)
     need, ran = int(tests3[0].sum()), int(tests3[1].sum())
     assert 0 < need and ran <= 1.5 * need
     assert bool((tests3[:, tmax_s <= 0] == 0).all())
+    before = dict(twt.LAUNCHES)
     t, tri, u, v = _hits(twt.wave_intersect_paged, sc, order, o, d, tmin,
                          tmax, False)
+    assert twt.LAUNCHES["paged_closest"] == before["paged_closest"] + 1
+    assert twt.LAUNCHES["closest"] == before["closest"]
     bt, bi, uu, vv = _brute(v0, e1, e2, o, d, 1e-4, tmax)
     _gates(t, tri, u, v, bt, bi, uu, vv, live)
 
@@ -580,10 +707,12 @@ def test_cuda_paged_closest_interleaved_pages(cuda_device, one_super_pages):
 def test_cuda_paged_closest_zero_area_triangles(cuda_device,
                                                 one_super_pages):
     """Zero-area triangles (n = 0) sit inside clusters, before real ones,
-    wherever the BVH order puts them: the closest-hit paged kernel still
-    tests every real triangle, so it equals the resident kernel ray for
-    ray (the slot too except at equal t), counts only the real triangles
-    as needed, and its wrapper passes the gates against the brute force."""
+    wherever the BVH order puts them: the closest-hit kernel (K3's closest
+    hit on this paged setting) still tests every real triangle, so it
+    equals list_walk ray for ray, counts only the real triangles as
+    needed (list_walk's count), runs the holes, and the paged wrapper
+    passes the gates against the brute force; the paged any hit equals
+    list_walk on the paged front too."""
     v0, e1, e2 = _soup(num_tris=5000, seed=5)
     e1[::8] = 0.0
     e2[4::8] = 0.0
@@ -601,17 +730,15 @@ def test_cuda_paged_closest_zero_area_triangles(cuda_device,
     assert int((holes & ~real & real.any(1, keepdim=True)).sum()) > 100
     args = [torch.from_numpy(x).to(cuda_device) for x in (o, d, tmin, tmax)]
     o_s, d_s, tmin_s, tmax_s, _ = tis.dispatch_rays(sc, *args)
-    f, sent, sids, pages, offs, offe, _ = twt.paged_kernel_inputs(
-        sc, o_s, d_s, tmin_s, tmax_s)
-    f1, sent1, sids1, _ = twt.kernel_inputs(sc, o_s, d_s, tmin_s, tmax_s)
-    t3, tri3, tests3 = twt.paged_kernel(f, sent, sids, pages, offs, offe,
-                                        sc.wk_cbox, sc.wk_attr, False)
-    t1, tri1, tests1 = twt.wave_kernel(f1, sent1, sids1, sc.wk_cbox,
-                                       sc.wk_attr, False)
-    assert torch.equal(tri3 >= 0, tri1 >= 0)
-    assert bool(((tri3 == tri1) | (t3 == t1)).all())
-    assert torch.equal(tests3[0], tests1[0])       # the same walk's needs
+    front = twt.kernel_inputs(sc, o_s, d_s, tmin_s, tmax_s)[:3]
+    t3, tri3, tests3 = twt.closest_kernel(*front, sc.wk_cbox, sc.wk_attr,
+                                          splits=1, route="paged_closest")
+    _vs_list_walk(sc, front, False, t3, tri3, tests3)
     assert bool((tests3[0] < tests3[1]).any())     # holes run, not needed
+    pfront = twt.paged_kernel_inputs(sc, o_s, d_s, tmin_s,
+                                     torch.clamp(tmax_s, max=1.25))[:6]
+    _vs_list_walk(sc, pfront, True, *twt.paged_anyhit_kernel(
+        *pfront, sc.wk_cbox, sc.wk_attr, splits=1))
     t, tri, u, v = _hits(twt.wave_intersect_paged, sc, order, o, d, tmin,
                          tmax, False)
     bt, bi, uu, vv = _brute(v0, e1, e2, o, d, 1e-4, tmax)

@@ -9,8 +9,11 @@ tests/test_paged.py shrinks it, so the soup fixtures span many pages:
   * traversal_kind picks the paged walk from 13 MiB of attribute table
     up, exactly the JAX package's rule, and the dispatch follows it;
   * wave_intersect_paged on CPU tensors (the plain walk) passes
-    test_paged.py's brute-force gates, closest hit and any hit.
-The CUDA kernel is held to the same gates on the card by
+    test_paged.py's brute-force gates, closest hit and any hit;
+  * list_walk's closest hit on the resident front equals the JAX
+    paged kernel's, and its any hit on the paged front (the paged any-hit
+    kernel's walk) occludes the same segments as on the resident front.
+The CUDA kernels are held to the same gates on the card by
 tests/test_torch_cuda.py.
 """
 from types import SimpleNamespace
@@ -24,7 +27,7 @@ from tungsten_tpu.ops import wave_trace as jwt
 from tungsten_tpu_torch.ops import intersect as tis
 from tungsten_tpu_torch.ops import wave_trace as twt
 from tungsten_tpu_torch.scene.bvh import build_bvh
-from test_torch_wave import _bvh_scene
+from test_torch_wave import _bvh_scene, _list_walk_case, _zero_area_soup
 from test_wave import _brute, _rays
 from test_wave import _scene as _soup
 
@@ -184,10 +187,9 @@ def test_paged_wrapper_refuses_bad_page_size(monkeypatch):
 
 
 def _merged_walk(sent, sids, offs, offe):
-    """The closest-hit paged kernel's walk order (csrc/wave_trace.cu,
-    wave_trace_paged_closest_kernel), transcribed: repeatedly the least
-    (entry, slot) over the heads of the block's slot ranges.  Returns the
-    walk's (entries, super ids, slots)."""
+    """A k-way merge of a block's slot ranges: repeatedly the least
+    (entry, slot) over the heads of the ranges.  Returns the merged
+    (entries, super ids, slots)."""
     heads, ends = list(offs), list(offe)
     es, ids, slots = [], [], []
     while True:
@@ -206,11 +208,12 @@ def _merged_walk(sent, sids, offs, offe):
 
 @pytest.mark.parametrize("page_sup", [1, 4])
 def test_merged_paged_walk_is_the_resident_order(monkeypatch, page_sup):
-    """The closest-hit paged kernel merges _cull_paged's slot ranges back
-    into entry order: per warp the walk is non-decreasing in entry and,
-    entry by entry, the resident front's pending list (_cull_sorted_supers)
-    on the same rays, super ids included; on these coherent bundles the
-    walk goes back and forth between pages."""
+    """_cull_paged keeps every pending super of a warp, only reordered:
+    its slot ranges, each entry-sorted, merge back into entry order, and
+    the merge is, entry by entry, the resident front's pending list
+    (_cull_sorted_supers) on the same rays, super ids included, so the
+    paged any-hit walk visits the resident walk's supers; on these
+    coherent bundles the merge goes back and forth between pages."""
     monkeypatch.setattr(twt, "PAGE_SUP", page_sup)
     v0, e1, e2, _ = _soup(num_tris=20000)
     cbox, sbox = twt.build_wave_tables(v0, e1, e2)[1::3]
@@ -234,17 +237,6 @@ def test_merged_paged_walk_is_the_resident_order(monkeypatch, page_sup):
             assert np.array_equal(ids, ri[g, w][fin])
             interleaved += int((np.diff(slots) < 0).any())
     assert interleaved > 0
-
-
-def _zero_area_soup(num_tris=5000, seed=5):
-    """The 5,000-triangle soup with every fourth triangle of zero area
-    (e1 = 0 or e2 = 0, so n = e1 x e2 is exactly 0): after the BVH sort
-    they sit inside clusters, before real triangles."""
-    v0, e1, e2, _ = _soup(num_tris=num_tris, seed=seed)
-    e1, e2 = e1.copy(), e2.copy()
-    e1[::8] = 0.0
-    e2[4::8] = 0.0
-    return v0, e1, e2
 
 
 def test_paged_zero_area_triangles_match_jax(one_super_pages):
@@ -290,3 +282,60 @@ def test_paged_zero_area_triangles_match_jax(one_super_pages):
     np.testing.assert_allclose(t[both], bt[both], rtol=1e-4)
     assert (tri[both] == bi[both]).mean() > 0.99
     assert not np.isin(bi[both], np.r_[0:len(v0):8, 4:len(v0):8]).any()
+
+
+@pytest.mark.parametrize("page_sup", [1, 4])
+def test_list_walk_paged_front_occludes_as_resident(monkeypatch, page_sup):
+    """list_walk's any hit on the paged front ((page, entry) order, the
+    walk of the paged any-hit kernel) and on the resident front (entry
+    order, the resident walk's) occlude the same segments, coherent
+    bundles through a 20,000-triangle soup spreading each block over
+    several pages; the occluding cluster may differ with the order, and
+    so may the tests needed before it."""
+    monkeypatch.setattr(twt, "PAGE_SUP", page_sup)
+    v0, e1, e2, _ = _soup(num_tris=20000)
+    _, cbox, attr, _, sbox = twt.build_wave_tables(v0, e1, e2)
+    sc = SimpleNamespace(wk_cbox=torch.from_numpy(cbox),
+                         wk_sbox=torch.from_numpy(sbox))
+    o, d, tmin, tmax = _bundles(2 * twt.BLOCK)
+    tmax = np.where(tmax > 0, np.float32(7.0), np.float32(0.0))
+    rays = [torch.from_numpy(x) for x in (o, d, tmin, tmax)]
+    tables = (sc.wk_cbox, torch.from_numpy(attr))
+    f, sent, sids, _ = twt.kernel_inputs(sc, *rays)
+    t_r, tri_r, need_r = twt.list_walk(f, sent, sids, *tables, True)
+    pf, ps, pi, _, po, pe, _ = twt.paged_kernel_inputs(sc, *rays)
+    assert int(((pe > po).sum(-1)).max()) >= 3
+    t_p, tri_p, need_p = twt.list_walk(pf, ps, pi, *tables, True)
+    occ = tri_r >= 0
+    assert torch.equal(occ, tri_p >= 0)
+    assert torch.equal(t_r <= -1.0, occ) and torch.equal(t_p <= -1.0, occ)
+    assert 0.1 < float(occ.float().mean()) < 0.9
+    assert bool((need_p[occ] >= 1).all()) and bool((need_r[occ] >= 1).all())
+
+
+@pytest.mark.parametrize("zero_area", [False, True])
+def test_list_walk_closest_matches_jax(one_super_pages, zero_area):
+    """list_walk's closest hit on the resident front against the JAX
+    package's closest hit on the same tables (interpret mode, both
+    finalized by the one f32 Moller-Trumbore per hit) on the 5,000-
+    triangle soup and on the same soup with zero-area triangles inside
+    its clusters: the hit set equal, the triangle equal or the t equal
+    (a tie the two walk orders break apart), t within rtol 1e-4, and no
+    zero-area triangle wins.  The JAX side is wave_intersect_paged, whose
+    closest hit is wave_intersect's: at these shapes it reuses
+    test_paged_zero_area_triangles_match_jax's compile of the
+    interpreted kernel, which keeps this file's new cases within
+    seconds; tests/test_torch_wave.py holds the any hit against
+    wave_intersect."""
+    soup, rays, tables, t, tri = _list_walk_case(zero_area, False)
+    jt, jtri, _, _ = map(np.asarray, jwt.wave_intersect_paged(
+        *(jnp.asarray(x) for x in tables + rays), ncp=tables[0].shape[1],
+        interpret=True, tri_v0=jnp.asarray(soup[0]),
+        tri_e1=jnp.asarray(soup[1]), tri_e2=jnp.asarray(soup[2])))
+    assert np.array_equal(tri >= 0, jtri >= 0)
+    both = tri >= 0
+    assert ((tri == jtri) | (t == jt))[both].all()
+    np.testing.assert_allclose(t[both], jt[both], rtol=1e-4)
+    if zero_area:
+        n = len(soup[0])
+        assert not np.isin(tri[both], np.r_[0:n:8, 4:n:8]).any()

@@ -6,7 +6,10 @@ triangles, 2048 rays):
   * the plain walk (the wave kernels' plain version, the CPU path)
     equals JAX bvh_intersect on the CPU: tri exactly, t/u/v to 1e-6;
   * it passes test_wave.py's gates against the Pallas kernel run in
-    interpret mode, closest hit and any hit.
+    interpret mode, closest hit and any hit;
+  * list_walk (the CUDA kernels' own schedule in plain PyTorch) occludes
+    what the Pallas kernel in interpret mode occludes on a 5,000-triangle
+    soup, with and without zero-area triangles inside its clusters.
 The CUDA kernels themselves are held to the same gates on the card by
 tests/test_torch_cuda.py.
 """
@@ -307,3 +310,63 @@ def test_wave_dispatch_sort_pad_unpermute(soup):
         if not any_hit:
             for a, b in zip(ref, got):
                 assert torch.equal(a, b)
+
+
+def _zero_area_soup(num_tris=5000, seed=5):
+    """The 5,000-triangle soup with every fourth triangle of zero area
+    (e1 = 0 or e2 = 0, so n = e1 x e2 is exactly 0): after the BVH sort
+    they sit inside clusters, before real triangles."""
+    v0, e1, e2, _ = _soup(num_tris=num_tris, seed=seed)
+    e1, e2 = e1.copy(), e2.copy()
+    e1[::8] = 0.0
+    e2[4::8] = 0.0
+    return v0, e1, e2
+
+
+def _list_walk_case(zero_area, any_hit):
+    """The 5,000-triangle soup (with every fourth triangle of zero area
+    when asked) in its own order, 1,024 rays from tests/test_wave.py,
+    every fifth dead (any hit: segments of length 1.25): the soup, the
+    rays, its wave tables, list_walk's finalized (t, tri) and needed
+    count on the resident front, checked for what needed must be."""
+    if zero_area:
+        v0, e1, e2 = _zero_area_soup()
+    else:
+        v0, e1, e2 = _soup(num_tris=5000, seed=5)[:3]
+    R = jwt.BLOCK
+    o, d = _rays(R, seed=6)
+    tmin = np.full((R,), 1e-4, np.float32)
+    tmax = np.full((R,), 1.25 if any_hit else 3e38, np.float32)
+    tmax[::5] = 0.0
+    tables = twt.build_wave_tables(v0, e1, e2)
+    fin = np.concatenate([v0, e1, e2], axis=1)
+    sc = SimpleNamespace(**{k: torch.from_numpy(x) for k, x in (
+        ("wk_cbox", tables[1]), ("wk_attr", tables[2]),
+        ("wk_remap", tables[3]), ("wk_sbox", tables[4]), ("tri_v0", v0),
+        ("tri_fin", fin))})
+    rays = [torch.from_numpy(x) for x in (o, d, tmin, tmax)]
+    f, sent, sids, tmax_c = twt.kernel_inputs(sc, *rays)
+    t, tri, need = twt.list_walk(f, sent, sids, sc.wk_cbox, sc.wk_attr,
+                                 any_hit)
+    need = need.numpy()
+    assert (need[tmax <= 0] == 0).all() and need.sum() > 0
+    assert (need[tri.numpy() >= 0] >= 1).all()
+    t, tri, _, _ = (x.numpy() for x in twt._finish(sc, rays[0], rays[1], t,
+                                                   tri, tmax_c, any_hit))
+    assert 100 < (tri >= 0).sum() < 0.9 * R
+    return (v0, e1, e2), (o, d, tmin, tmax), tables, t, tri
+
+
+@pytest.mark.parametrize("zero_area", [False, True])
+def test_list_walk_anyhit_matches_jax(zero_area):
+    """list_walk's any hit on the resident front occludes exactly the
+    segments the JAX kernel (wave_intersect, interpret mode) occludes on
+    the same tables, on the 5,000-triangle soup and on the same soup
+    with zero-area triangles inside its clusters.  The JAX call has the
+    shapes of test_plain_walk_anyhit_gate's, so it reuses that compile;
+    the closest hit is held to JAX in tests/test_torch_paged.py."""
+    _, rays, tables, _, tri = _list_walk_case(zero_area, True)
+    _, jtri, _, _ = jwt.wave_intersect(
+        *(jnp.asarray(x) for x in tables + rays), ncp=tables[0].shape[1],
+        interpret=True, any_hit=True)
+    assert np.array_equal(tri >= 0, np.asarray(jtri) >= 0)

@@ -1,78 +1,86 @@
-// Wave traversal kernels for Hopper (sm_90a): resident and paged walks,
-// each in closest-hit and any-hit mode.
+// Wave traversal kernels for Hopper (sm_90a): one closest-hit kernel for
+// the resident and the paged scene, the resident any-hit walk and the
+// paged any-hit walk.
 //
-// wave_trace_kernel replaces tungsten_tpu/ops/wave_trace.py::_make_kernel
-// (the Pallas TPU kernel launched by wave_intersect), any_hit False and
-// True.  wave_trace_paged_closest_kernel and wave_trace_paged_anyhit_kernel
-// replace ::_make_kernel_paged (launched by wave_intersect_paged) in
-// closest-hit and any-hit mode.  They read the same tables
-// (build_wave_tables) and the same per-warp super lists (the fronts
-// _cull_sorted_supers and _cull_paged) and return what the TPU kernels
-// return: per ray the winning t and cluster*128+slot (closest hit), or
-// t = -3e38 with tri >= 0 on an occluded segment (any hit).
+// wave_trace_closest_kernel replaces tungsten_tpu/ops/wave_trace.py::
+// _make_kernel(any_hit=False) (launched by wave_intersect) and
+// ::_make_kernel_paged(any_hit=False) (launched by wave_intersect_paged):
+// both compute the same closest hit, and on this card the page order only
+// shaped L2 locality, so one entry-ordered walk serves both.
+// wave_trace_anyhit_kernel replaces _make_kernel(any_hit=True), and
+// wave_trace_paged_anyhit_kernel replaces _make_kernel_paged(any_hit=True).
+// They read the same tables (build_wave_tables) and the same per-warp
+// super lists (the fronts _cull_sorted_supers and _cull_paged) and return
+// what the TPU kernels return: per ray the winning t and cluster*128+slot
+// (closest hit), or t = -3e38 with tri >= 0 on an occluded segment (any
+// hit; tri beyond its sign carries no meaning).
 //
-// Design (K1, K2, K3 any hit).  One CUDA block is one 128-ray warp of
-// the TPU kernels, one thread per ray.  Per super each thread slab-tests
-// the 16 member clusters (the 1.00000024 fudge and the live / tmin /
-// best-t rules of slab16); the block ORs the survivor bits.  Each
-// surviving cluster's 16 x 128 f32 attribute rows (8 KB) are staged in
-// shared memory, transposed so that one triangle is 16 contiguous floats
-// (four broadcast float4 loads), and every live thread evaluates det, u*det,
-// v*det and t*det for the 128 triangles as f32 FMA chains — the
-// quantities the TPU computed with a K=48 bf16 hi/lo matmul, here
-// straight in f32.  Acceptance is the TPU's: u, v >= 0, u + v <= det,
-// tmin < t < best t, det > 1e-16 (after folding the sign of det).
+// Leaf.  A cluster's 16 x 128 f32 attribute rows (8 KB) are staged in
+// shared memory transposed, so that one triangle is 16 contiguous floats
+// (four float4 loads), and a test evaluates det, u*det, v*det and t*det
+// as f32 FMA chains, the quantities the TPU computed with a K=48 bf16
+// hi/lo matmul, here straight in f32.  Acceptance is the TPU's: u, v >= 0,
+// u + v <= det, t*det > tmin*det, det > 1e-16 (after folding the sign of
+// det), and t below the ray's best.
 //
-// The resident walk takes the warp's entry-sorted super list front to
-// back and stops once the next entry exceeds the block's largest live
-// best t.
+// K2 (wave_trace_anyhit_kernel) keeps the first, simple schedule: one
+// CUDA block is one 128-ray warp of the TPU kernel, one thread a ray; per
+// super each thread slab-tests the 16 member clusters (the 1.00000024
+// fudge), the block ORs the survivors, and every live thread tests every
+// surviving cluster's 128 triangles, one staged tile at a time.
 //
-// The paged walk.  On the TPU a page (256 clusters) existed to fit the
-// tables of a large scene through a 12 MB VMEM budget: the grid's second
-// axis streamed one page per step, and best t carried across pages in
-// the resident output block.  Here the attribute tables stay in device
-// memory for both walks (a page's 2 MB of f32 rows could never sit in
-// 227 KB of shared memory) and reach the SM through the 50 MB L2, so the
-// page order only shapes L2 locality.
+// Per-ray work (the closest-hit and the paged any-hit kernels).  Each ray
+// slab-tests a super's 16 clusters against its own best t; per cluster the
+// rays whose slab accepted it are compacted into a list (ballot and
+// prefix); each listed ray's real triangles are split over P neighbouring
+// threads (slots q, q+P, ...: conflict-free float4 reads of the transposed
+// tile), P = 128 / (listed rays) rounded down to a power of two between 4
+// and 32, so a cluster that one ray needs still runs on a whole warp.  The
+// tiles are double-buffered: cp.async loads the next surviving cluster
+// while the current one is tested.  Tests run up to a cluster's last real
+// slot (zero-area triangles sit wherever the BVH order puts them).
 //
-// Any hit (wave_trace_paged_anyhit_kernel) walks its page slots in
-// order, carries best t in registers, and within a slot walks
-// [offs, offe) of its (page, entry)-sorted list while the entry is <=
-// the block's bound, with a page's cluster boxes (256 x 8 f32 = 8 KB)
-// staged in shared memory once per slot it enters; the TPU's scalar
-// prefetch of the page list becomes the block's own loads, and its pad
-// slots are empty ranges the block skips.
+// Closest hit walks the warp's entry-sorted list front to back and stops
+// once the next entry exceeds the block's largest live best t.  A ray's
+// best is a 64-bit key: t's bits (order-preserving as unsigned) over the
+// walk position * 2048 + cluster * 128 + slot, so the least key is the
+// serial loop's winner (strict t < best, ties to the earliest in walk
+// order) whatever order the candidates are found in.
 //
-// Closest hit (wave_trace_paged_closest_kernel) walks in entry order
-// instead: page order made a block's best t fall late and ran 1.5x the
-// resident walk's tests.  Each slot range is entry-sorted, so a k-way
-// merge over the slot heads (warp 0, an arg-min over the heads 32 slots a
-// step, ties to the lower slot = the lower super id) yields the resident
-// walk's order, and the walk stops when the least head exceeds the
-// block's bound.  A super's 16 boxes (512 B) are read where they are.
-// Each ray then tests only the clusters its own slab accepted: per
-// surviving cluster the rays that need it are compacted in shared memory
-// (ballot and prefix), each listed ray's real triangles are split over 4
-// neighbouring threads (slots q, q+4, ...: conflict-free float4 reads of
-// the transposed tile), and (t, slot) is reduced over them with the
-// serial loop's rule (strict t < best, the lowest slot among equal t).
-// The surviving clusters' 8 KB tiles are double-buffered: cp.async loads
-// the next while the current one is tested.
+// Paged any hit walks its page slots in order, a page's 256 cluster boxes
+// staged in shared memory once per slot it enters (the page order keeps a
+// large scene's attribute rows local in L2), and within a slot the
+// (page, entry)-sorted range while the entry is <= the block's bound.  A
+// ray leaves at its first hit: its threads test their slots in lockstep
+// and agree through a warp ballot after every round, and an occluded ray
+// drops out of later lists and of the block's bound.
+//
+// Narrow launches.  A render's late bounces launch waves of a few
+// thousand rays, a few dozen blocks on a 132-SM card, each on a long
+// serial walk.  So the launcher splits each block's walk over `splits`
+// CTAs (chosen on the host from the grid width and the SM count; 1 for a
+// full-width wave): closest-hit CTA s takes list positions s, s+splits,
+// ..., and any-hit CTA s page slots s, s+splits, ....  The CTAs of a
+// block share each ray's best through one word in device memory: the
+// closest-hit key (stored inverted, updated with atomicMax, so a
+// zero-filled scratch means "no hit"), read back after every super to
+// cull with; the any-hit occluded word (tri + 1), set by the CTA that
+// finds a hit and read by the others, which drop the ray.  The last CTA
+// of a block to finish (a counter per block) decodes the words into t and
+// tri.  The closest-hit result is the least key, the any-hit flag the
+// existence of a hit, so both equal the one-CTA walk's whatever the CTAs'
+// timing; the any-hit tri (which hit) and the counts of tests may differ.
 //
 // Bound.  The work is ray-triangle tests (40 f32 multiplies and adds
 // each, FLOPS_PER_TEST in ops/wave_trace.py); at the main path's shapes
 // that is far above what the table and ray bytes cost, so the kernels
 // are operation-bound.  They count, per ray, the tests the function
-// needs: the real triangles of each cluster whose slab accepts that ray
-// (with its best t when the walk reaches the super), up to the hit for
-// an any-hit ray that stops.  Beside it, the tests the ray's threads
-// ran.  K1, K2 and K3's any hit keep the first, simple schedule (every
-// live thread of a block evaluates every cluster that any ray of its
-// block needs, one cluster staged at a time, blocks of 128 threads); K3's
-// closest hit runs only each ray's own clusters, up to each cluster's
-// last real triangle (zero-area triangles before it are run, not needed).
+// needs (row 0: the real triangles of each cluster whose slab accepts
+// that ray with the best t it sees when it reaches the super, up to the
+// hit for an any-hit ray that stops) and the tests its threads ran
+// (row 1).  list_walk in ops/wave_trace.py is the same schedule in plain
+// PyTorch, one CTA a block.
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -83,12 +91,13 @@ constexpr int SUP = 16;          // clusters per super
 constexpr int ATTR_ROWS = 16;    // attr rows per cluster
 constexpr int FCOLS = 16;        // ray feature columns
 constexpr int TSTRIDE = 20;      // staged floats per triangle (16 + pad:
-                                 // conflict-free float4 stores)
+                                 // conflict-free float4 accesses)
 constexpr int MAX_PAGE_CLUSTERS = 256;   // the JAX package's PAGE_CLUSTERS
+constexpr int MAX_SPLITS = 64;   // CTAs a block's walk may be split over
+constexpr int POS_SHIFT = 11;    // key low word: position * 2048 + c * 128
+                                 // + slot
 constexpr float BIG = 3.0e38f;   // the JAX package's INF
-// slot heads of the closest-hit paged walk, in dynamic shared memory
-// beside its 25 KB of static state: 16,000 page slots
-constexpr int MAX_SLOT_HEAD_BYTES = 192000;
+constexpr unsigned long long NO_HIT = ~0ull;
 
 struct Ray {
     float ox, oy, oz, dx, dy, dz, mx, my, mz, rtmin, ix, iy, iz, tmax;
@@ -122,39 +131,73 @@ __device__ __forceinline__ float block_max(float v, float *red) {
     return fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
 }
 
-// the warp_bound live rule: an any-hit ray that has hit drops out
-template <bool ANY_HIT>
-__device__ __forceinline__ bool still_live(const Ray &r, float tb) {
-    return ANY_HIT ? (r.live0 && tb > -1e37f) : r.live0;
+// The slab test of one ray against a super's 16 cluster boxes at `cb`
+// (device or shared memory) with best t `tb`: bit c set where cluster c
+// may hold a hit.
+__device__ __forceinline__ unsigned slab16(const Ray &r, const float *cb,
+                                           float tb) {
+    unsigned m = 0;
+#pragma unroll 4
+    for (int c = 0; c < SUP; ++c) {
+        const float4 lo = *reinterpret_cast<const float4 *>(cb + c * 8);
+        const float4 hi = *reinterpret_cast<const float4 *>(cb + c * 8 + 4);
+        // lo = (lox, loy, loz, hix), hi = (hiy, hiz, valid, pad)
+        const float t0x = (lo.x - r.ox) * r.ix, t1x = (lo.w - r.ox) * r.ix;
+        const float t0y = (lo.y - r.oy) * r.iy, t1y = (hi.x - r.oy) * r.iy;
+        const float t0z = (lo.z - r.oz) * r.iz, t1z = (hi.y - r.oz) * r.iz;
+        const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                               fmaxf(fminf(t0z, t1z), r.rtmin));
+        const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                               fminf(fmaxf(t0z, t1z), tb));
+        if (tn <= tf * 1.00000024f && hi.z > 0.0f) m |= 1u << c;
+    }
+    return m;
 }
 
-// One super of the walk: slab-test its 16 member clusters (boxes at `cb`,
-// in device or shared memory; global ids cid0 .. cid0+15), OR the
-// survivors over the block, then stage and test each surviving cluster.
-// Block-uniform: every thread of the block calls it.
-template <bool ANY_HIT>
+// One ray-triangle test of the leaf: the sign-folded det, u*det, v*det
+// and t*det of triangle `tr` (16 staged floats) against ray x.
+struct Leaf {
+    float ad, un, vn, tn;
+};
+
+__device__ __forceinline__ Leaf leaf_test(const Ray &x, const float *tri) {
+    const float4 *tr = reinterpret_cast<const float4 *>(tri);
+    const float4 r0 = tr[0];   // ne2v0.xyz, e2.x
+    const float4 r1 = tr[1];   // e2.yz, e1v0.xy
+    const float4 r2 = tr[2];   // e1v0.z, ne1.xyz
+    const float4 r3 = tr[3];   // n.xyz, -(n.v0)
+    const float det = -(x.dx * r3.x + x.dy * r3.y + x.dz * r3.z);
+    const float udet = x.dx * r0.x + x.dy * r0.y + x.dz * r0.z +
+                       x.mx * r0.w + x.my * r1.x + x.mz * r1.y;
+    const float vdet = x.dx * r1.z + x.dy * r1.w + x.dz * r2.x +
+                       x.mx * r2.y + x.my * r2.z + x.mz * r2.w;
+    const float tdet = x.ox * r3.x + x.oy * r3.y + x.oz * r3.z + r3.w;
+    const float sg = det >= 0.0f ? 1.0f : -1.0f;
+    Leaf l;
+    l.ad = det * sg;
+    l.un = udet * sg;
+    l.vn = vdet * sg;
+    l.tn = tdet * sg;
+    return l;
+}
+
+// u, v >= 0, u + v <= det, t*det > tmin*det, det > 1e-16
+__device__ __forceinline__ bool leaf_inside(const Ray &x, const Leaf &l) {
+    return (l.un >= 0.0f) & (l.vn >= 0.0f) & (l.un + l.vn <= l.ad) &
+           (l.tn > x.rtmin * l.ad) & (l.ad > 1e-16f);
+}
+
+// ------------------------------------------------------------------ K2
+
+// One super of K2's walk: slab-test the 16 member clusters, OR the
+// survivors over the block, then stage and test each surviving cluster
+// on every ray that has not hit.  Block-uniform.
 __device__ __forceinline__ void visit_super(
         const Ray &r, const float *cb, int cid0,
         const float *__restrict__ attr, float *tile, unsigned *smask,
         float &tb, int &tri, int &needed, int &executed) {
     const int tid = threadIdx.x;
-    unsigned m = 0;
-    if (r.live0) {
-#pragma unroll 4
-        for (int c = 0; c < SUP; ++c) {
-            const float4 lo = *reinterpret_cast<const float4 *>(cb + c * 8);
-            const float4 hi = *reinterpret_cast<const float4 *>(cb + c * 8 + 4);
-            // lo = (lox, loy, loz, hix), hi = (hiy, hiz, valid, pad)
-            const float t0x = (lo.x - r.ox) * r.ix, t1x = (lo.w - r.ox) * r.ix;
-            const float t0y = (lo.y - r.oy) * r.iy, t1y = (hi.x - r.oy) * r.iy;
-            const float t0z = (lo.z - r.oz) * r.iz, t1z = (hi.y - r.oz) * r.iz;
-            const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                                   fmaxf(fminf(t0z, t1z), r.rtmin));
-            const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                                   fminf(fmaxf(t0z, t1z), tb));
-            if (tn <= tf * 1.00000024f && hi.z > 0.0f) m |= 1u << c;
-        }
-    }
+    const unsigned m = r.live0 ? slab16(r, cb, tb) : 0u;
     if (tid == 0) *smask = 0u;
     __syncthreads();
     const unsigned wm = __reduce_or_sync(0xffffffffu, m);
@@ -176,7 +219,7 @@ __device__ __forceinline__ void visit_super(
         dst[1] = make_float4(a[4], a[5], a[6], a[7]);
         dst[2] = make_float4(a[8], a[9], a[10], a[11]);
         dst[3] = make_float4(a[12], a[13], a[14], a[15]);
-        const bool act = still_live<ANY_HIT>(r, tb);
+        const bool act = r.live0 && tb > -1e37f;   // not yet occluded
         // real triangles of the cluster: padding slots hold zero rows,
         // and a triangle with n = 0 never passes det > 1e-16
         const int n_real = __syncthreads_count(
@@ -184,39 +227,14 @@ __device__ __forceinline__ void visit_super(
         if (act) {
             int j = 0;
             for (; j < CLUSTER; ++j) {
-                const float4 *tr =
-                    reinterpret_cast<const float4 *>(tile + j * TSTRIDE);
-                const float4 r0 = tr[0];   // ne2v0.xyz, e2.x
-                const float4 r1 = tr[1];   // e2.yz, e1v0.xy
-                const float4 r2 = tr[2];   // e1v0.z, ne1.xyz
-                const float4 r3 = tr[3];   // n.xyz, -(n.v0)
-                const float det = -(r.dx * r3.x + r.dy * r3.y + r.dz * r3.z);
-                const float udet = r.dx * r0.x + r.dy * r0.y + r.dz * r0.z +
-                                   r.mx * r0.w + r.my * r1.x + r.mz * r1.y;
-                const float vdet = r.dx * r1.z + r.dy * r1.w + r.dz * r2.x +
-                                   r.mx * r2.y + r.my * r2.z + r.mz * r2.w;
-                const float tdet = r.ox * r3.x + r.oy * r3.y + r.oz * r3.z +
-                                   r3.w;
-                const float sg = det >= 0.0f ? 1.0f : -1.0f;
-                const float ad = det * sg;
-                const float un = udet * sg, vn = vdet * sg, tn = tdet * sg;
-                const bool ok = (un >= 0.0f) & (vn >= 0.0f) &
-                                (un + vn <= ad) & (tn > r.rtmin * ad) &
-                                (tn < tb * ad) & (ad > 1e-16f);
-                if (ok) {
-                    if (ANY_HIT) {
-                        tb = -BIG;
-                        tri = cid * CLUSTER;
-                        break;
-                    }
-                    const float tc = tn / fmaxf(ad, 1e-30f);
-                    if (tc < tb) {
-                        tb = tc;
-                        tri = cid * CLUSTER + j;
-                    }
+                const Leaf l = leaf_test(r, tile + j * TSTRIDE);
+                if (leaf_inside(r, l) & (l.tn < tb * l.ad)) {
+                    tb = -BIG;
+                    tri = cid * CLUSTER;
+                    break;
                 }
             }
-            const int ran = j < CLUSTER ? j + 1 : CLUSTER;   // any hit stops
+            const int ran = j < CLUSTER ? j + 1 : CLUSTER;   // stops at a hit
             executed += ran;
             if ((m >> c) & 1u) needed += j < CLUSTER ? ran : n_real;
         }
@@ -224,35 +242,23 @@ __device__ __forceinline__ void visit_super(
     }
 }
 
-__device__ __forceinline__ void store(long long ray, float tb, int tri,
-                                      int needed, int executed,
-                                      float *__restrict__ t_out,
-                                      int *__restrict__ tri_out,
-                                      int *__restrict__ tests_out) {
-    t_out[ray] = tb;
-    tri_out[ray] = tri;
-    tests_out[ray] = needed;
-    tests_out[(long long)gridDim.x * WARP_RAYS + ray] = executed;
-}
-
-template <bool ANY_HIT>
 __global__ void __launch_bounds__(WARP_RAYS)
-wave_trace_kernel(const float *__restrict__ f,      // (R, 16) ray features
-                  const float *__restrict__ sent,   // (R/128, nsp) entries
-                  const int *__restrict__ sids,     // (R/128, nsp) super ids
-                  const float *__restrict__ cbox,   // (NCp, 8)
-                  const float *__restrict__ attr,   // (NCp*16, 128)
-                  float *__restrict__ t_out,        // (R,)
-                  int *__restrict__ tri_out,        // (R,)
-                  int *__restrict__ tests_out,      // (2, R)
-                  int nsp, int nsup) {
+wave_trace_anyhit_kernel(const float *__restrict__ f,      // (R, 16)
+                         const float *__restrict__ sent,   // (R/128, nsp)
+                         const int *__restrict__ sids,     // (R/128, nsp)
+                         const float *__restrict__ cbox,   // (NCp, 8)
+                         const float *__restrict__ attr,   // (NCp*16, 128)
+                         float *__restrict__ t_out,        // (R,)
+                         int *__restrict__ tri_out,        // (R,)
+                         int *__restrict__ tests_out,      // (2, R)
+                         int nsp, int nsup) {
     __shared__ __align__(16) float tile[CLUSTER * TSTRIDE];
     __shared__ float red[4];
     __shared__ unsigned smask;
 
     const long long ray = (long long)blockIdx.x * WARP_RAYS + threadIdx.x;
     const Ray r = load_ray(f, ray);
-    float tb = r.tmax;   // best t so far (-BIG once an any-hit ray hits)
+    float tb = r.tmax;   // -BIG once the ray hits
     int tri = -1;
     int needed = 0;      // ray-triangle tests this ray needs
     int executed = 0;    // ray-triangle tests its thread ran
@@ -260,83 +266,22 @@ wave_trace_kernel(const float *__restrict__ f,      // (R, 16) ray features
     const float *srow = sent + (long long)blockIdx.x * nsp;
     const int *irow = sids + (long long)blockIdx.x * nsp;
 
-    float bound = block_max(still_live<ANY_HIT>(r, tb) ? tb : -BIG, red);
+    float bound = block_max(r.live0 ? tb : -BIG, red);
     for (int k = 0; k < nsp; ++k) {
         const float e = srow[k];
         if (!(e <= bound)) break;   // sorted: no later super can help
         const int sid = min(irow[k], nsup - 1);
-        visit_super<ANY_HIT>(r, cbox + (long long)sid * SUP * 8, sid * SUP,
-                             attr, tile, &smask, tb, tri, needed, executed);
-        bound = block_max(still_live<ANY_HIT>(r, tb) ? tb : -BIG, red);
+        visit_super(r, cbox + (long long)sid * SUP * 8, sid * SUP, attr,
+                    tile, &smask, tb, tri, needed, executed);
+        bound = block_max(r.live0 && tb > -1e37f ? tb : -BIG, red);
     }
-    store(ray, tb, tri, needed, executed, t_out, tri_out, tests_out);
+    t_out[ray] = tb;
+    tri_out[ray] = tri;
+    tests_out[ray] = needed;
+    tests_out[(long long)gridDim.x * WARP_RAYS + ray] = executed;
 }
 
-__global__ void __launch_bounds__(WARP_RAYS)
-wave_trace_paged_anyhit_kernel(const float *__restrict__ f,    // (R, 16)
-                               const float *__restrict__ sent, // (R/128, nsp)
-                               const int *__restrict__ sids,   // (R/128, nsp)
-                               const int *__restrict__ pages,  // (R/1024, S)
-                               const int *__restrict__ offs,   // (R/128, S)
-                               const int *__restrict__ offe,   // (R/128, S)
-                               const float *__restrict__ cbox, // (NCp, 8)
-                               const float *__restrict__ attr, // (NCp*16, 128)
-                               float *__restrict__ t_out,
-                               int *__restrict__ tri_out,
-                               int *__restrict__ tests_out,
-                               int nsp, int n_slots, int ncp, int page_sup) {
-    __shared__ __align__(16) float tile[CLUSTER * TSTRIDE];
-    __shared__ __align__(16) float pcb[MAX_PAGE_CLUSTERS * 8];
-    __shared__ float red[4];
-    __shared__ unsigned smask;
-
-    const int tid = threadIdx.x;
-    const long long ray = (long long)blockIdx.x * WARP_RAYS + tid;
-    const Ray r = load_ray(f, ray);
-    float tb = r.tmax;
-    int tri = -1;
-    int needed = 0;
-    int executed = 0;
-
-    const int page_cl = page_sup * SUP;
-    const int nsup = (ncp + page_cl - 1) / page_cl * page_sup;
-    const float *srow = sent + (long long)blockIdx.x * nsp;
-    const int *irow = sids + (long long)blockIdx.x * nsp;
-    const int *prow = pages + (long long)(blockIdx.x / 8) * n_slots;
-    const int *srng = offs + (long long)blockIdx.x * n_slots;
-    const int *erng = offe + (long long)blockIdx.x * n_slots;
-
-    float bound = block_max(still_live<true>(r, tb) ? tb : -BIG, red);
-    for (int p = 0; p < n_slots; ++p) {
-        const int ks = srng[p], ke = erng[p];
-        // an empty range (pad slot, or a page only other warps need), or
-        // one whose first entry is already past the bound: nothing to do
-        if (ks >= ke || !(srow[ks] <= bound)) continue;
-        const int page = prow[p];
-        // stage the page's cluster boxes; clusters past the table are
-        // zero rows (valid = 0), as the TPU's page padding was
-        __syncthreads();   // the previous slot's boxes are no longer read
-        for (int i = tid; i < page_cl * 2; i += WARP_RAYS) {
-            const long long row = (long long)page * page_cl + (i >> 1);
-            float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            if (row < ncp)
-                v = reinterpret_cast<const float4 *>(cbox)[row * 2 + (i & 1)];
-            reinterpret_cast<float4 *>(pcb)[i] = v;
-        }
-        __syncthreads();
-        for (int k = ks; k < ke; ++k) {
-            if (!(srow[k] <= bound)) break;   // sorted within the page
-            const int sid = min(irow[k], nsup - 1);
-            const int sid_local = min(max(sid - page * page_sup, 0),
-                                      page_sup - 1);
-            visit_super<true>(r, pcb + sid_local * SUP * 8,
-                              page * page_cl + sid_local * SUP, attr, tile,
-                              &smask, tb, tri, needed, executed);
-            bound = block_max(still_live<true>(r, tb) ? tb : -BIG, red);
-        }
-    }
-    store(ray, tb, tri, needed, executed, t_out, tri_out, tests_out);
-}
+// ------------------------------------------------------ per-ray work
 
 // 4-byte cp.async (the transposed staging writes one float at a time)
 __device__ __forceinline__ void cp_async4(float *dst, const float *src) {
@@ -360,50 +305,41 @@ __device__ __forceinline__ void stage_cluster(const float *__restrict__ attr,
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// One super of the entry-ordered closest-hit walk with per-ray work: each
-// live ray slab-tests the 16 member clusters against its own best t; for
-// each cluster, the rays whose slab accepted it are compacted into a list
-// (ballot and prefix over the block); then each listed ray's real
-// triangles are split over QUARTERS neighbouring threads (triangles
-// q, q+4, ...) and the (t, slot) winners are reduced over them, the
-// lowest slot winning among equal t as in the serial loop.  Cluster tiles
-// are double-buffered: the next surviving cluster's rows load by cp.async
-// while the current one is tested.  Block-uniform; the rays' state lives
-// in shared memory (tb_s, tri_s and the two counts).
+// A block's state in the per-ray walks.  key: the closest-hit best (see
+// the header); tri: any hit, the occluding cluster*128 or -1.
 struct SplitState {
     float tile[2][CLUSTER * TSTRIDE];
-    float tb[WARP_RAYS];
+    unsigned long long key[WARP_RAYS];
     int tri[WARP_RAYS], needed[WARP_RAYS], ran[WARP_RAYS];
     unsigned char list[SUP][WARP_RAYS];
     int cnt[SUP][WARP_RAYS / 32];
     unsigned nz[2][WARP_RAYS / 32];   // real-triangle ballots, per tile
+    float red[4];
+    int last;
 };
 
-constexpr int QUARTERS = 4;   // threads per ray in the leaf tests
+// order-preserving map of a float's bits to an unsigned, and back
+__device__ __forceinline__ unsigned f2o(float t) {
+    const unsigned u = __float_as_uint(t);
+    return u ^ ((u >> 31) ? 0xffffffffu : 0x80000000u);
+}
 
-__device__ __forceinline__ void visit_super_split(
-        const Ray &r, const float *__restrict__ cb, int cid0,
-        const float *__restrict__ f, const float *__restrict__ attr,
-        SplitState &st) {
+__device__ __forceinline__ float o2f(unsigned u) {
+    return __uint_as_float(u ^ ((u >> 31) ? 0x80000000u : 0xffffffffu));
+}
+
+__device__ __forceinline__ float key_time(unsigned long long key,
+                                         float tmax) {
+    return key == NO_HIT ? tmax : o2f(static_cast<unsigned>(key >> 32));
+}
+
+// Per-cluster ray lists of one super: ray tid is listed under cluster c
+// iff bit c of m.  Starts the first listed cluster's copy into tile 0 and
+// returns the listed clusters (block-uniform).
+__device__ __forceinline__ unsigned build_lists(unsigned m, int cid0,
+                                                const float *__restrict__ attr,
+                                                SplitState &st) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const float tb = st.tb[tid];
-    unsigned m = 0;
-    if (r.live0) {
-#pragma unroll 4
-        for (int c = 0; c < SUP; ++c) {
-            const float4 lo = *reinterpret_cast<const float4 *>(cb + c * 8);
-            const float4 hi = *reinterpret_cast<const float4 *>(cb + c * 8 + 4);
-            const float t0x = (lo.x - r.ox) * r.ix, t1x = (lo.w - r.ox) * r.ix;
-            const float t0y = (lo.y - r.oy) * r.iy, t1y = (hi.x - r.oy) * r.iy;
-            const float t0z = (lo.z - r.oz) * r.iz, t1z = (hi.y - r.oz) * r.iz;
-            const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                                   fmaxf(fminf(t0z, t1z), r.rtmin));
-            const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                                   fminf(fmaxf(t0z, t1z), tb));
-            if (tn <= tf * 1.00000024f && hi.z > 0.0f) m |= 1u << c;
-        }
-    }
-    // per-cluster ray lists: warp counts, then each ray's slot
     unsigned bal[SUP];
 #pragma unroll
     for (int c = 0; c < SUP; ++c) {
@@ -424,84 +360,88 @@ __device__ __forceinline__ void visit_super_split(
                 static_cast<unsigned char>(tid);
         }
     }
-    int cur = 0;
     if (bits) stage_cluster(attr, cid0 + __ffs(bits) - 1, st.tile[0]);
     __syncthreads();   // the lists are complete
+    return bits;
+}
 
+// Wait for tile `cur` and count its real triangles (a padding slot or a
+// zero-area triangle has n = 0): their number and the last real slot + 1.
+// The barrier that publishes the tile also carries each warp's ballot;
+// the ballots are double-buffered with the tiles, so no warp overwrites
+// one another still reads.
+__device__ __forceinline__ void tile_ready(int cur, SplitState &st,
+                                           int &n_real, int &n_last) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    const float *own = st.tile[cur] + tid * TSTRIDE;
+    const unsigned nzw = __ballot_sync(
+        0xffffffffu, own[12] != 0.0f || own[13] != 0.0f || own[14] != 0.0f);
+    if (lane == 0) st.nz[cur][warp] = nzw;
+    __syncthreads();
+    n_real = 0;
+    n_last = 0;
+#pragma unroll
+    for (int w = 0; w < WARP_RAYS / 32; ++w) {
+        const unsigned b = st.nz[cur][w];
+        n_real += __popc(b);
+        if (b) n_last = w * 32 + 32 - __clz(b);
+    }
+}
+
+// threads per listed ray: 128 / n rounded down to a power of two, 4..32
+__device__ __forceinline__ int group_log2(int n) {
+    return n <= 4 ? 5 : n <= 8 ? 4 : n <= 16 ? 3 : 2;
+}
+
+// One super of the closest-hit walk at list position `pos`.  Block-uniform.
+__device__ __forceinline__ void visit_closest(
+        const Ray &r, const float *__restrict__ cb, int cid0, unsigned pos,
+        const float *__restrict__ f, const float *__restrict__ attr,
+        long long ray0, SplitState &st) {
+    const int tid = threadIdx.x;
+    const unsigned m =
+        r.live0 ? slab16(r, cb, key_time(st.key[tid], r.tmax)) : 0u;
+    unsigned bits = build_lists(m, cid0, attr, st);
+    int cur = 0;
     while (bits) {
         const int c = __ffs(bits) - 1;
         bits &= bits - 1;
-        const int cid = cid0 + c;
-        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-        const float *tile = st.tile[cur];
-        // real triangles: a padding slot or a zero-area triangle has n = 0
-        // and never passes det > 1e-16.  Padding sits at the end, but
-        // zero-area triangles sit wherever the BVH order puts them, so the
-        // tests run up to the last real slot, not up to the count.
-        const float *own = tile + tid * TSTRIDE;
-        const unsigned nzw = __ballot_sync(
-            0xffffffffu,
-            own[12] != 0.0f || own[13] != 0.0f || own[14] != 0.0f);
-        if (lane == 0) st.nz[cur][warp] = nzw;   // read before the next
-        __syncthreads();                         // write to nz[cur]
-        int n_real = 0, n_last = 0;
-#pragma unroll
-        for (int w = 0; w < WARP_RAYS / 32; ++w) {
-            const unsigned b = st.nz[cur][w];
-            n_real += __popc(b);
-            if (b) n_last = w * 32 + 32 - __clz(b);
-        }
+        int n_real, n_last;
+        tile_ready(cur, st, n_real, n_last);
         if (bits) stage_cluster(attr, cid0 + __ffs(bits) - 1,
                                 st.tile[cur ^ 1]);
+        const float *tile = st.tile[cur];
         const int n = st.cnt[c][0] + st.cnt[c][1] + st.cnt[c][2] +
                       st.cnt[c][3];
-        for (int base = 0; base < n * QUARTERS; base += WARP_RAYS) {
-            const int item = base + tid, q = item & (QUARTERS - 1);
-            const bool act = item < n * QUARTERS;
-            const int ri = act ? st.list[c][item / QUARTERS] : 0;
+        const int lg = group_log2(n), P = 1 << lg;
+        for (int base = 0; base < (n << lg); base += WARP_RAYS) {
+            const int item = base + tid, q = item & (P - 1);
+            const bool act = item < (n << lg);
+            const int ri = act ? st.list[c][item >> lg] : 0;
             float tl = BIG;
-            int jl = CLUSTER, ran = 0;   // jl == CLUSTER: no hit
+            int jl = CLUSTER, ran = 0;   // jl == CLUSTER: no candidate
             if (act) {
-                const Ray x = load_ray(f, (long long)blockIdx.x * WARP_RAYS +
-                                              ri);
-                tl = st.tb[ri];
-                for (int j = q; j < n_last; j += QUARTERS) {
-                    const float4 *tr =
-                        reinterpret_cast<const float4 *>(tile + j * TSTRIDE);
-                    const float4 r0 = tr[0];   // ne2v0.xyz, e2.x
-                    const float4 r1 = tr[1];   // e2.yz, e1v0.xy
-                    const float4 r2 = tr[2];   // e1v0.z, ne1.xyz
-                    const float4 r3 = tr[3];   // n.xyz, -(n.v0)
-                    const float det = -(x.dx * r3.x + x.dy * r3.y +
-                                        x.dz * r3.z);
-                    const float udet = x.dx * r0.x + x.dy * r0.y +
-                                       x.dz * r0.z + x.mx * r0.w +
-                                       x.my * r1.x + x.mz * r1.y;
-                    const float vdet = x.dx * r1.z + x.dy * r1.w +
-                                       x.dz * r2.x + x.mx * r2.y +
-                                       x.my * r2.z + x.mz * r2.w;
-                    const float tdet = x.ox * r3.x + x.oy * r3.y +
-                                       x.oz * r3.z + r3.w;
-                    const float sg = det >= 0.0f ? 1.0f : -1.0f;
-                    const float ad = det * sg;
-                    const float un = udet * sg, vn = vdet * sg,
-                                tn = tdet * sg;
-                    const bool ok = (un >= 0.0f) & (vn >= 0.0f) &
-                                    (un + vn <= ad) & (tn > x.rtmin * ad) &
-                                    (tn < tl * ad) & (ad > 1e-16f);
+                const Ray x = load_ray(f, ray0 + ri);
+                // the best this CTA knows: a candidate at equal t may
+                // still win on its walk position, so equal t is taken
+                // while the thread has none
+                const float tcap = key_time(st.key[ri], x.tmax);
+                for (int j = q; j < n_last; j += P) {
+                    const Leaf l = leaf_test(x, tile + j * TSTRIDE);
                     ++ran;
-                    if (ok) {
-                        const float tc = tn / fmaxf(ad, 1e-30f);
-                        if (tc < tl) {
+                    if (leaf_inside(x, l)) {
+                        const float tc = l.tn / fmaxf(l.ad, 1e-30f);
+                        if (tc < x.tmax &&
+                            (jl == CLUSTER ? tc <= tcap : tc < tl)) {
                             tl = tc;
                             jl = j;
                         }
                     }
                 }
             }
-            // the ray's QUARTERS neighbouring lanes: least (t, slot)
-#pragma unroll
-            for (int o = 1; o < QUARTERS; o <<= 1) {
+            // the ray's P neighbouring lanes: least (t, slot)
+            for (int o = 1; o < P; o <<= 1) {
                 const float t2 = __shfl_xor_sync(0xffffffffu, tl, o);
                 const int j2 = __shfl_xor_sync(0xffffffffu, jl, o);
                 ran += __shfl_xor_sync(0xffffffffu, ran, o);
@@ -512,8 +452,10 @@ __device__ __forceinline__ void visit_super_split(
             }
             if (act && q == 0) {
                 if (jl < CLUSTER) {
-                    st.tb[ri] = tl;
-                    st.tri[ri] = cid * CLUSTER + jl;
+                    const unsigned long long k =
+                        (static_cast<unsigned long long>(f2o(tl)) << 32) |
+                        ((pos << POS_SHIFT) | (c << 7) | jl);
+                    if (k < st.key[ri]) st.key[ri] = k;
                 }
                 st.needed[ri] += n_real;
                 st.ran[ri] += ran;
@@ -524,108 +466,247 @@ __device__ __forceinline__ void visit_super_split(
     __syncthreads();   // the rays' state and the tiles are settled
 }
 
-// K3 closest hit: the paged walk's lists merged into entry order.  Each
-// (block, slot) range [offs, offe) of the (page, entry)-sorted list is
-// entry-sorted, so a k-way merge over the slot heads (warp 0 takes the
-// least (entry, slot) over all heads, 32 slots a step) gives the resident
-// walk's order, ties in ascending super id; the walk stops when the least
-// head exceeds the block's bound.  Super boxes are read where they are.
-__global__ void __launch_bounds__(WARP_RAYS)
-wave_trace_paged_closest_kernel(const float *__restrict__ f,    // (R, 16)
-                                const float *__restrict__ sent, // (R/128, nsp)
-                                const int *__restrict__ sids,   // (R/128, nsp)
-                                const int *__restrict__ offs,   // (R/128, S)
-                                const int *__restrict__ offe,   // (R/128, S)
-                                const float *__restrict__ cbox, // (NCp, 8)
-                                const float *__restrict__ attr, // (NCp*16, 128)
-                                float *__restrict__ t_out,
-                                int *__restrict__ tri_out,
-                                int *__restrict__ tests_out,
-                                int nsp, int n_slots, int ncp) {
-    __shared__ __align__(16) SplitState st;
-    __shared__ float red[4];
-    __shared__ float sel_e;
-    __shared__ int sel_k;
-    extern __shared__ int slot_heads[];   // head, end, head entry per slot
-    int *head = slot_heads, *hend = slot_heads + n_slots;
-    float *head_e = reinterpret_cast<float *>(slot_heads + 2 * n_slots);
-
+// One super of the paged any-hit walk, boxes at `cb` in shared memory,
+// cluster ids from cid0.  A ray leaves at its first hit.  Block-uniform.
+__device__ __forceinline__ void visit_anyhit(
+        const Ray &r, const float *cb, int cid0,
+        const float *__restrict__ f, const float *__restrict__ attr,
+        long long ray0, int *__restrict__ occ_word, SplitState &st) {
     const int tid = threadIdx.x, lane = tid & 31;
-    const long long ray = (long long)blockIdx.x * WARP_RAYS + tid;
+    const unsigned m =
+        (r.live0 && st.tri[tid] < 0) ? slab16(r, cb, r.tmax) : 0u;
+    unsigned bits = build_lists(m, cid0, attr, st);
+    int cur = 0;
+    while (bits) {
+        const int c = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const int cid = cid0 + c;
+        int n_real, n_last;
+        tile_ready(cur, st, n_real, n_last);
+        if (bits) stage_cluster(attr, cid0 + __ffs(bits) - 1,
+                                st.tile[cur ^ 1]);
+        const float *tile = st.tile[cur];
+        const int n = st.cnt[c][0] + st.cnt[c][1] + st.cnt[c][2] +
+                      st.cnt[c][3];
+        const int lg = group_log2(n), P = 1 << lg;
+        const int g0 = lane & ~(P - 1);    // the group's first lane
+        const unsigned gmask = (P == 32 ? 0xffffffffu : (1u << P) - 1u) << g0;
+        for (int base = 0; base < (n << lg); base += WARP_RAYS) {
+            const int item = base + tid, q = item & (P - 1);
+            const int ri = item < (n << lg) ? st.list[c][item >> lg] : -1;
+            // a ray occluded by an earlier cluster of this super leaves
+            const bool act = ri >= 0 && st.tri[ri] < 0;
+            Ray x;
+            if (act) x = load_ray(f, ray0 + ri);
+            int ran = 0, hit_slot = CLUSTER;
+            bool done = !act;
+            // round i tests slots i*P .. i*P+P-1, one a lane: the lowest
+            // hit slot of the first round with a hit is the serial loop's
+            for (int j0 = 0; j0 < n_last; j0 += P) {
+                bool hit = false;
+                if (!done && j0 + q < n_last) {
+                    const Leaf l = leaf_test(x, tile + (j0 + q) * TSTRIDE);
+                    ++ran;
+                    hit = leaf_inside(x, l) & (l.tn < x.tmax * l.ad);
+                }
+                const unsigned hb = __ballot_sync(0xffffffffu, hit) & gmask;
+                if (hb && !done) hit_slot = j0 + __ffs(hb >> g0) - 1;
+                done = done || hb != 0u;
+                if (__all_sync(0xffffffffu, done)) break;
+            }
+            for (int o = 1; o < P; o <<= 1)
+                ran += __shfl_xor_sync(0xffffffffu, ran, o);
+            if (act && q == 0) {
+                if (hit_slot < CLUSTER) {
+                    st.tri[ri] = cid * CLUSTER;
+                    st.needed[ri] += hit_slot + 1;
+                    // the other CTAs of the block drop the ray
+                    occ_word[ray0 + ri] = cid * CLUSTER + 1;
+                } else {
+                    st.needed[ri] += n_real;
+                }
+                st.ran[ri] += ran;
+            }
+        }
+        cur ^= 1;
+    }
+    __syncthreads();   // the rays' state and the tiles are settled
+}
+
+// Adds this CTA's test counts, then tells whether it is the last CTA of
+// block `b` to finish (every other CTA's words and counts then visible).
+__device__ __forceinline__ bool finish_cta(long long ray, long long R,
+                                           int *__restrict__ tests_out,
+                                           int *__restrict__ done_count,
+                                           int b, int splits,
+                                           SplitState &st) {
+    const int tid = threadIdx.x;
+    if (st.needed[tid]) atomicAdd(tests_out + ray, st.needed[tid]);
+    if (st.ran[tid]) atomicAdd(tests_out + R + ray, st.ran[tid]);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) st.last = atomicAdd(done_count + b, 1) == splits - 1;
+    __syncthreads();
+    if (!st.last) return false;
+    __threadfence();
+    return true;
+}
+
+// K1 and K3's closest hit: the warp's entry-sorted list, CTA s of the
+// block's `splits` taking positions s, s + splits, ...
+__global__ void __launch_bounds__(WARP_RAYS)
+wave_trace_closest_kernel(const float *__restrict__ f,      // (R, 16)
+                          const float *__restrict__ sent,   // (R/128, nsp)
+                          const int *__restrict__ sids,     // (R/128, nsp)
+                          const float *__restrict__ cbox,   // (NCp, 8)
+                          const float *__restrict__ attr,   // (NCp*16, 128)
+                          float *__restrict__ t_out,        // (R,)
+                          int *__restrict__ tri_out,        // (R,)
+                          int *__restrict__ tests_out,      // (2, R), zeros
+                          unsigned long long *__restrict__ words,  // (R,)
+                          int *__restrict__ done_count,     // (R/128,)
+                          int nsp, int nsup, int splits) {
+    __shared__ __align__(16) SplitState st;
+    const int tid = threadIdx.x;
+    const int b = blockIdx.x / splits, s = blockIdx.x % splits;
+    const long long R = (long long)gridDim.x / splits * WARP_RAYS;
+    const long long ray0 = (long long)b * WARP_RAYS, ray = ray0 + tid;
     const Ray r = load_ray(f, ray);
-    st.tb[tid] = r.tmax;
+    st.key[tid] = NO_HIT;
+    st.needed[tid] = 0;
+    st.ran[tid] = 0;
+    const float *srow = sent + (long long)b * nsp;
+    const int *irow = sids + (long long)b * nsp;
+
+    float bound = block_max(r.live0 ? r.tmax : -BIG, st.red);
+    for (int k = s; k < nsp; k += splits) {
+        if (!(srow[k] <= bound)) break;   // sorted: no later super can help
+        const int sid = min(irow[k], nsup - 1);
+        visit_closest(r, cbox + (long long)sid * SUP * 8, sid * SUP, k, f,
+                      attr, ray0, st);
+        if (splits > 1 && r.live0) {
+            // publish this CTA's best and take the block's
+            const unsigned long long g =
+                ~atomicMax(words + ray, ~st.key[tid]);
+            if (g < st.key[tid]) st.key[tid] = g;
+        }
+        bound = block_max(r.live0 ? key_time(st.key[tid], r.tmax) : -BIG,
+                          st.red);
+    }
+    if (splits == 1) {
+        words[ray] = ~st.key[tid];
+    } else if (r.live0) {
+        atomicMax(words + ray, ~st.key[tid]);
+    }
+    if (!finish_cta(ray, R, tests_out, done_count, b, splits, st)) return;
+    const unsigned long long key = ~__ldcg(words + ray);
+    int tri = -1;
+    if (key != NO_HIT) {
+        const unsigned low = static_cast<unsigned>(key);
+        const int sid = min(irow[low >> POS_SHIFT], nsup - 1);
+        tri = (sid * SUP + ((low >> 7) & (SUP - 1))) * CLUSTER +
+              (low & (CLUSTER - 1));
+    }
+    t_out[ray] = key_time(key, r.tmax);
+    tri_out[ray] = tri;
+}
+
+// K3's any hit: CTA s of the block's `splits` taking page slots s,
+// s + splits, ...
+__global__ void __launch_bounds__(WARP_RAYS)
+wave_trace_paged_anyhit_kernel(const float *__restrict__ f,    // (R, 16)
+                               const float *__restrict__ sent, // (R/128, nsp)
+                               const int *__restrict__ sids,   // (R/128, nsp)
+                               const int *__restrict__ pages,  // (R/1024, S)
+                               const int *__restrict__ offs,   // (R/128, S)
+                               const int *__restrict__ offe,   // (R/128, S)
+                               const float *__restrict__ cbox, // (NCp, 8)
+                               const float *__restrict__ attr, // (NCp*16, 128)
+                               float *__restrict__ t_out,
+                               int *__restrict__ tri_out,
+                               int *__restrict__ tests_out,    // zeros
+                               int *__restrict__ occ_words,    // (R,) zeros
+                               int *__restrict__ done_count,   // (R/128,)
+                               int nsp, int n_slots, int ncp, int page_sup,
+                               int splits) {
+    __shared__ __align__(16) SplitState st;
+    __shared__ __align__(16) float pcb[MAX_PAGE_CLUSTERS * 8];
+    const int tid = threadIdx.x;
+    const int b = blockIdx.x / splits, s = blockIdx.x % splits;
+    const long long R = (long long)gridDim.x / splits * WARP_RAYS;
+    const long long ray0 = (long long)b * WARP_RAYS, ray = ray0 + tid;
+    const Ray r = load_ray(f, ray);
     st.tri[tid] = -1;
     st.needed[tid] = 0;
     st.ran[tid] = 0;
-    const float *srow = sent + (long long)blockIdx.x * nsp;
-    const int *irow = sids + (long long)blockIdx.x * nsp;
-    const int *srng = offs + (long long)blockIdx.x * n_slots;
-    const int *erng = offe + (long long)blockIdx.x * n_slots;
-    for (int p = tid; p < n_slots; p += WARP_RAYS) {
-        const int ks = srng[p], ke = erng[p];
-        head[p] = ks;
-        hend[p] = ke;
-        head_e[p] = ks < ke ? srow[ks] : CUDART_INF_F;
-    }
-    const int last_sup = ncp / SUP - 1;
 
-    float bound = block_max(r.live0 ? r.tmax : -BIG, red);
-    for (;;) {
-        if (tid < 32) {   // the least (entry, slot) over the slot heads
-            float be = CUDART_INF_F;
-            int bp = n_slots;
-            for (int p = lane; p < n_slots; p += 32)
-                if (head_e[p] < be) {
-                    be = head_e[p];
-                    bp = p;
-                }
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) {
-                const float e2 = __shfl_xor_sync(0xffffffffu, be, o);
-                const int p2 = __shfl_xor_sync(0xffffffffu, bp, o);
-                if (e2 < be || (e2 == be && p2 < bp)) {
-                    be = e2;
-                    bp = p2;
-                }
-            }
-            if (lane == 0) {
-                sel_e = be;
-                sel_k = -1;
-                if (bp < n_slots) {
-                    const int k = head[bp];
-                    sel_k = k;
-                    head[bp] = k + 1;
-                    head_e[bp] = k + 1 < hend[bp] ? srow[k + 1]
-                                                  : CUDART_INF_F;
-                }
-            }
+    const int page_cl = page_sup * SUP;
+    const int nsup = (ncp + page_cl - 1) / page_cl * page_sup;
+    const float *srow = sent + (long long)b * nsp;
+    const int *irow = sids + (long long)b * nsp;
+    const int *prow = pages + (long long)(b / 8) * n_slots;
+    const int *srng = offs + (long long)b * n_slots;
+    const int *erng = offe + (long long)b * n_slots;
+
+    float bound = block_max(r.live0 ? r.tmax : -BIG, st.red);
+    for (int p = s; p < n_slots; p += splits) {
+        const int ks = srng[p], ke = erng[p];
+        // an empty range (pad slot, or a page only other warps need), or
+        // one whose first entry is already past the bound: nothing to do
+        if (ks >= ke || !(srow[ks] <= bound)) continue;
+        const int page = prow[p];
+        // stage the page's cluster boxes; clusters past the table are
+        // zero rows (valid = 0), as the TPU's page padding was
+        __syncthreads();   // the previous slot's boxes are no longer read
+        for (int i = tid; i < page_cl * 2; i += WARP_RAYS) {
+            const long long row = (long long)page * page_cl + (i >> 1);
+            float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (row < ncp)
+                v = reinterpret_cast<const float4 *>(cbox)[row * 2 + (i & 1)];
+            reinterpret_cast<float4 *>(pcb)[i] = v;
         }
         __syncthreads();
-        const float e = sel_e;
-        const int k = sel_k;
-        if (!(e <= bound)) break;   // no later super can help
-        const int sid = min(irow[k], last_sup);
-        visit_super_split(r, cbox + (long long)sid * SUP * 8, sid * SUP, f,
-                          attr, st);
-        bound = block_max(r.live0 ? st.tb[tid] : -BIG, red);
+        for (int k = ks; k < ke; ++k) {
+            if (!(srow[k] <= bound)) break;   // sorted within the page
+            const int sid = min(irow[k], nsup - 1);
+            const int sid_local = min(max(sid - page * page_sup, 0),
+                                      page_sup - 1);
+            visit_anyhit(r, pcb + sid_local * SUP * 8,
+                         page * page_cl + sid_local * SUP, f, attr, ray0,
+                         occ_words, st);
+            if (splits > 1 && r.live0 && st.tri[tid] < 0) {
+                const int w = __ldcg(occ_words + ray);   // another CTA's hit
+                if (w) st.tri[tid] = w - 1;
+            }
+            bound = block_max(r.live0 && st.tri[tid] < 0 ? r.tmax : -BIG,
+                              st.red);
+        }
     }
-    store(ray, st.tb[tid], st.tri[tid], st.needed[tid], st.ran[tid], t_out,
-          tri_out, tests_out);
+    if (!finish_cta(ray, R, tests_out, done_count, b, splits, st)) return;
+    const int w = __ldcg(occ_words + ray);
+    t_out[ray] = w ? -BIG : r.tmax;
+    tri_out[ray] = w - 1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one mode of the resident walk on `stream`; returns
-// cudaGetLastError() (0 = ok).
+// Launches one mode of the resident walk on `stream`: closest hit (K1,
+// its words / done_count / tests zero-filled by the caller, the block's
+// walk split over `splits` CTAs) or any hit (K2, one CTA a block; words
+// and done_count unused).  Returns cudaGetLastError() (0 = ok).
 int wave_trace_launch(const void *f, const void *sent, const void *sids,
                       const void *cbox, const void *attr, void *t_out,
-                      void *tri_out, void *tests_out, int n_blocks, int nsp,
-                      int nsup, int any_hit, void *stream) {
+                      void *tri_out, void *tests_out, void *words,
+                      void *done_count, int n_blocks, int nsp, int nsup,
+                      int any_hit, int splits, void *stream) {
     if (n_blocks <= 0) return 0;
-    const dim3 grid(n_blocks), block(WARP_RAYS);
-    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+    if (splits < 1 || splits > MAX_SPLITS || (any_hit && splits != 1) ||
+        nsp >= (1 << (32 - POS_SHIFT)) ||
+        (long long)n_blocks * splits >= (1ll << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     const float *F = static_cast<const float *>(f);
     const float *SE = static_cast<const float *>(sent);
     const int *SI = static_cast<const int *>(sids);
@@ -635,58 +716,42 @@ int wave_trace_launch(const void *f, const void *sent, const void *sids,
     int *TR = static_cast<int *>(tri_out);
     int *TS = static_cast<int *>(tests_out);
     if (any_hit)
-        wave_trace_kernel<true><<<grid, block, 0, s>>>(F, SE, SI, CB, AT, T,
-                                                       TR, TS, nsp, nsup);
+        wave_trace_anyhit_kernel<<<n_blocks, WARP_RAYS, 0, st>>>(
+            F, SE, SI, CB, AT, T, TR, TS, nsp, nsup);
     else
-        wave_trace_kernel<false><<<grid, block, 0, s>>>(F, SE, SI, CB, AT, T,
-                                                        TR, TS, nsp, nsup);
+        wave_trace_closest_kernel<<<n_blocks * splits, WARP_RAYS, 0, st>>>(
+            F, SE, SI, CB, AT, T, TR, TS,
+            static_cast<unsigned long long *>(words),
+            static_cast<int *>(done_count), nsp, nsup, splits);
     return static_cast<int>(cudaGetLastError());
 }
 
-// Launches one mode of the paged walk (n_blocks = R/128, a multiple of
-// 8; page_sup * 16 <= 256) on `stream`; returns cudaGetLastError().  The
-// page list is read by the any-hit walk only (closest hit may pass null).
+// Launches the paged any-hit walk (n_blocks = R/128, a multiple of 8;
+// page_sup * 16 <= 256; occ_words, done_count and tests zero-filled by
+// the caller) on `stream`, the block's page slots split over `splits`
+// CTAs; returns cudaGetLastError().
 int wave_trace_paged_launch(const void *f, const void *sent, const void *sids,
                             const void *pages, const void *offs,
                             const void *offe, const void *cbox,
                             const void *attr, void *t_out, void *tri_out,
-                            void *tests_out, int n_blocks, int nsp,
-                            int n_slots, int ncp, int page_sup, int any_hit,
+                            void *tests_out, void *occ_words,
+                            void *done_count, int n_blocks, int nsp,
+                            int n_slots, int ncp, int page_sup, int splits,
                             void *stream) {
     if (n_blocks <= 0) return 0;
-    if (n_blocks % 8 || page_sup <= 0 || page_sup * SUP > MAX_PAGE_CLUSTERS)
+    if (n_blocks % 8 || page_sup <= 0 || page_sup * SUP > MAX_PAGE_CLUSTERS ||
+        splits < 1 || splits > MAX_SPLITS ||
+        (long long)n_blocks * splits >= (1ll << 31))
         return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid(n_blocks), block(WARP_RAYS);
-    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    const float *F = static_cast<const float *>(f);
-    const float *SE = static_cast<const float *>(sent);
-    const int *SI = static_cast<const int *>(sids);
-    const int *PG = static_cast<const int *>(pages);
-    const int *OS = static_cast<const int *>(offs);
-    const int *OE = static_cast<const int *>(offe);
-    const float *CB = static_cast<const float *>(cbox);
-    const float *AT = static_cast<const float *>(attr);
-    float *T = static_cast<float *>(t_out);
-    int *TR = static_cast<int *>(tri_out);
-    int *TS = static_cast<int *>(tests_out);
-    if (any_hit) {
-        wave_trace_paged_anyhit_kernel<<<grid, block, 0, s>>>(
-            F, SE, SI, PG, OS, OE, CB, AT, T, TR, TS, nsp, n_slots, ncp,
-            page_sup);
-    } else {
-        // the slot heads: (head, end, head entry) per slot
-        const int heads = n_slots * 12;
-        if (heads > MAX_SLOT_HEAD_BYTES)
-            return static_cast<int>(cudaErrorInvalidValue);
-        if (heads > 16384) {
-            cudaError_t e = cudaFuncSetAttribute(
-                wave_trace_paged_closest_kernel,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, heads);
-            if (e != cudaSuccess) return static_cast<int>(e);
-        }
-        wave_trace_paged_closest_kernel<<<grid, block, heads, s>>>(
-            F, SE, SI, OS, OE, CB, AT, T, TR, TS, nsp, n_slots, ncp);
-    }
+    wave_trace_paged_anyhit_kernel<<<n_blocks * splits, WARP_RAYS, 0,
+                                     reinterpret_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float *>(f), static_cast<const float *>(sent),
+        static_cast<const int *>(sids), static_cast<const int *>(pages),
+        static_cast<const int *>(offs), static_cast<const int *>(offe),
+        static_cast<const float *>(cbox), static_cast<const float *>(attr),
+        static_cast<float *>(t_out), static_cast<int *>(tri_out),
+        static_cast<int *>(tests_out), static_cast<int *>(occ_words),
+        static_cast<int *>(done_count), nsp, n_slots, ncp, page_sup, splits);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,30 +1,36 @@
 """Cluster-table ray traversal: host table build, the traversal fronts,
-and the CUDA wave kernels (port of tungsten_tpu/ops/wave_trace.py).
+the CUDA wave kernels and their plain schedule (port of
+tungsten_tpu/ops/wave_trace.py).
 
 The JAX package's Pallas kernel (`_make_kernel`, launched by
 `wave_intersect`) walks, per 128-ray warp, an entry-sorted list of
 "supers" (16 consecutive clusters of <= 128 triangles), slab-tests the
 member clusters per ray and evaluates the surviving clusters'
 precomputed Moller-Trumbore rows on the TPU's matrix unit.  Here the
-same walk over the same tables is the hand-written CUDA kernel in
-csrc/wave_trace.cu (closest hit and any hit, one template): one CUDA
-block per 128-ray warp, one thread per ray, each surviving cluster's
-16x128 f32 attribute rows staged in shared memory and evaluated as f32
-FMA chains.  The bf16 hi/lo split and the packed 7-bit winner key were
-TPU devices and are gone.
+same walk over the same tables is hand-written CUDA in
+csrc/wave_trace.cu: per 128-ray block, each ray slab-tests the clusters
+against its own best t and tests only the clusters it accepts, its
+triangles split over 4 to 32 threads, each cluster's 16x128 f32
+attribute rows staged in shared memory and evaluated as f32 FMA chains.
+The bf16 hi/lo split and the packed 7-bit winner key were TPU devices
+and are gone.  A narrow launch splits each block's walk over several
+CTAs (`splits`, by default `launch_splits`), which share each ray's best
+through a word in device memory.
 
 Scenes whose attribute table is >= 13 MiB take the PAGED walk
-(`wave_intersect_paged`, the JAX package's `_make_kernel_paged`): the
-per-warp lists are sorted by (page, entry), a page being PAGE_SUP
-supers.  The any-hit CUDA kernel walks them page slot by page slot with
-best t carried across slots; the closest-hit one merges the slots' ranges
-back into entry order and splits each ray's own clusters over four
-threads (csrc/wave_trace.cu).
+(`wave_intersect_paged`, the JAX package's `_make_kernel_paged`).  Its
+closest hit computes what the resident one does, so it launches the
+same kernel on the resident front; its any hit walks the per-warp lists
+sorted by (page, entry), a page being PAGE_SUP supers, page slot by page
+slot, which keeps a large scene's rows local in L2.
 
 On the CPU both wrappers run the kernels' plain version, the torch port
 of the skip-pointer BVH walk (ops/intersect.py::bvh_walk) — the same
 traversal the JAX package runs on its CPU backend.  On a CUDA tensor
-they launch their kernel or raise; they never fall back.
+they launch their kernel or raise; they never fall back.  `list_walk`
+is the kernels' own schedule in plain PyTorch (the lists in order, the
+same culls and counts), the yardstick the tests and chip_smoke.py hold
+the kernels to.
 """
 from __future__ import annotations
 
@@ -60,9 +66,19 @@ MAX_PAGE_CLUSTERS = 256     # the kernel's shared-memory page of boxes
 PAGED_ATTR_BYTES = 13 * 1024 * 1024
 
 # launches of the CUDA kernels per walk and mode (plain integers; the
-# plain CPU version does not count)
+# plain CPU version does not count): "closest" and "paged_closest" are
+# the one closest-hit kernel launched by wave_intersect and by
+# wave_intersect_paged
 LAUNCHES = {"closest": 0, "anyhit": 0, "paged_closest": 0,
             "paged_anyhit": 0}
+# a list to append (route, rays, splits) to at every launch, or None
+LAUNCH_LOG: list | None = None
+
+# the narrow-launch split: CTAs per 128-ray block so that a launch gives
+# each SM CTAS_PER_SM CTAs, at most MAX_SPLITS a block (a full-width wave
+# keeps one); the kernels take up to 64
+CTAS_PER_SM = 4
+MAX_SPLITS = 16
 
 
 # --------------------------------------------------------------- host build
@@ -392,9 +408,9 @@ def load_kernels() -> ctypes.CDLL:
                         [_nvcc()] + NVCC_FLAGS)
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.wave_trace_launch.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+    lib.wave_trace_launch.argtypes = [vp] * 10 + [ci] * 5 + [vp]
     lib.wave_trace_launch.restype = ci
-    lib.wave_trace_paged_launch.argtypes = [vp] * 11 + [ci] * 6 + [vp]
+    lib.wave_trace_paged_launch.argtypes = [vp] * 13 + [ci] * 6 + [vp]
     lib.wave_trace_paged_launch.restype = ci
     return lib
 
@@ -426,47 +442,113 @@ def _check_common(f, sent, sids, cbox, attr):
     return R, nb, nsp, ncp
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_splits(n_blocks: int, device) -> int:
+    """CTAs per 128-ray block for a launch of n_blocks blocks on `device`:
+    enough for CTAS_PER_SM CTAs on every SM, 1 to MAX_SPLITS."""
+    sms = _sm_count(torch.device(device).index or 0)
+    want = -(-CTAS_PER_SM * sms // max(n_blocks, 1))
+    return max(1, min(MAX_SPLITS, want))
+
+
+def _splits(splits, nb, device) -> int:
+    if splits is None:
+        return launch_splits(nb, device)
+    if not 1 <= int(splits) <= 64:
+        raise ValueError(f"splits {splits} outside 1..64")
+    return int(splits)
+
+
 def _outputs(f):
+    """(t, tri, tests (2, R), words, done counts): the kernel outputs and
+    one zero-filled buffer holding the tests, a 64-bit word per ray and a
+    counter per block (the split walks' scratch)."""
     R = f.shape[0]
-    return (torch.empty((R,), dtype=torch.float32, device=f.device),
-            torch.empty((R,), dtype=torch.int32, device=f.device),
-            torch.empty((2, R), dtype=torch.int32, device=f.device))
+    t = torch.empty((R,), dtype=torch.float32, device=f.device)
+    tri = torch.empty((R,), dtype=torch.int32, device=f.device)
+    buf = torch.zeros((4 * R + R // WARP,), dtype=torch.int32,
+                      device=f.device)
+    return t, tri, buf[:2 * R].view(2, R), buf[2 * R:4 * R], buf[4 * R:]
 
 
-def wave_kernel(f, sent, sids, cbox, attr, any_hit: bool):
-    """Launch the resident CUDA wave kernel on the current stream.
+def _launched(route, R, splits):
+    LAUNCHES[route] += 1
+    if LAUNCH_LOG is not None:
+        LAUNCH_LOG.append((route, R, splits))
 
-    f (R, 16) f32 ray features (R % 128 == 0); sent/sids (R/128, NSp)
-    warp lists; cbox (NCp, 8) f32; attr (NCp*16, 128) f32.  Returns
-    (t (R,) f32, tri (R,) i32 cluster*128+slot or -1, tests (2, R) i32:
-    per ray the ray-triangle tests it needs (row 0: the real triangles of
-    the clusters whose slab accepts it, up to an any-hit ray's hit) and
-    the tests its thread ran (row 1)).  Closest hit: t is the nearest hit
-    (t_max clipped to 1e37 on a miss).  Any hit: t = -3e38 on a hit."""
+
+def closest_kernel(f, sent, sids, cbox, attr, splits=None,
+                   route: str = "closest"):
+    """Launch the closest-hit CUDA kernel (K1, and K3's closest hit) on
+    the current stream.
+
+    f (R, 16) f32 ray features (R % 128 == 0); sent/sids (R/128, NSp) the
+    entry-sorted warp lists (kernel_inputs); cbox (NCp, 8) f32; attr
+    (NCp*16, 128) f32; splits: CTAs per block (None: launch_splits;
+    every value gives the same t and tri); route: the LAUNCHES entry
+    ("closest" or "paged_closest").  Returns (t (R,) f32 the nearest hit,
+    t_max clipped to 1e37 on a miss; tri (R,) i32 cluster*128+slot or -1;
+    tests (2, R) i32: per ray the ray-triangle tests it needs (row 0: the
+    real triangles of the clusters whose slab accepts it with the best t
+    its CTA knows) and the tests its threads ran (row 1))."""
+    if route not in ("closest", "paged_closest"):
+        raise ValueError(f"route {route!r}")
     R, nb, nsp, ncp = _check_common(f, sent, sids, cbox, attr)
+    S = _splits(splits, nb, f.device)
     lib = load_kernels()
-    t, tri, tests = _outputs(f)
+    t, tri, tests, words, done = _outputs(f)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     err = lib.wave_trace_launch(
         f.data_ptr(), sent.data_ptr(), sids.data_ptr(), cbox.data_ptr(),
         attr.data_ptr(), t.data_ptr(), tri.data_ptr(), tests.data_ptr(),
-        nb, nsp, ncp // SUP, int(bool(any_hit)), stream)
+        words.data_ptr(), done.data_ptr(), nb, nsp, ncp // SUP, 0, S, stream)
     if err != 0:
-        raise RuntimeError(f"wave_trace kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["anyhit" if any_hit else "closest"] += 1
+        raise RuntimeError(f"wave_trace closest-hit kernel launch failed: "
+                           f"CUDA error {err}")
+    _launched(route, R, S)
     return t, tri, tests
 
 
-def paged_kernel(f, sent, sids, pages, offs, offe, cbox, attr,
-                 any_hit: bool):
-    """Launch the paged CUDA wave kernel on the current stream.
+def wave_kernel(f, sent, sids, cbox, attr, any_hit: bool, splits=None):
+    """Launch the resident CUDA walk on the current stream: closest hit
+    through closest_kernel, any hit (K2, one CTA a block: `splits` must
+    be None or 1) with t = -3e38 on a hit.  Arguments and results as
+    closest_kernel's."""
+    if not any_hit:
+        return closest_kernel(f, sent, sids, cbox, attr, splits)
+    if splits not in (None, 1):
+        raise ValueError("the resident any-hit kernel runs one CTA a block")
+    R, nb, nsp, ncp = _check_common(f, sent, sids, cbox, attr)
+    lib = load_kernels()
+    t, tri, tests, words, done = _outputs(f)
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    err = lib.wave_trace_launch(
+        f.data_ptr(), sent.data_ptr(), sids.data_ptr(), cbox.data_ptr(),
+        attr.data_ptr(), t.data_ptr(), tri.data_ptr(), tests.data_ptr(),
+        words.data_ptr(), done.data_ptr(), nb, nsp, ncp // SUP, 1, 1, stream)
+    if err != 0:
+        raise RuntimeError(f"wave_trace any-hit kernel launch failed: CUDA "
+                           f"error {err}")
+    _launched("anyhit", R, 1)
+    return t, tri, tests
 
-    As wave_kernel, plus the paged front's pages (R/1024, S) i32 and
-    offs/offe (R/128, S) i32 (R % 1024 == 0); the walk reads PAGE_SUP at
-    the call, and only the any-hit walk reads the page list (the
-    closest-hit walk merges the slot ranges in entry order).  Returns
-    (t, tri, tests) as wave_kernel does."""
+
+def paged_anyhit_kernel(f, sent, sids, pages, offs, offe, cbox, attr,
+                        splits=None):
+    """Launch the paged any-hit CUDA walk (K3's any hit) on the current
+    stream.
+
+    As closest_kernel, with the paged front's (page, entry)-sorted
+    sent/sids, pages (R/1024, S) i32 and offs/offe (R/128, S) i32 (R %
+    1024 == 0); the walk reads PAGE_SUP at the call; splits divides each
+    block's page slots.  Returns (t: -3e38 where the segment is occluded,
+    else t_max clipped to 1e37; tri: >= 0 exactly where occluded, a
+    cluster*128 of some hit; tests as closest_kernel's, row 0 up to the
+    ray's hit)."""
     R, nb, nsp, ncp = _check_common(f, sent, sids, cbox, attr)
     if R % BLOCK:
         raise ValueError(f"ray count {R} is not a multiple of {BLOCK}")
@@ -475,20 +557,144 @@ def paged_kernel(f, sent, sids, pages, offs, offe, cbox, attr,
     _check(offs, "offs", torch.int32, (nb, S))
     _check(offe, "offe", torch.int32, (nb, S))
     page_clusters()
+    n_splits = _splits(splits, nb, f.device)
     lib = load_kernels()
-    t, tri, tests = _outputs(f)
+    t, tri, tests, words, done = _outputs(f)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     err = lib.wave_trace_paged_launch(
-        f.data_ptr(), sent.data_ptr(), sids.data_ptr(),
-        pages.data_ptr() if any_hit else None,
+        f.data_ptr(), sent.data_ptr(), sids.data_ptr(), pages.data_ptr(),
         offs.data_ptr(), offe.data_ptr(), cbox.data_ptr(), attr.data_ptr(),
-        t.data_ptr(), tri.data_ptr(), tests.data_ptr(), nb, nsp, S, ncp,
-        PAGE_SUP, int(bool(any_hit)), stream)
+        t.data_ptr(), tri.data_ptr(), tests.data_ptr(), words.data_ptr(),
+        done.data_ptr(), nb, nsp, S, ncp, PAGE_SUP, n_splits, stream)
     if err != 0:
-        raise RuntimeError(f"wave_trace paged kernel launch failed: CUDA "
-                           f"error {err}")
-    LAUNCHES["paged_anyhit" if any_hit else "paged_closest"] += 1
+        raise RuntimeError(f"wave_trace paged any-hit kernel launch failed: "
+                           f"CUDA error {err}")
+    _launched("paged_anyhit", R, n_splits)
     return t, tri, tests
+
+
+# ------------------------------------------------------ the plain schedule
+
+def _slab16(x, box, tb):
+    """The kernels' slab test (slab16): rays x (V, 128, 16) against
+    boxes (V, 16, 8) with best t tb (V, 128); (V, 128, 16) bool."""
+    o = x[..., None, 0:3]
+    inv = x[..., None, 12:15]
+    t0 = (box[:, None, :, 0:3] - o) * inv
+    t1 = (box[:, None, :, 3:6] - o) * inv
+    lo, hi = torch.fmin(t0, t1), torch.fmax(t0, t1)
+    tn = torch.fmax(torch.fmax(lo[..., 0], lo[..., 1]),
+                    torch.fmax(lo[..., 2], x[..., None, 10]))
+    tf = torch.fmin(torch.fmin(hi[..., 0], hi[..., 1]),
+                    torch.fmin(hi[..., 2], tb[..., None]))
+    fudge = torch.tensor(1.00000024, dtype=torch.float32, device=x.device)
+    return (tn <= tf * fudge) & (box[:, None, :, 6] > 0.0)
+
+
+def _leaf(x, a):
+    """The kernels' leaf (leaf_test, leaf_inside) for rays x (P, 16)
+    against clusters a (P, 16, 128): (inside (P, 128) bool, ad, tn)."""
+    c = [x[:, i:i + 1] for i in range(FCOLS)]
+    r = [a[:, i] for i in range(ATTR_ROWS)]
+    det = -(c[4] * r[12] + c[5] * r[13] + c[6] * r[14])
+    udet = (c[4] * r[0] + c[5] * r[1] + c[6] * r[2] + c[7] * r[3] +
+            c[8] * r[4] + c[9] * r[5])
+    vdet = (c[4] * r[6] + c[5] * r[7] + c[6] * r[8] + c[7] * r[9] +
+            c[8] * r[10] + c[9] * r[11])
+    tdet = c[0] * r[12] + c[1] * r[13] + c[2] * r[14] + r[15]
+    sg = torch.where(det >= 0.0, 1.0, -1.0)
+    ad, un, vn, tn = det * sg, udet * sg, vdet * sg, tdet * sg
+    inside = (un >= 0.0) & (vn >= 0.0) & (un + vn <= ad) & \
+        (tn > c[10] * ad) & (ad > 1e-16)
+    return inside, ad, tn
+
+
+def list_walk(f, sent, sids, cbox, attr, any_hit: bool):
+    """The kernels' schedule in plain PyTorch, one CTA a block: the
+    serial walk that closest_kernel (and wave_kernel's closest hit) and
+    paged_anyhit_kernel compute.
+
+    Per 128-ray block the list (sent, sids) in order: entry k is visited
+    iff sent[k] <= the block's largest best t over its live rays (any
+    hit: those not yet occluded), which is the resident walk's stop and
+    the paged walk's per-slot stop alike.  Each such ray slab-tests the
+    super's 16 clusters with its own best t (the 1.00000024 fudge) and
+    tests the triangles of the clusters it accepts with the kernels'
+    leaf.  Closest hit keeps per ray the least (t, walk position,
+    cluster, slot) among t < t_max, i.e. strict t < best with ties to
+    the earliest in walk order; any hit stops a ray at its first hit in
+    (cluster, slot) order.  Vectorised over blocks, a loop over list
+    positions; only tests and chip_smoke.py use it.
+
+    Returns (t (R,) f32, tri (R,) i32, needed (R,) i32) as the kernels
+    return t, tri and tests[0] at splits=1 (for any hit, tri is the
+    first hit cluster's cluster*128)."""
+    R = f.shape[0]
+    nb, nsp, ncp = R // WARP, sent.shape[-1], cbox.shape[0]
+    dev = f.device
+    x = f.reshape(nb, WARP, FCOLS)
+    tmax = torch.clamp(x[..., 11], max=1e37)
+    live = tmax > 0.0
+    rows = attr.reshape(ncp, ATTR_ROWS, CLUSTER)
+    n_real = (rows[:, 12:15] != 0.0).any(dim=1).sum(dim=1,
+                                                  dtype=torch.int32)
+    best_t = tmax.clone().reshape(R)     # any hit: t_max until occluded
+    tri = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    needed = torch.zeros((R,), dtype=torch.int32, device=dev)
+    lanes = torch.arange(SUP, device=dev)
+    for k in range(nsp):
+        still = live & (tri.reshape(nb, WARP) < 0) if any_hit else live
+        bound = torch.where(still, best_t.reshape(nb, WARP),
+                            -INF).amax(dim=1)
+        blocks = torch.nonzero(sent[:, k] <= bound)[:, 0]
+        if blocks.numel() == 0:
+            continue
+        sid = torch.clamp(sids[blocks, k], max=ncp // SUP - 1).long()
+        cid = sid[:, None] * SUP + lanes                       # (V, 16)
+        xv = x[blocks]
+        acc = _slab16(xv, cbox[cid], best_t.reshape(nb, WARP)[blocks]) & \
+            still[blocks][..., None]
+        v_i, r_i, c_i = torch.nonzero(acc, as_tuple=True)
+        if v_i.numel() == 0:
+            continue
+        ray = blocks[v_i] * WARP + r_i
+        pc = cid[v_i, c_i]
+        inside, ad, tn = _leaf(xv[v_i, r_i], rows[pc])
+        tmax_p = tmax.reshape(R)[ray][:, None]
+        if any_hit:
+            hit = inside & (tn < tmax_p * ad)
+            has = hit.any(dim=1)
+            first = torch.argmax(hit.to(torch.int32), dim=1)
+            c_hit = torch.full((R,), SUP, dtype=torch.int64, device=dev)
+            c_hit.scatter_reduce_(0, ray, torch.where(has, c_i, SUP),
+                                  "amin")
+            cf = c_hit[ray]
+            needed.index_add_(0, ray, torch.where(
+                c_i < cf, n_real[pc],
+                torch.where(c_i == cf, first.to(torch.int32) + 1, 0)))
+            stop = has & (c_i == cf)
+            tri[ray[stop]] = (pc[stop] * CLUSTER).to(torch.int32)
+            continue
+        needed.index_add_(0, ray, n_real[pc])
+        tc = tn / torch.clamp(ad, min=1e-30)
+        cand = inside & (tc < tmax_p)
+        tp, slot = torch.where(cand, tc, INF).min(dim=1)
+        # per ray the least (t, cluster, slot) of this position, taken if
+        # its t beats the best so far: an equal t found at an earlier
+        # position keeps winning
+        t_new = torch.full((R,), INF, dtype=torch.float32, device=dev)
+        t_new.scatter_reduce_(0, ray, tp, "amin")
+        at_min = cand.any(dim=1) & (tp == t_new[ray])
+        key = torch.where(at_min, pc * CLUSTER + slot, ncp * CLUSTER)
+        key_new = torch.full((R,), ncp * CLUSTER, dtype=torch.int64,
+                             device=dev)
+        key_new.scatter_reduce_(0, ray, key, "amin")
+        win = at_min & (key == key_new[ray]) & (tp < best_t[ray])
+        best_t[ray[win]] = tp[win]
+        tri[ray[win]] = key[win].to(torch.int32)
+    if any_hit:
+        return torch.where(tri >= 0, -INF, tmax.reshape(R)), tri, needed
+    return best_t, tri, needed
 
 
 def _rays_on(o, device):
@@ -551,16 +757,22 @@ def wave_intersect(scene, o, d, t_min, t_max, any_hit: bool = False,
 
 def wave_intersect_paged(scene, o, d, t_min, t_max, any_hit: bool = False,
                          device=None):
-    """The same traversal through the paged walk (the JAX package's
-    wave_intersect_paged), for scenes whose attribute table is >= 13 MiB.
-    Same arguments and results as wave_intersect; CPU tensors run the
-    plain version."""
+    """The same traversal for scenes whose attribute table is >= 13 MiB
+    (the JAX package's wave_intersect_paged): closest hit launches the
+    closest-hit kernel on the resident front (counted as
+    "paged_closest"), any hit the paged any-hit walk.  Same arguments
+    and results as wave_intersect; CPU tensors run the plain version."""
     _rays_on(o, device)
     if not o.is_cuda:
         from tungsten_tpu_torch.ops.intersect import bvh_walk
         return bvh_walk(scene, o, d, t_min, t_max, any_hit)
+    if not any_hit:
+        f, sent, sids, tmax_c = kernel_inputs(scene, o, d, t_min, t_max)
+        t, tri, _ = closest_kernel(f, sent, sids, scene.wk_cbox,
+                                   scene.wk_attr, route="paged_closest")
+        return _finish(scene, o, d, t, tri, tmax_c, False)
     f, sent, sids, pages, offs, offe, tmax_c = paged_kernel_inputs(
         scene, o, d, t_min, t_max)
-    t, tri, _ = paged_kernel(f, sent, sids, pages, offs, offe, scene.wk_cbox,
-                             scene.wk_attr, any_hit)
-    return _finish(scene, o, d, t, tri, tmax_c, any_hit)
+    t, tri, _ = paged_anyhit_kernel(f, sent, sids, pages, offs, offe,
+                                    scene.wk_cbox, scene.wk_attr)
+    return _finish(scene, o, d, t, tri, tmax_c, True)
