@@ -29,12 +29,13 @@ Phases (any failure exits non-zero):
      kernel (K2) on the main path's shapes (the 1,048,576 camera rays of
      the 16-spp wave, one bounce's continuation rays, and NEE-style
      shadow segments) against the plain walk on the same inputs, with
-     the gates of tests/test_torch_wave.py; K1 at splits=1 against
+     the gates of tests/test_torch_wave.py; each at splits=1 against
      list_walk (the kernels' schedule in plain PyTorch) on the first
-     8,192 rays of each set (the triangle equal on >= 0.9999 of live
-     rays, the needed totals within 0.01 %), bitwise equal at the
-     launcher's choice of CTAs a block and at 8, running at most 1.5x
-     list_walk's needed count at full width (which the bound takes);
+     8,192 rays of each set (the triangle, or the occluded flag, equal
+     on >= 0.9999 of live rays, the needed totals within 0.01 %),
+     bitwise equal at the launcher's choice of CTAs a block and at 8,
+     running at most 1.5x list_walk's needed count at full width (which
+     the bound takes);
      timed with CUDA events (median of 5 after a warm-up), also on the
      first 1,024, 4,096, 8,192 and 65,536 rays and on a sparse tail wave
      (4,096 rays, the first 256 live), at splits=1 and at the launcher's
@@ -51,13 +52,15 @@ Phases (any failure exits non-zero):
      so it takes the paged walk) with the surface BSDF zoo (every ported
      type, glass spheres, a mixed and a coated BSDF with children, a
      null-BSDF light): (a) its size and walk; (b) the paged route's
-     kernels on its camera, continuation and shadow rays as in phase 4:
-     the closest hit (K3's, the closest-hit kernel on the resident front)
-     and the paged any-hit kernel (K3's) against the plain walk and
-     list_walk, splits, by width; the any hit also against K2 on the
-     same segments; (c) its full-width render (256x256, 16 spp,
-     max_bounces 64) from zero launch counts, only the paged route
-     launching, and one more under torch.profiler, as in phase 5; (d) a
+     kernels on its camera, continuation and shadow rays as in phase 4
+     (K3's closest hit and any hit, which are K1's and K2's kernels on
+     the resident front); on the shadow segments also the paged any-hit
+     walk, off the render path, against K2 on the same segments, against
+     list_walk on the paged front, splits, by width, and the two any-hit
+     routes' wrappers (the paged front and walk, the resident front and
+     K2) timed in turns; (c)
+     its full-width render (256x256, 16 spp, max_bounces 64) from zero
+     launch counts, only the paged route launching, and one more under torch.profiler, as in phase 5; (d) a
      64x64 4-spp image of it against the plain path on the CPU;
   8. the CLI (cli.render_scene) on the smoke scene at 256x256: (a) with
      the output buffers (color with sample variance and A/B halves,
@@ -288,21 +291,22 @@ def write_zoo_scene(dirpath: str, res: int = RES, spp: int = SPP,
 
 # ---------------------------------------------------------------- timing
 
-def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
-    """Median milliseconds of fn() over `runs` runs after one warm-up,
-    each bracketed by CUDA events."""
+def event_ms(fn) -> float:
+    """Milliseconds of one fn() bracketed by CUDA events."""
     import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
+    """Median milliseconds of fn() over `runs` runs after one warm-up."""
+    fn()
+    return statistics.median(event_ms(fn) for _ in range(runs))
 
 
 # ------------------------------------------------------------ kernel checks
@@ -328,23 +332,20 @@ def kernel_inputs(scene, o, d, t_max):
     return k
 
 
-def launch(scene, k, any_hit: bool, resident: bool = False, splits=None):
-    """One raw launch of the scene's kernel, `splits` CTAs a block (None:
-    the launcher's choice): the closest-hit kernel (counted as the
-    scene's route), or the scene's any-hit kernel (the resident one, K2,
-    when asked).  Returns (t, tri cluster*128+slot, tests)."""
+def launch(scene, k, kernel: str, splits=None):
+    """One raw launch, `splits` CTAs a block (None: the launcher's
+    choice), of `kernel`: "closest" or "anyhit", the resident kernels
+    (K1's, K2's) counted as the scene's route, or "paged_walk", the paged
+    any-hit walk on a paged scene's paged front.  Returns (t, tri
+    cluster*128+slot, tests)."""
     from tungsten_tpu_torch.ops import wave_trace as twt
-    paged = k["paged"] and not resident
-    if not any_hit:
-        return twt.closest_kernel(k["f"], k["sent"], k["sids"],
-                                  scene.wk_cbox, scene.wk_attr, splits,
-                                  "paged_closest" if paged else "closest")
-    if paged:
+    if kernel == "paged_walk":
         return twt.paged_anyhit_kernel(k["f"], k["psent"], k["psids"],
                                        k["pages"], k["offs"], k["offe"],
                                        scene.wk_cbox, scene.wk_attr, splits)
     return twt.wave_kernel(k["f"], k["sent"], k["sids"], scene.wk_cbox,
-                           scene.wk_attr, True)
+                           scene.wk_attr, kernel == "anyhit", splits,
+                           ("paged_" if k["paged"] else "") + kernel)
 
 
 def wrapper(scene, k, any_hit: bool):
@@ -355,12 +356,11 @@ def wrapper(scene, k, any_hit: bool):
 
 
 def bound_ms(scene, k, tests: int) -> tuple[float, str]:
-    """Least time for the launch: its input and output bytes over the HBM
-    rate vs the ray-triangle tests this data needs over the f32 rate."""
+    """Least time for a resident launch: its input and output bytes over
+    the HBM rate vs the ray-triangle tests this data needs over the f32
+    rate."""
     from tungsten_tpu_torch.ops import wave_trace as twt
-    ins = [k["f"], scene.wk_cbox, scene.wk_attr]
-    ins += [k[n] for n in (("psent", "psids", "pages", "offs", "offe")
-                           if k["paged"] else ("sent", "sids"))]
+    ins = [k["f"], k["sent"], k["sids"], scene.wk_cbox, scene.wk_attr]
     nbytes = sum(x.numel() * x.element_size() for x in ins)
     nbytes += k["f"].shape[0] * 8          # t and tri out
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -412,23 +412,85 @@ def raw_t_error(scene, name, t_raw, tri_raw, pt, ptri, live) -> float:
     return err
 
 
-def vs_resident(scene, name, k, t3, tri3) -> dict:
-    """The paged any-hit launch against the resident any-hit kernel (K2,
-    the yardstick) on the very same segments: the occluded set equal.
-    Returns K2's ms and the tests it needed and ran on these segments."""
+def check_paged_walk(scene, k, o, d, t_max, tri2) -> dict:
+    """The paged any-hit walk, off the render path, on the segments K2
+    ran (`tri2`, K2's tri at splits=1): the occluded set equal to K2's,
+    against list_walk on the paged front, splits bitwise equal, tests run
+    at most 1.5x list_walk's needed count; its ms, tests, by width."""
     import torch
-    t1, tri1, tests1 = launch(scene, k, True, resident=True)
+    name = "paged any-hit walk"
+    t3, tri3, tests3 = launch(scene, k, "paged_walk", splits=1)
     torch.cuda.synchronize()
-    same = bool(torch.equal(tri3 >= 0, tri1 >= 0))
-    log(f"  {name}: paged vs resident any-hit kernel on the same segments: "
-        f"occluded set equal {same}")
+    same = bool(torch.equal(tri3 >= 0, tri2 >= 0))
+    log(f"  {name}: occluded set equal to K2's on the same segments {same}")
     if not same:
         raise AssertionError(f"{name}: the paged and resident any-hit "
                              f"kernels disagree")
-    needed, ran = tri_test_counts(tests1)
-    return {"resident_ms": cuda_ms(lambda: launch(scene, k, True,
-                                                  resident=True)),
-            "resident_tests": needed, "resident_tests_run": ran}
+    out = vs_list_walk(scene, name, k, "paged_walk", t3, tri3, tests3)
+    out.update(splits_equal(scene, name, k, "paged_walk", (t3, tri3)))
+    n_tests, n_ran = tri_test_counts(tests3)
+    ms = cuda_ms(lambda: launch(scene, k, "paged_walk"))
+    log(f"  {name}: {n_tests} tests needed at splits=1, {n_ran} run "
+        f"({n_ran / max(out['list_walk_tests'], 1):.4f} of list_walk's "
+        f"needed); kernel {ms:.3f} ms")
+    if n_ran > 1.5 * out["list_walk_tests"]:
+        raise AssertionError(f"{name}: ran more than 1.5x the tests its "
+                             f"rays need")
+    out.update(ms=ms, tests=n_tests, tests_run=n_ran,
+               by_width=by_width(scene, name, o, d, t_max, "paged_walk"))
+    return out
+
+
+def anyhit_routes(scene, k, occ) -> dict:
+    """The large scene's two any-hit routes on the same segments, their
+    wrappers (front, kernel, remap) timed in turns in this run, each the
+    median of 5 after a warm-up with its range (max - min): "paged",
+    paged_kernel_inputs + the paged any-hit walk + _finish; "resident",
+    kernel_inputs + K2 + _finish (what wave_intersect_paged runs).  Both
+    must give the occluded set `occ` of the scene's wrapper.  "winner"
+    is the resident route where its median is below the paged one's by
+    more than the wider range, else the paged route."""
+    import torch
+    from tungsten_tpu_torch.ops import wave_trace as twt
+    args = (scene, k["o"], k["d"], k["tmin"], k["tmax"])
+
+    def paged():
+        f, sent, sids, pages, offs, offe, tmax_c = \
+            twt.paged_kernel_inputs(*args)
+        t, tri, _ = twt.paged_anyhit_kernel(f, sent, sids, pages, offs,
+                                            offe, scene.wk_cbox,
+                                            scene.wk_attr)
+        return twt._finish(*args[:3], t, tri, tmax_c, True)
+
+    def resident():
+        f, sent, sids, tmax_c = twt.kernel_inputs(*args)
+        t, tri, _ = twt.wave_kernel(f, sent, sids, scene.wk_cbox,
+                                    scene.wk_attr, True,
+                                    route="paged_anyhit")
+        return twt._finish(*args[:3], t, tri, tmax_c, True)
+
+    routes = {"paged": paged, "resident": resident}
+    times = {name: [] for name in routes}
+    for name, fn in routes.items():       # the warm-up, and the check
+        if not bool(torch.equal(fn()[1] >= 0, occ)):
+            raise AssertionError(f"any-hit route {name}: occluded set "
+                                 f"differs from the wrapper's")
+    for _ in range(TIMED_RUNS):
+        for name, fn in routes.items():
+            times[name].append(event_ms(fn))
+    out = {name: {"wrapper_ms": statistics.median(x),
+                  "wrapper_range_ms": max(x) - min(x)}
+           for name, x in times.items()}
+    p, r = out["paged"], out["resident"]
+    spread = max(p["wrapper_range_ms"], r["wrapper_range_ms"])
+    out["winner"] = "resident" if r["wrapper_ms"] + spread < \
+        p["wrapper_ms"] else "paged"
+    log(f"  shadow segments, any-hit routes (wrapper ms, median of "
+        f"{TIMED_RUNS} in turns, range): paged {p['wrapper_ms']:.3f} "
+        f"({p['wrapper_range_ms']:.3f}), resident {r['wrapper_ms']:.3f} "
+        f"({r['wrapper_range_ms']:.3f}); occluded sets equal; faster by "
+        f"more than the wider range: {out['winner']}")
+    return out
 
 
 def tri_test_counts(tests) -> tuple[int, int]:
@@ -441,16 +503,16 @@ def tri_test_counts(tests) -> tuple[int, int]:
 LIST_WALK_RAYS = 8192   # the rays held against list_walk ray for ray
 
 
-def list_front(k, any_hit: bool, n: int | None = None):
+def list_front(k, kernel: str, n: int | None = None):
     """The launch's front (f, sent, sids), for the first n rays."""
-    paged = any_hit and k["paged"]
-    names = ("f", "psent", "psids") if paged else ("f", "sent", "sids")
+    names = ("f", "psent", "psids") if kernel == "paged_walk" else \
+        ("f", "sent", "sids")
     if n is None:
         return tuple(k[x] for x in names)
     return (k["f"][:n],) + tuple(k[x][:n // 128] for x in names[1:])
 
 
-def vs_list_walk(scene, name, k, any_hit: bool, t, tri, tests) -> dict:
+def vs_list_walk(scene, name, k, kernel: str, t, tri, tests) -> dict:
     """A splits=1 launch against list_walk (the kernels' schedule in plain
     PyTorch): on the first LIST_WALK_RAYS rays the triangle (closest
     hit) or the occluded flag (any hit) equal on >= 0.9999 of live rays
@@ -460,9 +522,10 @@ def vs_list_walk(scene, name, k, any_hit: bool, t, tri, tests) -> dict:
     run/needed gate take, and the kernel's beside it."""
     import torch
     from tungsten_tpu_torch.ops import wave_trace as twt
+    any_hit = kernel != "closest"
     n = min(LIST_WALK_RAYS, k["f"].shape[0])
     t0 = time.time()
-    lt, ltri, lneed = twt.list_walk(*list_front(k, any_hit, n),
+    lt, ltri, lneed = twt.list_walk(*list_front(k, kernel, n),
                                     scene.wk_cbox, scene.wk_attr, any_hit)
     live = k["tmax"][:n] > 0
     if any_hit:
@@ -473,7 +536,7 @@ def vs_list_walk(scene, name, k, any_hit: bool, t, tri, tests) -> dict:
     kn = int(tests[0][:n].sum(dtype=torch.int64))
     ln = int(lneed.sum(dtype=torch.int64))
     rel = abs(kn - ln) / max(ln, 1)
-    _, _, fneed = twt.list_walk(*list_front(k, any_hit), scene.wk_cbox,
+    _, _, fneed = twt.list_walk(*list_front(k, kernel), scene.wk_cbox,
                                 scene.wk_attr, any_hit)
     full = int(fneed.sum(dtype=torch.int64))
     torch.cuda.synchronize()
@@ -488,22 +551,22 @@ def vs_list_walk(scene, name, k, any_hit: bool, t, tri, tests) -> dict:
             "list_walk_needed_rel": rel}
 
 
-def result_of(t, tri, any_hit: bool):
+def result_of(t, tri, kernel: str):
     """What the CTA split must not change: t and tri (closest hit), the
     occluded flag (any hit)."""
-    return (tri >= 0,) if any_hit else (t, tri)
+    return (t, tri) if kernel == "closest" else (tri >= 0,)
 
 
-def splits_equal(scene, name, k, any_hit: bool, one) -> dict:
+def splits_equal(scene, name, k, kernel: str, one) -> dict:
     """The launcher's choice of splits and splits=8 against splits=1:
     bitwise equal results."""
     import torch
     from tungsten_tpu_torch.ops import wave_trace as twt
-    want = result_of(*one[:2], any_hit)
+    want = result_of(*one[:2], kernel)
     S = twt.launch_splits(k["f"].shape[0] // 128, k["f"].device)
     for splits in (None, 8):
-        got = result_of(*launch(scene, k, any_hit, splits=splits)[:2],
-                        any_hit)
+        got = result_of(*launch(scene, k, kernel, splits=splits)[:2],
+                        kernel)
         if not all(bool(torch.equal(a, b)) for a, b in zip(want, got)):
             raise AssertionError(f"{name}: splits={splits} differs from "
                                  f"splits=1")
@@ -515,11 +578,12 @@ WIDTHS = (1024, 4096, 8192, 65536)   # narrow waves, as late bounces leave
 TAIL = (4096, 256)                   # a sparse tail wave: rays, live rays
 
 
-def by_width(scene, name, o, d, t_max, any_hit: bool) -> dict:
+def by_width(scene, name, o, d, t_max, kernel: str) -> dict:
     """The kernel on the first w rays of a ray set, and on a sparse tail
     wave (the first 4,096 rays, 256 of them live, gathered to the front
     as compact_wave leaves them), at splits=1 and at the launcher's
-    choice: bitwise equal, and their times."""
+    choice: bitwise equal, and their times, with the tests the launch
+    needed and ran at splits=1."""
     import torch
     from tungsten_tpu_torch.ops import wave_trace as twt
     out = {}
@@ -532,23 +596,24 @@ def by_width(scene, name, o, d, t_max, any_hit: bool) -> dict:
         if w > o.shape[0]:
             break
         k = kernel_inputs(scene, o[:w], d[:w], tm[:w])
-        one = launch(scene, k, any_hit, splits=1)
-        auto = launch(scene, k, any_hit)
+        one = launch(scene, k, kernel, splits=1)
+        auto = launch(scene, k, kernel)
         if not all(bool(torch.equal(a, b)) for a, b in
-                   zip(result_of(*one[:2], any_hit),
-                       result_of(*auto[:2], any_hit))):
+                   zip(result_of(*one[:2], kernel),
+                       result_of(*auto[:2], kernel))):
             raise AssertionError(f"{name}: splits change the result at "
                                  f"{w} rays")
         S = twt.launch_splits(w // 128, o.device)
-        ms1 = cuda_ms(lambda: launch(scene, k, any_hit, splits=1))
-        ms = cuda_ms(lambda: launch(scene, k, any_hit))
+        ms1 = cuda_ms(lambda: launch(scene, k, kernel, splits=1))
+        ms = cuda_ms(lambda: launch(scene, k, kernel))
         live = int((k["tmax"] > 0).sum())
+        need, ran = tri_test_counts(one[2])
         key = "tail" if tm is not t_max else str(w)
         out[key] = {"rays": w, "live": live, "splits": S, "ms": ms,
-                    "ms_splits1": ms1}
-        log(f"  {name}, {key} ({w} rays, {live} live): {ms:.4f} ms at the "
-            f"launcher's {S} CTAs a block, {ms1:.4f} ms at 1 "
-            f"({ms1 / ms:.2f}x), bitwise equal")
+                    "ms_splits1": ms1, "tests": need, "tests_run": ran}
+        log(f"  {name}, {key} ({w} rays, {live} live, {need} tests "
+            f"needed): {ms:.4f} ms at the launcher's {S} CTAs a block, "
+            f"{ms1:.4f} ms at 1 ({ms1 / ms:.2f}x), bitwise equal")
     return out
 
 
@@ -565,11 +630,11 @@ def check_closest(scene, name, o, d, t_max):
                                     k["tmax"])
     torch.cuda.synchronize()
     err_final = hit_gates(name, t, tri, u, v, pt, ptri, pu, pv, live)
-    t_raw, tri_raw, tests = launch(scene, k, False, splits=1)
+    t_raw, tri_raw, tests = launch(scene, k, "closest", splits=1)
     err = raw_t_error(scene, name, t_raw, tri_raw, pt, ptri, live)
-    out = vs_list_walk(scene, name, k, False, t_raw, tri_raw, tests)
-    out.update(splits_equal(scene, name, k, False, (t_raw, tri_raw)))
-    ms = cuda_ms(lambda: launch(scene, k, False))
+    out = vs_list_walk(scene, name, k, "closest", t_raw, tri_raw, tests)
+    out.update(splits_equal(scene, name, k, "closest", (t_raw, tri_raw)))
+    ms = cuda_ms(lambda: launch(scene, k, "closest"))
     wrap_ms = cuda_ms(lambda: wrapper(scene, k, False))
     plain_ms = cuda_ms(lambda: tis.bvh_walk(scene, k["o"], k["d"], k["tmin"],
                                             k["tmax"]))
@@ -587,7 +652,7 @@ def check_closest(scene, name, o, d, t_max):
         f"splits=1, {n_ran} run; kernel {ms:.3f} ms, wrapper (front + "
         f"kernel + finalize) {wrap_ms:.3f} ms, plain walk {plain_ms:.3f} "
         f"ms, bound {b:.4f} ms ({by})")
-    out["by_width"] = by_width(scene, name, o, d, t_max, False)
+    out["by_width"] = by_width(scene, name, o, d, t_max, "closest")
     out.update(ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b,
                bound_by=by, max_abs_err=err, max_abs_err_final=err_final,
                rays=int(o.shape[0]), tests=n_tests, tests_run=n_ran,
@@ -622,10 +687,13 @@ def shadow_segments(scene, o, d, t, tri, seed: int):
 
 
 def check_anyhit(scene, o, d, t_max):
-    """The scene's any-hit kernel on shadow segments: against the plain
-    any-hit walk, its hit set against the closest-hit kernel's on the very
-    same segments; on a paged scene also against K2 on the same segments
-    and against list_walk, splits bitwise equal, by width; times."""
+    """The scene's any-hit route on shadow segments: its wrapper against
+    the plain any-hit walk, its hit set against the closest hit's on the
+    very same segments; its kernel (K2, on either scene) against
+    list_walk, splits bitwise equal, tests run against list_walk's
+    needed count, times, by width too; on a paged scene also the paged
+    any-hit walk on the same segments (check_paged_walk) and the two
+    any-hit routes' wrappers timed (anyhit_routes)."""
     import torch
     from tungsten_tpu_torch.ops import intersect as tis
     k = kernel_inputs(scene, o, d, t_max)
@@ -645,39 +713,31 @@ def check_anyhit(scene, o, d, t_max):
         f"{same_as_k1}")
     if not (agree > 0.998 and same_as_k1 and bool((tri_a[~live] == -1).all())):
         raise AssertionError("any-hit kernel disagrees")
-    split = k["paged"]   # K2 runs one CTA a block
-    t_raw, tri_raw, tests = launch(scene, k, True,
-                                   splits=1 if split else None)
-    out = {}
-    if split:
-        out = vs_resident(scene, "shadow segments", k, t_raw, tri_raw)
-        out.update(vs_list_walk(scene, "shadow segments", k, True, t_raw,
-                                tri_raw, tests))
-        out.update(splits_equal(scene, "shadow segments", k, True,
-                                (t_raw, tri_raw)))
-    ms = cuda_ms(lambda: launch(scene, k, True))
+    t_raw, tri_raw, tests = launch(scene, k, "anyhit", splits=1)
+    out = vs_list_walk(scene, "shadow segments", k, "anyhit", t_raw,
+                       tri_raw, tests)
+    out.update(splits_equal(scene, "shadow segments", k, "anyhit",
+                            (t_raw, tri_raw)))
+    ms = cuda_ms(lambda: launch(scene, k, "anyhit"))
     wrap_ms = cuda_ms(lambda: wrapper(scene, k, True))
     plain_ms = cuda_ms(lambda: tis.bvh_walk(scene, k["o"], k["d"], k["tmin"],
                                             k["tmax"], any_hit=True))
     n_tests, n_ran = tri_test_counts(tests)
-    need = out.get("list_walk_tests", n_tests)
+    need = out["list_walk_tests"]
     b, by = bound_ms(scene, k, need)
-    if split:
-        log(f"  shadow segments: tests run / list_walk's needed "
-            f"{n_ran / max(need, 1):.4f}")
-        if n_ran > 1.5 * need:
-            raise AssertionError("shadow segments: the kernel ran more than "
-                                 "1.5x the tests its rays need")
-    log(f"  shadow segments: {n_tests} ray-triangle tests needed, {n_ran} "
-        f"run; kernel {ms:.3f} ms"
-        + (f" (resident kernel {out['resident_ms']:.3f} ms, "
-           f"{out['resident_tests']} tests needed, "
-           f"{out['resident_tests_run']} run)" if out else "")
-        + f", wrapper {wrap_ms:.3f} ms, plain walk {plain_ms:.3f} ms, bound "
-        f"{b:.4f} ms ({by})")
-    if split:
-        out["by_width"] = by_width(scene, "shadow segments", o, d, t_max,
-                                   True)
+    log(f"  shadow segments: tests run / list_walk's needed "
+        f"{n_ran / max(need, 1):.4f}")
+    if n_ran > 1.5 * need:
+        raise AssertionError("shadow segments: the kernel ran more than "
+                             "1.5x the tests its rays need")
+    log(f"  shadow segments: {n_tests} ray-triangle tests needed at "
+        f"splits=1, {n_ran} run; kernel {ms:.3f} ms, wrapper {wrap_ms:.3f} "
+        f"ms, plain walk {plain_ms:.3f} ms, bound {b:.4f} ms ({by})")
+    out["by_width"] = by_width(scene, "shadow segments", o, d, t_max,
+                               "anyhit")
+    if k["paged"]:
+        out["paged_walk"] = check_paged_walk(scene, k, o, d, t_max, tri_raw)
+        out["routes"] = anyhit_routes(scene, k, occ)
     out.update(ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b,
                bound_by=by, max_abs_err=err, agreement=agree,
                rays=int(o.shape[0]), tests=n_tests, tests_run=n_ran)
@@ -749,7 +809,8 @@ def cross_path(scene, settings, max_bounces: int | None = None) -> None:
 KERNEL_OF_ROUTE = {"closest": "wave_trace_closest_kernel",
                    "paged_closest": "wave_trace_closest_kernel",
                    "anyhit": "wave_trace_anyhit_kernel",
-                   "paged_anyhit": "wave_trace_paged_anyhit_kernel"}
+                   "paged_anyhit": "wave_trace_anyhit_kernel",
+                   "paged_walk": "wave_trace_paged_anyhit_kernel"}
 
 
 def profile_render(render_once) -> dict:
@@ -1119,8 +1180,8 @@ def kernel_row(name, mode, m, launches, replaces, tol, extra, prof):
            "bound_by": m["bound_by"], "library_ms": None, "tolerance": tol}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
             "max_abs_err_final", "rays", "tests", "tests_run", "wrapper_ms",
-            "resident_ms", "resident_tests", "resident_tests_run",
-            "list_walk_tests", "list_walk_agreement", "splits", "by_width")
+            "list_walk_tests", "list_walk_agreement", "splits", "by_width",
+            "paged_walk", "routes")
     row.update({x: m[x] for x in keys if x in m and x not in row})
     for k, v in extra.items():
         row[k] = {x: v[x] for x in keys if x in v}
@@ -1187,7 +1248,8 @@ def main() -> int:
     for built in (lib, leaf_lib):
         with open(built._name + ".log") as f:
             for line in f.read().splitlines():
-                if "registers" in line or "spill" in line:
+                if any(x in line for x in ("registers", "spill",
+                                           "Function properties")):
                     log(f"  ptxas: {line.strip()}")
     mark("build")
 
@@ -1279,7 +1341,8 @@ def main() -> int:
             raise AssertionError("large render: image not finite or black")
         if not (zlaunches["paged_closest"] > 0 and
                 zlaunches["paged_anyhit"] > 0 and
-                zlaunches["closest"] == 0 and zlaunches["anyhit"] == 0):
+                zlaunches["closest"] == 0 and zlaunches["anyhit"] == 0 and
+                zlaunches["paged_walk"] == 0):
             raise AssertionError(f"large render: not the paged walk alone "
                                  f"{zlaunches}")
         zprof = profile_render(lambda: render(zscene, zsettings, spp=SPP,
@@ -1353,15 +1416,20 @@ def main() -> int:
                   "equal to the closest-hit kernel's")
     split = ("; vs list_walk on the first 8192 rays: the result equal on "
              ">= 0.9999 of live rays, needed totals within 0.01 %; splits=1 "
-             "bitwise equal to the launcher's choice and to 8")
-    paged = "; vs the resident any-hit kernel on the same rays: hit set equal"
+             "bitwise equal to the launcher's choice and to 8; tests run <= "
+             "1.5x list_walk's needed count")
+    paged = ("; paged_walk (the paged any-hit walk, off the render path) "
+             "on the same rays: occluded set equal to this kernel's, the "
+             "list_walk, splits and tests-run gates on the paged front; "
+             "routes: the paged and the resident wrapper timed in turns "
+             "(median of 5 after a warm-up, range), occluded sets equal")
     k1 = "tungsten_tpu/ops/wave_trace.py:300"
     k3 = "tungsten_tpu/ops/wave_trace.py:724"
     rows = [
         kernel_row("wave_trace_closest", "closest", prim, launches, k1,
                    closest_tol + split, {"continuation": cont}, prof),
         kernel_row("wave_trace_anyhit", "anyhit", shadow, launches, k1,
-                   anyhit_tol, {}, prof),
+                   anyhit_tol + split, {}, prof),
         kernel_row("wave_trace_paged_closest", "paged_closest", zprim,
                    zlaunches, k3, closest_tol + split,
                    {"continuation": zcont}, zprof),

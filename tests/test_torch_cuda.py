@@ -8,17 +8,17 @@ On the random-soup fixture of tests/test_wave.py (700 triangles, 2048
 rays; regenerated here with numpy) both kernel modes pass that file's
 gates against the f32 brute force and against the plain walk on the same
 device, and a small render through the kernels matches the plain path.
-The paged walk (its any hit a kernel of its own, its closest hit the
-resident kernel on the resident front) passes the same gates on the
-5,000-triangle soup of tests/test_paged.py with the page shrunk to one
-super; its any hit agrees with the resident one ray for ray.  The
-closest-hit kernel and the paged any-hit kernel agree with list_walk
-(their schedule in plain PyTorch) on the same rays, also where coherent
-bundles spread each block over several pages and where zero-area
-triangles sit inside clusters before real ones; their launches split
-over 1, 2, 8 or the launcher's count of CTAs a block, and two launches,
-are bitwise equal, and a block with a few live rays among dead ones
-gives them their full block's results.
+The paged wrapper (the resident kernels on the resident front) passes
+the same gates on the 5,000-triangle soup of tests/test_paged.py with
+the page shrunk to one super, and the paged any-hit walk (no wrapper
+launches it) agrees with K2 ray for ray.  The closest-hit kernel, K2
+and the paged any-hit walk agree with list_walk (their schedule in
+plain PyTorch) on the same rays, also where coherent bundles spread
+each block over several pages and where zero-area triangles sit inside
+clusters before real ones; their launches split over 1, 2, 8 or the
+launcher's count of CTAs a block, and two launches, are bitwise equal,
+and a block with a few live rays among dead ones gives them their full
+block's results.
 The tensor-core leaf kernel (K4, K5: csrc/leaf_mma.cu) agrees with its
 plain versions on seeded random bf16 inputs and exactly on the TPU
 tool's all-ones inputs at every shape of the tool, and a launch held to
@@ -227,7 +227,7 @@ def test_cuda_render_matches_plain_path(cuda_device):
     assert twt.traversal_kind(scene) == "resident"
     assert all(twt.LAUNCHES[k] > before[k] for k in ("closest", "anyhit"))
     assert all(twt.LAUNCHES[k] == before[k]
-               for k in ("paged_closest", "paged_anyhit"))
+               for k in ("paged_closest", "paged_anyhit", "paged_walk"))
     cpu = render(scene.to("cpu"), settings, spp=4, seed=7, spp_chunk=4,
                  device="cpu")
     assert np.isfinite(gpu).all() and gpu.mean() > 0
@@ -235,9 +235,10 @@ def test_cuda_render_matches_plain_path(cuda_device):
     assert close.mean() >= 0.99
     assert abs(gpu.mean() / cpu.mean() - 1.0) <= 5e-3
 
-    # the same scene through the paged walk (the threshold lowered to 0
-    # and a page of one super): only the paged kernels launch, and the
-    # image is the resident path's up to traversal-order ties
+    # the same scene through the paged wrapper (the threshold lowered to
+    # 0 and a page of one super): only its routes count launches (the
+    # resident kernels; the paged any-hit walk never runs), and the image
+    # is the resident path's up to traversal-order ties
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(twt, "PAGED_ATTR_BYTES", 0)
         mp.setattr(twt, "PAGE_SUP", 1)
@@ -245,7 +246,8 @@ def test_cuda_render_matches_plain_path(cuda_device):
         paged = render(scene, settings, spp=4, seed=7, spp_chunk=4)
         assert all(twt.LAUNCHES[k] > before[k]
                    for k in ("paged_closest", "paged_anyhit"))
-        assert all(twt.LAUNCHES[k] == before[k] for k in ("closest", "anyhit"))
+        assert all(twt.LAUNCHES[k] == before[k]
+                   for k in ("closest", "anyhit", "paged_walk"))
     close = np.isclose(paged, gpu, rtol=1e-3, atol=1e-4).all(-1)
     assert close.mean() >= 0.99
     assert abs(paged.mean() / gpu.mean() - 1.0) <= 5e-3
@@ -258,12 +260,12 @@ def one_super_pages(monkeypatch):
 
 @pytest.mark.cuda
 def test_cuda_paged_kernel_passes_wave_gates(cuda_device, one_super_pages):
-    """The paged walk over several pages: test_wave.py's gates against
-    the brute force and the plain walk, closest hit and any hit; the
-    paged any hit's occluded set equals the resident any hit's on the
-    same rays, and its closest hit (the closest-hit kernel on the
-    resident front) equals list_walk's, the triangle too except where
-    the two t are equal (ties)."""
+    """The paged wrapper over several pages: test_wave.py's gates against
+    the brute force and the plain walk, closest hit and any hit (both the
+    resident kernels on the resident front); the paged any-hit walk's
+    occluded set equals K2's on the same rays, and the closest hit
+    equals list_walk's, the triangle too except where the two t are
+    equal (ties)."""
     v0, e1, e2 = _soup(num_tris=5000, seed=5)
     R = 2 * twt.BLOCK
     o, d = _rays(R, seed=6)
@@ -285,9 +287,9 @@ def test_cuda_paged_kernel_passes_wave_gates(cuda_device, one_super_pages):
                   False)
     assert all(np.array_equal(a, b) for a, b in zip((t, tri, u, v), again))
 
-    # raw kernel outputs: the paged any hit against the resident one on
-    # the same rays, the closest hit (the resident kernel on the resident
-    # front) against list_walk
+    # raw kernel outputs: the paged any-hit walk against K2 on the same
+    # rays, the closest hit (the resident kernel on the resident front)
+    # against list_walk
     args = [torch.from_numpy(x).to(cuda_device) for x in (o, d, tmin, tmax)]
     o_s, d_s, tmin_s, tmax_s, _ = tis.dispatch_rays(sc, *args)
     f, sent, sids, pages, offs, offe, _ = twt.paged_kernel_inputs(
@@ -300,8 +302,9 @@ def test_cuda_paged_kernel_passes_wave_gates(cuda_device, one_super_pages):
                                   True)
     assert torch.equal(tri3 >= 0, tri1 >= 0)
     assert torch.equal(t3 <= -1.0, tri3 >= 0)
-    t3, tri3, tests3c = twt.closest_kernel(f1, sent1, sids1, sc.wk_cbox,
-                                           sc.wk_attr, route="paged_closest")
+    t3, tri3, tests3c = twt.wave_kernel(f1, sent1, sids1, sc.wk_cbox,
+                                        sc.wk_attr, False,
+                                        route="paged_closest")
     lt, ltri, _ = twt.list_walk(f1, sent1, sids1, sc.wk_cbox, sc.wk_attr,
                                 False)
     assert torch.equal(tri3 >= 0, ltri >= 0)
@@ -316,7 +319,8 @@ def test_cuda_paged_kernel_passes_wave_gates(cuda_device, one_super_pages):
     tmax_b = np.where(live, np.float32(1.25), np.float32(0.0))
     _, tri_a, _, _ = _hits(twt.wave_intersect_paged, sc, order, o, d, tmin,
                            tmax_b, True)
-    assert twt.LAUNCHES["paged_anyhit"] == before["paged_anyhit"] + 2
+    assert twt.LAUNCHES["paged_anyhit"] == before["paged_anyhit"] + 1
+    assert twt.LAUNCHES["paged_walk"] == before["paged_walk"] + 1
     assert twt.LAUNCHES["paged_closest"] == before["paged_closest"] + 3
     _, bi_b, _, _ = _brute(v0, e1, e2, o, d, 1e-4, tmax_b)
     assert ((tri_a >= 0) == (bi_b >= 0))[live].mean() > 0.998
@@ -509,8 +513,10 @@ def test_cuda_paged_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="splits"):
         twt.paged_anyhit_kernel(f, lists, lists.int(), pages, rng, rng,
                                 cbox, attr, splits=0)
-    with pytest.raises(ValueError, match="one CTA"):
-        twt.wave_kernel(f, lists, lists.int(), cbox, attr, True, splits=2)
+    for splits in (0, 65):
+        with pytest.raises(ValueError, match="splits"):
+            twt.wave_kernel(f, lists, lists.int(), cbox, attr, True,
+                            splits=splits)
 
 
 @pytest.mark.cuda
@@ -557,22 +563,28 @@ def _bundle_rays(R, seed):
     return o.astype(np.float32), d.astype(np.float32)
 
 
-def _front(sc, dev, o, d, tmin, tmax, paged=False):
-    """The kernels' inputs for rays in the given order (no dispatch
-    sort): the resident front, or with `paged` the paged one."""
+# the three split walks: the closest-hit kernel and K2 on the resident
+# front (K1, K2 and K3's closest and any hit), the paged any-hit walk on
+# the paged one
+KERNELS = ["closest", "anyhit", "paged_walk"]
+
+
+def _front(sc, dev, o, d, tmin, tmax, kernel):
+    """The kernel's inputs for rays in the given order (no dispatch
+    sort): the resident front, or for the paged walk the paged one."""
     args = [torch.from_numpy(x).to(dev) for x in (o, d, tmin, tmax)]
-    if paged:
+    if kernel == "paged_walk":
         return twt.paged_kernel_inputs(sc, *args)[:6]
     return twt.kernel_inputs(sc, *args)[:3]
 
 
-def _launch(sc, front, any_hit, splits=None):
-    """The closest-hit kernel on a resident front, or the paged any-hit
-    kernel on a paged one."""
-    if any_hit:
+def _launch(sc, front, kernel, splits=None):
+    """One launch of `kernel` (of KERNELS) on its front."""
+    if kernel == "paged_walk":
         return twt.paged_anyhit_kernel(*front, sc.wk_cbox, sc.wk_attr,
                                        splits=splits)
-    return twt.closest_kernel(*front, sc.wk_cbox, sc.wk_attr, splits=splits)
+    return twt.wave_kernel(*front, sc.wk_cbox, sc.wk_attr,
+                           kernel == "anyhit", splits=splits)
 
 
 def _vs_list_walk(sc, front, any_hit, t, tri, tests):
@@ -606,15 +618,16 @@ def _flag(t, tri, any_hit):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kernel", KERNELS)
 def test_cuda_splits_are_bitwise_equal(cuda_device, one_super_pages,
-                                       any_hit):
-    """The closest-hit kernel (K1, K3's closest hit) and the paged any-hit
-    kernel on 8 blocks of coherent bundles through a 20,000-triangle
-    soup: splits 1, 2, 8 and the launcher's choice give bitwise the same
-    t and tri (closest) or occluded flag (any hit), two launches are
-    bitwise equal, and splits=1 is list_walk's walk, its row 0 equal to
-    list_walk's needed count."""
+                                       kernel):
+    """The closest-hit kernel (K1, K3's closest hit), K2 and the paged
+    any-hit walk on 8 blocks of coherent bundles through a
+    20,000-triangle soup: splits 1, 2, 8 and the launcher's choice give
+    bitwise the same t and tri (closest) or occluded flag (any hit), two
+    launches are bitwise equal, and splits=1 is list_walk's walk, its
+    row 0 equal to list_walk's needed count."""
+    any_hit = kernel != "closest"
     v0, e1, e2 = _soup(num_tris=20000, seed=9)
     R = twt.BLOCK
     o, d = _bundle_rays(R, seed=10)
@@ -624,24 +637,25 @@ def test_cuda_splits_are_bitwise_equal(cuda_device, one_super_pages,
     if any_hit:
         tmax = np.where(tmax > 0, np.float32(8.0), np.float32(0.0))
     sc, _ = _scene(v0, e1, e2, cuda_device)
-    front = _front(sc, cuda_device, o, d, tmin, tmax, paged=any_hit)
+    front = _front(sc, cuda_device, o, d, tmin, tmax, kernel)
     assert twt.launch_splits(R // twt.WARP, cuda_device) > 8
-    t, tri, tests = _launch(sc, front, any_hit, splits=1)
+    t, tri, tests = _launch(sc, front, kernel, splits=1)
     _vs_list_walk(sc, front, any_hit, t, tri, tests)
     assert 0.05 < float((tri >= 0).float().mean()) < 0.95
     want = _flag(t, tri, any_hit)
     for splits in (2, 8, None, None):
-        got = _flag(*_launch(sc, front, any_hit, splits)[:2], any_hit)
+        got = _flag(*_launch(sc, front, kernel, splits)[:2], any_hit)
         assert all(torch.equal(a, b) for a, b in zip(want, got)), splits
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("any_hit", [False, True])
-def test_cuda_few_live_rays_in_a_block(cuda_device, any_hit):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_cuda_few_live_rays_in_a_block(cuda_device, kernel):
     """A block with 1 to 3 live rays among dead ones gives those rays the
     results of their full block (the launcher's split): closest hit the
-    same t bitwise and the same triangle except at equal t, any hit the
-    same occluded flag."""
+    same t bitwise and the same triangle except at equal t, any hit (K2
+    and the paged walk) the same occluded flag."""
+    any_hit = kernel != "closest"
     v0, e1, e2 = _soup(num_tris=5000, seed=5)
     R = twt.BLOCK
     o, d = _rays(R, seed=6)
@@ -649,13 +663,13 @@ def test_cuda_few_live_rays_in_a_block(cuda_device, any_hit):
     tmax = np.full((R,), np.float32(1.25) if any_hit else 3e38, np.float32)
     sc, _ = _scene(v0, e1, e2, cuda_device)
     t, tri, _ = _launch(sc, _front(sc, cuda_device, o, d, tmin, tmax,
-                                   any_hit), any_hit)
+                                   kernel), kernel)
     keep = np.zeros((R,), bool)
     for b, rays in enumerate(([5], [0, 127], [17, 64, 100])):
         keep[[b * twt.WARP + r for r in rays]] = True
     tmax_s = np.where(keep, tmax, np.float32(0.0))
     ts, tris, tests = _launch(sc, _front(sc, cuda_device, o, d, tmin, tmax_s,
-                                         any_hit), any_hit)
+                                         kernel), kernel)
     k = torch.from_numpy(keep).to(cuda_device)
     assert bool((tris[~k] == -1).all()) and int(tests[:, ~k].sum()) == 0
     assert torch.equal(tri[k] >= 0, tris[k] >= 0)
@@ -688,8 +702,8 @@ def test_cuda_paged_closest_interleaved_pages(cuda_device, one_super_pages):
     slots = (offe > offs).sum(dim=1)
     assert int(slots.max()) >= 4             # blocks span several pages
     front = twt.kernel_inputs(sc, o_s, d_s, tmin_s, tmax_s)[:3]
-    t3, tri3, tests3 = twt.closest_kernel(*front, sc.wk_cbox, sc.wk_attr,
-                                          splits=1, route="paged_closest")
+    t3, tri3, tests3 = twt.wave_kernel(*front, sc.wk_cbox, sc.wk_attr, False,
+                                       splits=1, route="paged_closest")
     _vs_list_walk(sc, front, False, t3, tri3, tests3)
     need, ran = int(tests3[0].sum()), int(tests3[1].sum())
     assert 0 < need and ran <= 1.5 * need
@@ -711,8 +725,8 @@ def test_cuda_paged_closest_zero_area_triangles(cuda_device,
     hit on this paged setting) still tests every real triangle, so it
     equals list_walk ray for ray, counts only the real triangles as
     needed (list_walk's count), runs the holes, and the paged wrapper
-    passes the gates against the brute force; the paged any hit equals
-    list_walk on the paged front too."""
+    passes the gates against the brute force; the paged any-hit walk
+    equals list_walk on the paged front too."""
     v0, e1, e2 = _soup(num_tris=5000, seed=5)
     e1[::8] = 0.0
     e2[4::8] = 0.0
@@ -731,8 +745,8 @@ def test_cuda_paged_closest_zero_area_triangles(cuda_device,
     args = [torch.from_numpy(x).to(cuda_device) for x in (o, d, tmin, tmax)]
     o_s, d_s, tmin_s, tmax_s, _ = tis.dispatch_rays(sc, *args)
     front = twt.kernel_inputs(sc, o_s, d_s, tmin_s, tmax_s)[:3]
-    t3, tri3, tests3 = twt.closest_kernel(*front, sc.wk_cbox, sc.wk_attr,
-                                          splits=1, route="paged_closest")
+    t3, tri3, tests3 = twt.wave_kernel(*front, sc.wk_cbox, sc.wk_attr, False,
+                                       splits=1, route="paged_closest")
     _vs_list_walk(sc, front, False, t3, tri3, tests3)
     assert bool((tests3[0] < tests3[1]).any())     # holes run, not needed
     pfront = twt.paged_kernel_inputs(sc, o_s, d_s, tmin_s,
@@ -743,3 +757,40 @@ def test_cuda_paged_closest_zero_area_triangles(cuda_device,
                          tmax, False)
     bt, bi, uu, vv = _brute(v0, e1, e2, o, d, 1e-4, tmax)
     _gates(t, tri, u, v, bt, bi, uu, vv, live)
+
+
+@pytest.mark.cuda
+def test_cuda_anyhit_zero_area_triangles(cuda_device):
+    """K2 where zero-area triangles (n = 0) sit inside clusters before
+    real ones: at splits=1 it equals list_walk(any_hit=True) on the
+    resident front ray for ray (the occluded set, row 0 its needed
+    count), dead rays cost no test, and at the launcher's split the
+    occluded set is the same; the wrapper's occluded flag agrees with
+    the brute force."""
+    v0, e1, e2 = _soup(num_tris=5000, seed=5)
+    e1[::8] = 0.0
+    e2[4::8] = 0.0
+    R = 2 * twt.BLOCK
+    o, d = _rays(R, seed=6)
+    tmin = np.full((R,), 1e-4, np.float32)
+    tmax = np.full((R,), np.float32(1.25), np.float32)
+    tmax[::5] = 0.0
+    live = tmax > 0
+    sc, order = _scene(v0, e1, e2, cuda_device)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (o, d, tmin, tmax)]
+    o_s, d_s, tmin_s, tmax_s, _ = tis.dispatch_rays(sc, *args)
+    front = twt.kernel_inputs(sc, o_s, d_s, tmin_s, tmax_s)[:3]
+    t2, tri2, tests2 = twt.wave_kernel(*front, sc.wk_cbox, sc.wk_attr, True,
+                                       splits=1)
+    _vs_list_walk(sc, front, True, t2, tri2, tests2)
+    assert 0.05 < float((tri2 >= 0).float().mean()) < 0.95
+    assert bool((tests2[:, tmax_s <= 0] == 0).all())
+    _, tri_s, _ = twt.wave_kernel(*front, sc.wk_cbox, sc.wk_attr, True)
+    assert torch.equal(tri_s >= 0, tri2 >= 0)
+    before = twt.LAUNCHES["anyhit"]
+    _, tri, _, _ = _hits(twt.wave_intersect, sc, order, o, d, tmin, tmax,
+                         True)
+    assert twt.LAUNCHES["anyhit"] == before + 1
+    _, bi, _, _ = _brute(v0, e1, e2, o, d, 1e-4, tmax)
+    assert ((tri >= 0) == (bi >= 0))[live].mean() > 0.998
+    assert (tri[~live] == -1).all()

@@ -158,3 +158,27 @@ def test_unported_features_raise():
         desc.bsdfs[0] = {"type": name}
         with pytest.raises(NotImplementedError, match=name):
             flatten_scene(desc, device="cpu")
+
+
+@pytest.mark.parametrize("kernel", ["closest", "anyhit", "paged_walk"])
+def test_kernel_wrappers_refuse_cpu_tensors(kernel):
+    """A traversal kernel's wrapper launches on CUDA tensors only: given
+    CPU tensors it raises before it builds or launches anything, and
+    counts no launch (the plain walk is the wave_intersect* wrappers'
+    CPU path, not the kernel wrappers')."""
+    from tungsten_tpu_torch.ops import wave_trace as twt
+    nb = twt.BLOCK // twt.WARP
+    f = torch.zeros((twt.BLOCK, twt.FCOLS))
+    lists = torch.zeros((nb, 128))
+    cbox = torch.zeros((256, 8))
+    attr = torch.zeros((256 * twt.ATTR_ROWS, twt.CLUSTER))
+    before = dict(twt.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        if kernel == "paged_walk":
+            ranges = torch.zeros((nb, 1), dtype=torch.int32)
+            twt.paged_anyhit_kernel(f, lists, lists.int(), ranges[:1],
+                                    ranges, ranges, cbox, attr, splits=2)
+        else:
+            twt.wave_kernel(f, lists, lists.int(), cbox, attr,
+                            kernel == "anyhit", splits=2)
+    assert twt.LAUNCHES == before

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Wall time of the PyTorch port's CLI renders on chip_smoke.py's smoke
-scene, to compare two checkouts of the repo on one card.
+"""Wall time of the PyTorch port's renders on chip_smoke.py's scenes, to
+compare two checkouts of the repo on one card.
 
-    python3 tools_torch_cli_ab.py CHECKOUT [--reps 3]
+    python3 tools_torch_cli_ab.py CHECKOUT [--reps 3] [--zoo]
 
 Imports tungsten_tpu_torch and chip_smoke from CHECKOUT, writes the smoke
 scene (256x256, 95,236 triangles) once, and renders it through
 cli.render_scene on the card: with the five output buffers at 16 spp and
 with adaptive sampling at 64 spp (spp_step 16), one warm-up and then
---reps timed renders of each.  Prints one JSON line: the checkout, the
-card's name and power limit, and each timed render's wall seconds and
-rays.  Run it on the two checkouts in turn (A B B A ...) within one call:
-the host's speed varies between calls.
+--reps timed renders of each.  With --zoo it also writes chip_smoke.py's
+large scene (606,724 triangles, every ported BSDF, the paged walk) and
+times render() on it as chip_smoke.py's phase 7c calls it (256x256, 16
+spp, max_bounces 64), one warm-up and --reps timed renders.  Prints one
+JSON line: the checkout, the card's name and power limit, and each timed
+render's wall seconds and rays.  Run it on the two checkouts in turn
+(A B B A ...) within one call: the host's speed varies between calls.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("checkout")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--zoo", action="store_true",
+                    help="also time render() on the large zoo scene")
     args = ap.parse_args()
     root = os.path.abspath(args.checkout)
     sys.path.insert(0, root)
@@ -59,6 +64,19 @@ def main() -> int:
                 if rep:
                     out[name].append({"s": res["seconds"],
                                       "rays": res["rays"]})
+        if args.zoo:
+            from tungsten_tpu_torch.render import render
+            from tungsten_tpu_torch.scene.flatten import flatten_scene
+            from tungsten_tpu_torch.scene.parse import load_scene
+            scene, settings = flatten_scene(load_scene(
+                cs.write_zoo_scene(tmp)))
+            out["zoo"] = []
+            for rep in range(args.reps + 1):
+                _, stats = render(scene, settings, spp=cs.SPP, seed=cs.SEED,
+                                  spp_chunk=cs.SPP, return_stats=True)
+                if rep:
+                    out["zoo"].append({"s": stats["time"],
+                                       "rays": stats["rays"]})
     print(json.dumps(out), flush=True)
     return 0
 

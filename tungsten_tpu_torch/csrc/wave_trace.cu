@@ -7,8 +7,12 @@
 // ::_make_kernel_paged(any_hit=False) (launched by wave_intersect_paged):
 // both compute the same closest hit, and on this card the page order only
 // shaped L2 locality, so one entry-ordered walk serves both.
-// wave_trace_anyhit_kernel replaces _make_kernel(any_hit=True), and
-// wave_trace_paged_anyhit_kernel replaces _make_kernel_paged(any_hit=True).
+// wave_trace_anyhit_kernel replaces _make_kernel(any_hit=True) and, for
+// the same reason, _make_kernel_paged(any_hit=True): on a 606,724-
+// triangle scene (54 MiB of attribute rows, over the 50 MB L2) its
+// wrapper, front included, ran faster than the page-ordered one.
+// wave_trace_paged_anyhit_kernel, that page-ordered any-hit walk, stays
+// as the page order's yardstick; no wrapper launches it.
 // They read the same tables (build_wave_tables) and the same per-warp
 // super lists (the fronts _cull_sorted_supers and _cull_paged) and return
 // what the TPU kernels return: per ray the winning t and cluster*128+slot
@@ -23,22 +27,18 @@
 // u + v <= det, t*det > tmin*det, det > 1e-16 (after folding the sign of
 // det), and t below the ray's best.
 //
-// K2 (wave_trace_anyhit_kernel) keeps the first, simple schedule: one
-// CUDA block is one 128-ray warp of the TPU kernel, one thread a ray; per
-// super each thread slab-tests the 16 member clusters (the 1.00000024
-// fudge), the block ORs the survivors, and every live thread tests every
-// surviving cluster's 128 triangles, one staged tile at a time.
-//
-// Per-ray work (the closest-hit and the paged any-hit kernels).  Each ray
-// slab-tests a super's 16 clusters against its own best t; per cluster the
-// rays whose slab accepted it are compacted into a list (ballot and
-// prefix); each listed ray's real triangles are split over P neighbouring
-// threads (slots q, q+P, ...: conflict-free float4 reads of the transposed
-// tile), P = 128 / (listed rays) rounded down to a power of two between 4
-// and 32, so a cluster that one ray needs still runs on a whole warp.  The
-// tiles are double-buffered: cp.async loads the next surviving cluster
-// while the current one is tested.  Tests run up to a cluster's last real
-// slot (zero-area triangles sit wherever the BVH order puts them).
+// Per-ray work (every kernel of this file).  One CUDA block serves one
+// 128-ray warp of the TPU kernel, one thread a ray.  Each ray slab-tests
+// a super's 16 clusters against its own best t (the 1.00000024 fudge);
+// per cluster the rays whose slab accepted it are compacted into a list
+// (ballot and prefix); each listed ray's real triangles are split over P
+// neighbouring threads (slots q, q+P, ...: conflict-free float4 reads of
+// the transposed tile), P = 128 / (listed rays) rounded down to a power
+// of two between 4 and 32, so a cluster that one ray needs still runs on
+// a whole warp.  The tiles are double-buffered: cp.async loads the next
+// surviving cluster while the current one is tested.  Tests run up to a
+// cluster's last real slot (zero-area triangles sit wherever the BVH
+// order puts them).
 //
 // Closest hit walks the warp's entry-sorted list front to back and stops
 // once the next entry exceeds the block's largest live best t.  A ray's
@@ -47,29 +47,35 @@
 // serial loop's winner (strict t < best, ties to the earliest in walk
 // order) whatever order the candidates are found in.
 //
-// Paged any hit walks its page slots in order, a page's 256 cluster boxes
-// staged in shared memory once per slot it enters (the page order keeps a
-// large scene's attribute rows local in L2), and within a slot the
-// (page, entry)-sorted range while the entry is <= the block's bound.  A
-// ray leaves at its first hit: its threads test their slots in lockstep
-// and agree through a warp ballot after every round, and an occluded ray
-// drops out of later lists and of the block's bound.
+// Any hit (visit_anyhit, shared by both any-hit kernels) slab-tests with
+// the ray's t_max and lets a ray leave at its first hit: its threads test
+// their slots in lockstep and agree through a warp ballot after every
+// round, so the lowest hit slot of the first round with a hit is the
+// serial loop's, and an occluded ray drops out of later lists and of the
+// block's bound (the largest t_max of its live rays not yet occluded).
+// The resident any hit (K2) walks the entry-sorted list as closest hit
+// does, reading each super's boxes from device memory; the paged any hit
+// walks its page slots in order, a page's 256 cluster boxes staged in
+// shared memory once per slot it enters (the page order keeps a large
+// scene's attribute rows local in L2), and within a slot the (page,
+// entry)-sorted range while the entry is <= the block's bound.
 //
 // Narrow launches.  A render's late bounces launch waves of a few
 // thousand rays, a few dozen blocks on a 132-SM card, each on a long
 // serial walk.  So the launcher splits each block's walk over `splits`
 // CTAs (chosen on the host from the grid width and the SM count; 1 for a
-// full-width wave): closest-hit CTA s takes list positions s, s+splits,
-// ..., and any-hit CTA s page slots s, s+splits, ....  The CTAs of a
-// block share each ray's best through one word in device memory: the
-// closest-hit key (stored inverted, updated with atomicMax, so a
-// zero-filled scratch means "no hit"), read back after every super to
-// cull with; the any-hit occluded word (tri + 1), set by the CTA that
-// finds a hit and read by the others, which drop the ray.  The last CTA
-// of a block to finish (a counter per block) decodes the words into t and
-// tri.  The closest-hit result is the least key, the any-hit flag the
-// existence of a hit, so both equal the one-CTA walk's whatever the CTAs'
-// timing; the any-hit tri (which hit) and the counts of tests may differ.
+// full-width wave): CTA s of a resident walk takes list positions s,
+// s+splits, ..., CTA s of the paged any hit page slots s, s+splits, ....
+// The CTAs of a block share each ray's best through one word in device
+// memory: the closest-hit key (stored inverted, updated with atomicMax,
+// so a zero-filled scratch means "no hit"), read back after every super
+// to cull with; the any-hit occluded word (tri + 1), set by the CTA that
+// finds a hit and read by the others after every super, which drop the
+// ray.  The last CTA of a block to finish (a counter per block) decodes
+// the words into t and tri.  The closest-hit result is the least key,
+// the any-hit flag the existence of a hit, so both equal the one-CTA
+// walk's whatever the CTAs' timing; the any-hit tri (which hit) and the
+// counts of tests may differ.
 //
 // Bound.  The work is ray-triangle tests (40 f32 multiplies and adds
 // each, FLOPS_PER_TEST in ops/wave_trace.py); at the main path's shapes
@@ -79,7 +85,7 @@
 // that ray with the best t it sees when it reaches the super, up to the
 // hit for an any-hit ray that stops) and the tests its threads ran
 // (row 1).  list_walk in ops/wave_trace.py is the same schedule in plain
-// PyTorch, one CTA a block.
+// PyTorch, one CTA a block (any hit: on either front).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -185,100 +191,6 @@ __device__ __forceinline__ Leaf leaf_test(const Ray &x, const float *tri) {
 __device__ __forceinline__ bool leaf_inside(const Ray &x, const Leaf &l) {
     return (l.un >= 0.0f) & (l.vn >= 0.0f) & (l.un + l.vn <= l.ad) &
            (l.tn > x.rtmin * l.ad) & (l.ad > 1e-16f);
-}
-
-// ------------------------------------------------------------------ K2
-
-// One super of K2's walk: slab-test the 16 member clusters, OR the
-// survivors over the block, then stage and test each surviving cluster
-// on every ray that has not hit.  Block-uniform.
-__device__ __forceinline__ void visit_super(
-        const Ray &r, const float *cb, int cid0,
-        const float *__restrict__ attr, float *tile, unsigned *smask,
-        float &tb, int &tri, int &needed, int &executed) {
-    const int tid = threadIdx.x;
-    const unsigned m = r.live0 ? slab16(r, cb, tb) : 0u;
-    if (tid == 0) *smask = 0u;
-    __syncthreads();
-    const unsigned wm = __reduce_or_sync(0xffffffffu, m);
-    if ((tid & 31) == 0 && wm) atomicOr(smask, wm);
-    __syncthreads();
-    unsigned bits = *smask;
-
-    while (bits) {
-        const int c = __ffs(bits) - 1;
-        bits &= bits - 1;
-        const int cid = cid0 + c;
-        // stage: thread tid owns triangle tid's 16 rows
-        const float *ablk = attr + (long long)cid * ATTR_ROWS * CLUSTER;
-        float a[ATTR_ROWS];
-#pragma unroll
-        for (int i = 0; i < ATTR_ROWS; ++i) a[i] = ablk[i * CLUSTER + tid];
-        float4 *dst = reinterpret_cast<float4 *>(tile + tid * TSTRIDE);
-        dst[0] = make_float4(a[0], a[1], a[2], a[3]);
-        dst[1] = make_float4(a[4], a[5], a[6], a[7]);
-        dst[2] = make_float4(a[8], a[9], a[10], a[11]);
-        dst[3] = make_float4(a[12], a[13], a[14], a[15]);
-        const bool act = r.live0 && tb > -1e37f;   // not yet occluded
-        // real triangles of the cluster: padding slots hold zero rows,
-        // and a triangle with n = 0 never passes det > 1e-16
-        const int n_real = __syncthreads_count(
-            a[12] != 0.0f || a[13] != 0.0f || a[14] != 0.0f);
-        if (act) {
-            int j = 0;
-            for (; j < CLUSTER; ++j) {
-                const Leaf l = leaf_test(r, tile + j * TSTRIDE);
-                if (leaf_inside(r, l) & (l.tn < tb * l.ad)) {
-                    tb = -BIG;
-                    tri = cid * CLUSTER;
-                    break;
-                }
-            }
-            const int ran = j < CLUSTER ? j + 1 : CLUSTER;   // stops at a hit
-            executed += ran;
-            if ((m >> c) & 1u) needed += j < CLUSTER ? ran : n_real;
-        }
-        __syncthreads();   // the tile is restaged next
-    }
-}
-
-__global__ void __launch_bounds__(WARP_RAYS)
-wave_trace_anyhit_kernel(const float *__restrict__ f,      // (R, 16)
-                         const float *__restrict__ sent,   // (R/128, nsp)
-                         const int *__restrict__ sids,     // (R/128, nsp)
-                         const float *__restrict__ cbox,   // (NCp, 8)
-                         const float *__restrict__ attr,   // (NCp*16, 128)
-                         float *__restrict__ t_out,        // (R,)
-                         int *__restrict__ tri_out,        // (R,)
-                         int *__restrict__ tests_out,      // (2, R)
-                         int nsp, int nsup) {
-    __shared__ __align__(16) float tile[CLUSTER * TSTRIDE];
-    __shared__ float red[4];
-    __shared__ unsigned smask;
-
-    const long long ray = (long long)blockIdx.x * WARP_RAYS + threadIdx.x;
-    const Ray r = load_ray(f, ray);
-    float tb = r.tmax;   // -BIG once the ray hits
-    int tri = -1;
-    int needed = 0;      // ray-triangle tests this ray needs
-    int executed = 0;    // ray-triangle tests its thread ran
-
-    const float *srow = sent + (long long)blockIdx.x * nsp;
-    const int *irow = sids + (long long)blockIdx.x * nsp;
-
-    float bound = block_max(r.live0 ? tb : -BIG, red);
-    for (int k = 0; k < nsp; ++k) {
-        const float e = srow[k];
-        if (!(e <= bound)) break;   // sorted: no later super can help
-        const int sid = min(irow[k], nsup - 1);
-        visit_super(r, cbox + (long long)sid * SUP * 8, sid * SUP, attr,
-                    tile, &smask, tb, tri, needed, executed);
-        bound = block_max(r.live0 && tb > -1e37f ? tb : -BIG, red);
-    }
-    t_out[ray] = tb;
-    tri_out[ray] = tri;
-    tests_out[ray] = needed;
-    tests_out[(long long)gridDim.x * WARP_RAYS + ray] = executed;
 }
 
 // ------------------------------------------------------ per-ray work
@@ -466,8 +378,9 @@ __device__ __forceinline__ void visit_closest(
     __syncthreads();   // the rays' state and the tiles are settled
 }
 
-// One super of the paged any-hit walk, boxes at `cb` in shared memory,
-// cluster ids from cid0.  A ray leaves at its first hit.  Block-uniform.
+// One super of an any-hit walk, boxes at `cb` (device memory for K2,
+// the staged page in shared memory for the paged walk), cluster ids from
+// cid0.  A ray leaves at its first hit.  Block-uniform.
 __device__ __forceinline__ void visit_anyhit(
         const Ray &r, const float *cb, int cid0,
         const float *__restrict__ f, const float *__restrict__ attr,
@@ -552,6 +465,33 @@ __device__ __forceinline__ bool finish_cta(long long ray, long long R,
     return true;
 }
 
+// After a super of an any-hit walk: drop a ray another CTA of the block
+// has found occluded (its word in device memory), then the block's bound,
+// the largest t_max of its live rays that are not yet occluded.
+__device__ __forceinline__ float anyhit_bound(const Ray &r, long long ray,
+                                              const int *occ_words,
+                                              int splits, SplitState &st) {
+    const int tid = threadIdx.x;
+    if (splits > 1 && r.live0 && st.tri[tid] < 0) {
+        const int w = __ldcg(occ_words + ray);
+        if (w) st.tri[tid] = w - 1;
+    }
+    return block_max(r.live0 && st.tri[tid] < 0 ? r.tmax : -BIG, st.red);
+}
+
+// The end of an any-hit walk: the block's last CTA decodes each ray's
+// occluded word into t (-3e38 where occluded, else t_max) and tri.
+__device__ __forceinline__ void anyhit_finish(
+        const Ray &r, long long ray, long long R, float *__restrict__ t_out,
+        int *__restrict__ tri_out, int *__restrict__ tests_out,
+        const int *occ_words, int *__restrict__ done_count, int b,
+        int splits, SplitState &st) {
+    if (!finish_cta(ray, R, tests_out, done_count, b, splits, st)) return;
+    const int w = __ldcg(occ_words + ray);
+    t_out[ray] = w ? -BIG : r.tmax;
+    tri_out[ray] = w - 1;
+}
+
 // K1 and K3's closest hit: the warp's entry-sorted list, CTA s of the
 // block's `splits` taking positions s, s + splits, ...
 __global__ void __launch_bounds__(WARP_RAYS)
@@ -611,8 +551,46 @@ wave_trace_closest_kernel(const float *__restrict__ f,      // (R, 16)
     tri_out[ray] = tri;
 }
 
-// K3's any hit: CTA s of the block's `splits` taking page slots s,
-// s + splits, ...
+// K2 and K3's any hit: the warp's entry-sorted list, CTA s of the
+// block's `splits` taking positions s, s + splits, ...
+__global__ void __launch_bounds__(WARP_RAYS)
+wave_trace_anyhit_kernel(const float *__restrict__ f,      // (R, 16)
+                         const float *__restrict__ sent,   // (R/128, nsp)
+                         const int *__restrict__ sids,     // (R/128, nsp)
+                         const float *__restrict__ cbox,   // (NCp, 8)
+                         const float *__restrict__ attr,   // (NCp*16, 128)
+                         float *__restrict__ t_out,        // (R,)
+                         int *__restrict__ tri_out,        // (R,)
+                         int *__restrict__ tests_out,      // (2, R), zeros
+                         int *__restrict__ occ_words,      // (R,) zeros
+                         int *__restrict__ done_count,     // (R/128,)
+                         int nsp, int nsup, int splits) {
+    __shared__ __align__(16) SplitState st;
+    const int tid = threadIdx.x;
+    const int b = blockIdx.x / splits, s = blockIdx.x % splits;
+    const long long R = (long long)gridDim.x / splits * WARP_RAYS;
+    const long long ray0 = (long long)b * WARP_RAYS, ray = ray0 + tid;
+    const Ray r = load_ray(f, ray);
+    st.tri[tid] = -1;
+    st.needed[tid] = 0;
+    st.ran[tid] = 0;
+    const float *srow = sent + (long long)b * nsp;
+    const int *irow = sids + (long long)b * nsp;
+
+    float bound = block_max(r.live0 ? r.tmax : -BIG, st.red);
+    for (int k = s; k < nsp; k += splits) {
+        if (!(srow[k] <= bound)) break;   // sorted: no later super can help
+        const int sid = min(irow[k], nsup - 1);
+        visit_anyhit(r, cbox + (long long)sid * SUP * 8, sid * SUP, f, attr,
+                     ray0, occ_words, st);
+        bound = anyhit_bound(r, ray, occ_words, splits, st);
+    }
+    anyhit_finish(r, ray, R, t_out, tri_out, tests_out, occ_words,
+                  done_count, b, splits, st);
+}
+
+// The paged any-hit walk: CTA s of the block's `splits` taking page
+// slots s, s + splits, ...
 __global__ void __launch_bounds__(WARP_RAYS)
 wave_trace_paged_anyhit_kernel(const float *__restrict__ f,    // (R, 16)
                                const float *__restrict__ sent, // (R/128, nsp)
@@ -674,36 +652,28 @@ wave_trace_paged_anyhit_kernel(const float *__restrict__ f,    // (R, 16)
             visit_anyhit(r, pcb + sid_local * SUP * 8,
                          page * page_cl + sid_local * SUP, f, attr, ray0,
                          occ_words, st);
-            if (splits > 1 && r.live0 && st.tri[tid] < 0) {
-                const int w = __ldcg(occ_words + ray);   // another CTA's hit
-                if (w) st.tri[tid] = w - 1;
-            }
-            bound = block_max(r.live0 && st.tri[tid] < 0 ? r.tmax : -BIG,
-                              st.red);
+            bound = anyhit_bound(r, ray, occ_words, splits, st);
         }
     }
-    if (!finish_cta(ray, R, tests_out, done_count, b, splits, st)) return;
-    const int w = __ldcg(occ_words + ray);
-    t_out[ray] = w ? -BIG : r.tmax;
-    tri_out[ray] = w - 1;
+    anyhit_finish(r, ray, R, t_out, tri_out, tests_out, occ_words,
+                  done_count, b, splits, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one mode of the resident walk on `stream`: closest hit (K1,
-// its words / done_count / tests zero-filled by the caller, the block's
-// walk split over `splits` CTAs) or any hit (K2, one CTA a block; words
-// and done_count unused).  Returns cudaGetLastError() (0 = ok).
+// Launches one mode of the resident walk on `stream`, the block's walk
+// split over `splits` CTAs: closest hit (K1; `words` a 64-bit key a ray)
+// or any hit (K2; `words` an occluded word a ray), words, done_count and
+// tests zero-filled by the caller.  Returns cudaGetLastError() (0 = ok).
 int wave_trace_launch(const void *f, const void *sent, const void *sids,
                       const void *cbox, const void *attr, void *t_out,
                       void *tri_out, void *tests_out, void *words,
                       void *done_count, int n_blocks, int nsp, int nsup,
                       int any_hit, int splits, void *stream) {
     if (n_blocks <= 0) return 0;
-    if (splits < 1 || splits > MAX_SPLITS || (any_hit && splits != 1) ||
-        nsp >= (1 << (32 - POS_SHIFT)) ||
+    if (splits < 1 || splits > MAX_SPLITS || nsp >= (1 << (32 - POS_SHIFT)) ||
         (long long)n_blocks * splits >= (1ll << 31))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -716,8 +686,9 @@ int wave_trace_launch(const void *f, const void *sent, const void *sids,
     int *TR = static_cast<int *>(tri_out);
     int *TS = static_cast<int *>(tests_out);
     if (any_hit)
-        wave_trace_anyhit_kernel<<<n_blocks, WARP_RAYS, 0, st>>>(
-            F, SE, SI, CB, AT, T, TR, TS, nsp, nsup);
+        wave_trace_anyhit_kernel<<<n_blocks * splits, WARP_RAYS, 0, st>>>(
+            F, SE, SI, CB, AT, T, TR, TS, static_cast<int *>(words),
+            static_cast<int *>(done_count), nsp, nsup, splits);
     else
         wave_trace_closest_kernel<<<n_blocks * splits, WARP_RAYS, 0, st>>>(
             F, SE, SI, CB, AT, T, TR, TS,

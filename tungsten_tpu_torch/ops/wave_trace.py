@@ -18,11 +18,15 @@ CTAs (`splits`, by default `launch_splits`), which share each ray's best
 through a word in device memory.
 
 Scenes whose attribute table is >= 13 MiB take the PAGED walk
-(`wave_intersect_paged`, the JAX package's `_make_kernel_paged`).  Its
-closest hit computes what the resident one does, so it launches the
-same kernel on the resident front; its any hit walks the per-warp lists
-sorted by (page, entry), a page being PAGE_SUP supers, page slot by page
-slot, which keeps a large scene's rows local in L2.
+(`wave_intersect_paged`, the JAX package's `_make_kernel_paged`).  It
+computes what the resident walk does, and on this card the page order
+only shaped L2 locality: its closest hit, and since chip_smoke.py timed
+both any-hit wrappers on a 606,724-triangle scene (the resident front
+and kernel the faster) its any hit too, launch the resident kernels on
+the resident front.  The paged any-hit walk (`paged_anyhit_kernel`, the
+per-warp lists sorted by (page, entry), a page being PAGE_SUP supers,
+walked page slot by page slot) stays built and checked as the page
+order's yardstick; no wrapper launches it.
 
 On the CPU both wrappers run the kernels' plain version, the torch port
 of the skip-pointer BVH walk (ops/intersect.py::bvh_walk) — the same
@@ -65,12 +69,12 @@ MAX_PAGE_CLUSTERS = 256     # the kernel's shared-memory page of boxes
 # package's enable_pallas_if_suitable rule)
 PAGED_ATTR_BYTES = 13 * 1024 * 1024
 
-# launches of the CUDA kernels per walk and mode (plain integers; the
-# plain CPU version does not count): "closest" and "paged_closest" are
-# the one closest-hit kernel launched by wave_intersect and by
-# wave_intersect_paged
+# launches of the CUDA kernels per route (plain integers; the plain CPU
+# version does not count): "closest" / "anyhit" and "paged_closest" /
+# "paged_anyhit" are the resident kernels launched by wave_intersect and
+# by wave_intersect_paged, "paged_walk" the paged any-hit walk
 LAUNCHES = {"closest": 0, "anyhit": 0, "paged_closest": 0,
-            "paged_anyhit": 0}
+            "paged_anyhit": 0, "paged_walk": 0}
 # a list to append (route, rays, splits) to at every launch, or None
 LAUNCH_LOG: list | None = None
 
@@ -465,8 +469,9 @@ def _splits(splits, nb, device) -> int:
 
 def _outputs(f):
     """(t, tri, tests (2, R), words, done counts): the kernel outputs and
-    one zero-filled buffer holding the tests, a 64-bit word per ray and a
-    counter per block (the split walks' scratch)."""
+    one zero-filled buffer holding the tests, a 64-bit word per ray (the
+    closest-hit key; the any-hit walks use its first R int32 as the
+    occluded words) and a counter per block (the split walks' scratch)."""
     R = f.shape[0]
     t = torch.empty((R,), dtype=torch.float32, device=f.device)
     tri = torch.empty((R,), dtype=torch.int32, device=f.device)
@@ -481,22 +486,32 @@ def _launched(route, R, splits):
         LAUNCH_LOG.append((route, R, splits))
 
 
-def closest_kernel(f, sent, sids, cbox, attr, splits=None,
-                   route: str = "closest"):
-    """Launch the closest-hit CUDA kernel (K1, and K3's closest hit) on
-    the current stream.
+# the LAUNCHES entries a resident launch may count under, by mode
+_RESIDENT_ROUTES = {False: ("closest", "paged_closest"),
+                    True: ("anyhit", "paged_anyhit")}
+
+
+def wave_kernel(f, sent, sids, cbox, attr, any_hit: bool, splits=None,
+                route: str | None = None):
+    """Launch a resident CUDA walk on the current stream: the closest-hit
+    kernel (K1, K3's closest hit) or K2 (any hit, K3's any hit).
 
     f (R, 16) f32 ray features (R % 128 == 0); sent/sids (R/128, NSp) the
     entry-sorted warp lists (kernel_inputs); cbox (NCp, 8) f32; attr
     (NCp*16, 128) f32; splits: CTAs per block (None: launch_splits;
-    every value gives the same t and tri); route: the LAUNCHES entry
-    ("closest" or "paged_closest").  Returns (t (R,) f32 the nearest hit,
-    t_max clipped to 1e37 on a miss; tri (R,) i32 cluster*128+slot or -1;
-    tests (2, R) i32: per ray the ray-triangle tests it needs (row 0: the
-    real triangles of the clusters whose slab accepts it with the best t
-    its CTA knows) and the tests its threads ran (row 1))."""
-    if route not in ("closest", "paged_closest"):
-        raise ValueError(f"route {route!r}")
+    every value gives the same t and tri, for any hit the same occluded
+    flag); route: the LAUNCHES entry (None: "closest" or "anyhit"; the
+    paged wrapper's "paged_closest" or "paged_anyhit").  Returns (t (R,)
+    f32: closest hit the nearest hit, any hit -3e38 where the segment is
+    occluded, else t_max clipped to 1e37; tri (R,) i32: closest hit
+    cluster*128+slot or -1, any hit >= 0 exactly where occluded (a
+    cluster*128 of some hit); tests (2, R) i32: per ray the ray-triangle
+    tests it needs (row 0: the real triangles of the clusters whose slab
+    accepts it with the best t its CTA knows, up to an any-hit ray's
+    hit) and the tests its threads ran (row 1))."""
+    route = route or _RESIDENT_ROUTES[any_hit][0]
+    if route not in _RESIDENT_ROUTES[any_hit]:
+        raise ValueError(f"route {route!r} for any_hit={any_hit}")
     R, nb, nsp, ncp = _check_common(f, sent, sids, cbox, attr)
     S = _splits(splits, nb, f.device)
     lib = load_kernels()
@@ -505,49 +520,29 @@ def closest_kernel(f, sent, sids, cbox, attr, splits=None,
     err = lib.wave_trace_launch(
         f.data_ptr(), sent.data_ptr(), sids.data_ptr(), cbox.data_ptr(),
         attr.data_ptr(), t.data_ptr(), tri.data_ptr(), tests.data_ptr(),
-        words.data_ptr(), done.data_ptr(), nb, nsp, ncp // SUP, 0, S, stream)
+        words.data_ptr(), done.data_ptr(), nb, nsp, ncp // SUP,
+        int(any_hit), S, stream)
     if err != 0:
-        raise RuntimeError(f"wave_trace closest-hit kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"wave_trace {'any' if any_hit else 'closest'}"
+                           f"-hit kernel launch failed: CUDA error {err}")
     _launched(route, R, S)
-    return t, tri, tests
-
-
-def wave_kernel(f, sent, sids, cbox, attr, any_hit: bool, splits=None):
-    """Launch the resident CUDA walk on the current stream: closest hit
-    through closest_kernel, any hit (K2, one CTA a block: `splits` must
-    be None or 1) with t = -3e38 on a hit.  Arguments and results as
-    closest_kernel's."""
-    if not any_hit:
-        return closest_kernel(f, sent, sids, cbox, attr, splits)
-    if splits not in (None, 1):
-        raise ValueError("the resident any-hit kernel runs one CTA a block")
-    R, nb, nsp, ncp = _check_common(f, sent, sids, cbox, attr)
-    lib = load_kernels()
-    t, tri, tests, words, done = _outputs(f)
-    stream = torch.cuda.current_stream(f.device).cuda_stream
-    err = lib.wave_trace_launch(
-        f.data_ptr(), sent.data_ptr(), sids.data_ptr(), cbox.data_ptr(),
-        attr.data_ptr(), t.data_ptr(), tri.data_ptr(), tests.data_ptr(),
-        words.data_ptr(), done.data_ptr(), nb, nsp, ncp // SUP, 1, 1, stream)
-    if err != 0:
-        raise RuntimeError(f"wave_trace any-hit kernel launch failed: CUDA "
-                           f"error {err}")
-    _launched("anyhit", R, 1)
     return t, tri, tests
 
 
 def paged_anyhit_kernel(f, sent, sids, pages, offs, offe, cbox, attr,
                         splits=None):
-    """Launch the paged any-hit CUDA walk (K3's any hit) on the current
-    stream.
+    """Launch the paged any-hit CUDA walk on the current stream, counted
+    as "paged_walk".  No wrapper launches it (wave_intersect_paged's any
+    hit runs wave_kernel on the resident front, the faster wrapper on a
+    large scene); chip_smoke.py and the card tests hold it to K2 and to
+    list_walk on the paged front.
 
-    As closest_kernel, with the paged front's (page, entry)-sorted
+    As wave_kernel's any hit, with the paged front's (page, entry)-sorted
     sent/sids, pages (R/1024, S) i32 and offs/offe (R/128, S) i32 (R %
     1024 == 0); the walk reads PAGE_SUP at the call; splits divides each
     block's page slots.  Returns (t: -3e38 where the segment is occluded,
     else t_max clipped to 1e37; tri: >= 0 exactly where occluded, a
-    cluster*128 of some hit; tests as closest_kernel's, row 0 up to the
+    cluster*128 of some hit; tests as wave_kernel's, row 0 up to the
     ray's hit)."""
     R, nb, nsp, ncp = _check_common(f, sent, sids, cbox, attr)
     if R % BLOCK:
@@ -569,7 +564,7 @@ def paged_anyhit_kernel(f, sent, sids, pages, offs, offe, cbox, attr,
     if err != 0:
         raise RuntimeError(f"wave_trace paged any-hit kernel launch failed: "
                            f"CUDA error {err}")
-    _launched("paged_anyhit", R, n_splits)
+    _launched("paged_walk", R, n_splits)
     return t, tri, tests
 
 
@@ -611,8 +606,8 @@ def _leaf(x, a):
 
 def list_walk(f, sent, sids, cbox, attr, any_hit: bool):
     """The kernels' schedule in plain PyTorch, one CTA a block: the
-    serial walk that closest_kernel (and wave_kernel's closest hit) and
-    paged_anyhit_kernel compute.
+    serial walk that wave_kernel (both modes) computes on the resident
+    front, and paged_anyhit_kernel on the paged one.
 
     Per 128-ray block the list (sent, sids) in order: entry k is visited
     iff sent[k] <= the block's largest best t over its live rays (any
@@ -734,6 +729,20 @@ def _finish(scene, o, d, t, tri, tmax_c, any_hit):
     return t, tri, u, v
 
 
+def _intersect(scene, o, d, t_min, t_max, any_hit, device, route):
+    """Either wrapper's body: the plain walk on CPU tensors, else the
+    resident front, the resident kernel counted under `route`, remap and
+    finalize."""
+    _rays_on(o, device)
+    if not o.is_cuda:
+        from tungsten_tpu_torch.ops.intersect import bvh_walk
+        return bvh_walk(scene, o, d, t_min, t_max, any_hit)
+    f, sent, sids, tmax_c = kernel_inputs(scene, o, d, t_min, t_max)
+    t, tri, _ = wave_kernel(f, sent, sids, scene.wk_cbox, scene.wk_attr,
+                            any_hit, route=route)
+    return _finish(scene, o, d, t, tri, tmax_c, any_hit)
+
+
 def wave_intersect(scene, o, d, t_min, t_max, any_hit: bool = False,
                    device=None):
     """Closest-hit (or any-hit) triangle traversal through the resident
@@ -745,34 +754,16 @@ def wave_intersect(scene, o, d, t_min, t_max, any_hit: bool = False,
     dispatch pads it); CPU tensors run the plain version.  `device`
     (None = CUDA, raising when absent) must be the device the rays live
     on."""
-    _rays_on(o, device)
-    if not o.is_cuda:
-        from tungsten_tpu_torch.ops.intersect import bvh_walk
-        return bvh_walk(scene, o, d, t_min, t_max, any_hit)
-    f, sent, sids, tmax_c = kernel_inputs(scene, o, d, t_min, t_max)
-    t, tri, _ = wave_kernel(f, sent, sids, scene.wk_cbox, scene.wk_attr,
-                            any_hit)
-    return _finish(scene, o, d, t, tri, tmax_c, any_hit)
+    return _intersect(scene, o, d, t_min, t_max, any_hit, device,
+                      "anyhit" if any_hit else "closest")
 
 
 def wave_intersect_paged(scene, o, d, t_min, t_max, any_hit: bool = False,
                          device=None):
     """The same traversal for scenes whose attribute table is >= 13 MiB
-    (the JAX package's wave_intersect_paged): closest hit launches the
-    closest-hit kernel on the resident front (counted as
-    "paged_closest"), any hit the paged any-hit walk.  Same arguments
-    and results as wave_intersect; CPU tensors run the plain version."""
-    _rays_on(o, device)
-    if not o.is_cuda:
-        from tungsten_tpu_torch.ops.intersect import bvh_walk
-        return bvh_walk(scene, o, d, t_min, t_max, any_hit)
-    if not any_hit:
-        f, sent, sids, tmax_c = kernel_inputs(scene, o, d, t_min, t_max)
-        t, tri, _ = closest_kernel(f, sent, sids, scene.wk_cbox,
-                                   scene.wk_attr, route="paged_closest")
-        return _finish(scene, o, d, t, tri, tmax_c, False)
-    f, sent, sids, pages, offs, offe, tmax_c = paged_kernel_inputs(
-        scene, o, d, t_min, t_max)
-    t, tri, _ = paged_anyhit_kernel(f, sent, sids, pages, offs, offe,
-                                    scene.wk_cbox, scene.wk_attr)
-    return _finish(scene, o, d, t, tri, tmax_c, True)
+    (the JAX package's wave_intersect_paged): the resident kernels on the
+    resident front, counted as "paged_closest" / "paged_anyhit" (see the
+    module docstring).  Same arguments and results as wave_intersect;
+    CPU tensors run the plain version."""
+    return _intersect(scene, o, d, t_min, t_max, any_hit, device,
+                      "paged_anyhit" if any_hit else "paged_closest")
