@@ -62,17 +62,33 @@ Phases (any failure exits non-zero):
      its full-width render (256x256, 16 spp, max_bounces 64) from zero
      launch counts, only the paged route launching, and one more under torch.profiler, as in phase 5; (d) a
      64x64 4-spp image of it against the plain path on the CPU;
-  8. the CLI (cli.render_scene) on the smoke scene at 256x256: (a) with
+  8. media: (a) the smoke scene's layout in a homogeneous fog that fills
+     the view (bounded by a `forward` box; the camera sits in it through
+     its medium_index), with a `forward` cube holding a voxel medium on a
+     256^3 f32 density grid written with the port's write_vdb (ZIP) and
+     read back through read_vdb, four thinsheet and four transparency
+     spheres (opacity 0.5), the default renderer block (Sobol',
+     raymarching); (b) the closest-hit kernel (K1) on the generalized
+     shadow ray's first hop: segments from the camera hits toward the
+     area light with t_min = EPSILON and the fudged far limit, held to
+     phase 4's gates, and a full-width hop wave with one ray in 16 live
+     timed against the all-live wave; (c) the full-width render (256x256,
+     16 spp, max_bounces 64) from zero launch counts (K1 alone launches:
+     the two-strategy NEE traces closest hits only), then one more under
+     torch.profiler (launches per render, device busy share, K1's device
+     ms by launch width); (d) a 64x64 4-spp image against the plain path
+     on the CPU, with phase 6's gates;
+  9. the CLI (cli.render_scene) on the smoke scene at 256x256: (a) with
      the output buffers (color with sample variance and A/B halves,
      depth, normal, albedo, visibility) at 16 spp, its color held
      against phase 5's image of the same samples; (b) with adaptive
      sampling at 64 spp, spp_step 16 (render_adaptive); launch counts
      from zero for each, every written file loaded and checked;
-  9. resume: the buffers render to 8 spp with enable_resume_render, then
-     continued to 16, against 8a's uninterrupted 16-spp image;
-  10. the HTTP server on a free port rendering the smoke scene at 64x64
+  10. resume: the buffers render to 8 spp with enable_resume_render,
+     then continued to 16, against 9a's uninterrupted 16-spp image;
+  11. the HTTP server on a free port rendering the smoke scene at 64x64
      in two rounds: /status, /render (PNG) and /log;
-  11. the kernels JSON line, then the result line.
+  12. the kernels JSON line, then the result line.
 """
 from __future__ import annotations
 
@@ -93,6 +109,7 @@ GRID_X, GRID_Z, SEG_U, SEG_V = 6, 4, 64, 32
 ZOO_SEG = (160, 80)   # 25,280 triangles a sphere, 606,720 for the 24
 ZOO_CROSS_BOUNCES = 16
 SKY_W, SKY_H = 512, 256
+MEDIA_GRID = 256      # the voxel medium's density grid, 256^3 f32
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside the
 # tensor cores
 PEAK_BYTES = 3.35e12
@@ -289,6 +306,74 @@ def write_zoo_scene(dirpath: str, res: int = RES, spp: int = SPP,
     return path
 
 
+def smoke_density(n: int):
+    """A seeded n^3 smoke density: a few soft puffs modulated by noise,
+    with a floor of 0.01 so every voxel is active (the whole brick lives
+    on the device)."""
+    import numpy as np
+    r = np.random.default_rng(SEED & 0xFFFF)
+    x = (np.arange(n, dtype=np.float32) + 0.5) / n
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij", copy=False)
+    dens = np.full((n, n, n), 0.01, np.float32)
+    for _ in range(6):
+        c = r.uniform(0.25, 0.75, 3).astype(np.float32)
+        w = np.float32(r.uniform(0.08, 0.18))
+        dens += 2.0 * np.exp(-((X - c[0]) ** 2 + (Y - c[1]) ** 2 +
+                               (Z - c[2]) ** 2) / (w * w))
+    dens *= 0.6 + 0.4 * r.random((n, n, n), dtype=np.float32)
+    return dens
+
+
+def write_media_scene(dirpath: str, res: int = RES, spp: int = SPP,
+                      grid: int = MEDIA_GRID) -> tuple[str, float]:
+    """Write the media scene: the smoke scene (the same sphere meshes and
+    sky) in a homogeneous fog the camera sits in, bounded by a large
+    `forward` box; a `forward` cube over the spheres holding a voxel
+    medium on a grid^3 density written with the port's write_vdb (ZIP);
+    four thinsheet and four transparency (opacity 0.5) spheres.
+    Returns (scene path, seconds the .vdb write took)."""
+    import numpy as np
+    from tungsten_tpu_torch.io import vdb
+    path = write_scene(dirpath, res, spp)
+    with open(path) as f:
+        sj = json.load(f)
+    t0 = time.time()
+    vdb.write_vdb(os.path.join(dirpath, "smoke.vdb"), {
+        "density": vdb.VdbGridData("density", smoke_density(grid),
+                                   (0, 0, 0), np.eye(4))})
+    write_s = time.time() - t0
+    sj["bsdfs"] += [{"name": "boundary", "type": "forward"},
+                    {"name": "sheet", "type": "thinsheet", "ior": 1.5,
+                     "sigma_a": [0.1, 0.3, 0.6], "thickness": 0.2}]
+    sj["media"] = [
+        {"name": "fog", "type": "homogeneous", "sigma_a": 0.01,
+         "sigma_s": [0.03, 0.035, 0.04],
+         "phase_function": {"type": "henyey_greenstein", "g": 0.5}},
+        {"name": "smoke", "type": "voxel", "sigma_a": 0.3,
+         "sigma_s": [1.6, 1.8, 2.0],
+         "grid": {"type": "vdb", "file": "smoke.vdb",
+                  "transform": {"position": [0, 1.1, 0], "scale": 1.6}}}]
+    spheres = [p for p in sj["primitives"] if p["type"] == "mesh"]
+    for k, p in enumerate(spheres):
+        if k % 3 == 1 and k < 12:       # four thinsheet spheres
+            p["bsdf"] = "sheet"
+        elif k % 3 == 1:                # four transparency spheres
+            sj["bsdfs"].append({"name": f"cutout_{k}", "type": "transparency",
+                                "alpha": 0.5, "base": "floor"})
+            p["bsdf"] = f"cutout_{k}"
+    sj["primitives"] += [
+        {"type": "cube", "bsdf": "boundary", "int_medium": "fog",
+         "transform": {"position": [0, 5, 0], "scale": 26}},
+        {"type": "cube", "bsdf": "boundary", "int_medium": "smoke",
+         "ext_medium": "fog",
+         "transform": {"position": [0, 1.9, 0], "scale": 1.6}}]
+    sj["camera"]["medium"] = "fog"
+    path = os.path.join(dirpath, "media.json")
+    with open(path, "w") as f:
+        json.dump(sj, f, indent=1)
+    return path, write_s
+
+
 # ---------------------------------------------------------------- timing
 
 def event_ms(fn) -> float:
@@ -311,16 +396,17 @@ def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
 
 # ------------------------------------------------------------ kernel checks
 
-def kernel_inputs(scene, o, d, t_max):
-    """What the dispatch hands a kernel: far limits clipped at the
-    geometry box (as bvh_intersect clips them), rays sorted and padded by
-    the dispatch, ray features and the resident walk's per-warp super
-    lists; for a paged scene also the paged walk's (page, entry) lists,
-    page list and slot ranges."""
+def kernel_inputs(scene, o, d, t_max, t_min: float = 0.0):
+    """What the dispatch hands a kernel: near limits t_min, far limits
+    clipped at the geometry box (as bvh_intersect clips them), rays
+    sorted and padded by the dispatch, ray features and the resident
+    walk's per-warp super lists; for a paged scene also the paged walk's
+    (page, entry) lists, page list and slot ranges."""
     import torch
     from tungsten_tpu_torch.ops import intersect as tis
     from tungsten_tpu_torch.ops import wave_trace as twt
-    tmin = torch.zeros((o.shape[0],), dtype=torch.float32, device=o.device)
+    tmin = torch.full((o.shape[0],), t_min, dtype=torch.float32,
+                      device=o.device)
     tmax = tis.geo_clip(scene, o, d, t_max)
     o, d, tmin, tmax, _ = tis.dispatch_rays(scene, o, d, tmin, tmax)
     f, sent, sids, _ = twt.kernel_inputs(scene, o, d, tmin, tmax)
@@ -578,7 +664,8 @@ WIDTHS = (1024, 4096, 8192, 65536)   # narrow waves, as late bounces leave
 TAIL = (4096, 256)                   # a sparse tail wave: rays, live rays
 
 
-def by_width(scene, name, o, d, t_max, kernel: str) -> dict:
+def by_width(scene, name, o, d, t_max, kernel: str,
+             t_min: float = 0.0) -> dict:
     """The kernel on the first w rays of a ray set, and on a sparse tail
     wave (the first 4,096 rays, 256 of them live, gathered to the front
     as compact_wave leaves them), at splits=1 and at the launcher's
@@ -595,7 +682,7 @@ def by_width(scene, name, o, d, t_max, kernel: str) -> dict:
             tm[TAIL[1]:] = 0.0
         if w > o.shape[0]:
             break
-        k = kernel_inputs(scene, o[:w], d[:w], tm[:w])
+        k = kernel_inputs(scene, o[:w], d[:w], tm[:w], t_min)
         one = launch(scene, k, kernel, splits=1)
         auto = launch(scene, k, kernel)
         if not all(bool(torch.equal(a, b)) for a, b in
@@ -617,13 +704,14 @@ def by_width(scene, name, o, d, t_max, kernel: str) -> dict:
     return out
 
 
-def check_closest(scene, name, o, d, t_max):
-    """The closest-hit kernel on one ray set, as the scene's route: gates
-    against the plain walk and against list_walk, splits bitwise equal,
-    tests run against list_walk's needed count, and times, by width too."""
+def check_closest(scene, name, o, d, t_max, t_min: float = 0.0):
+    """The closest-hit kernel on one ray set (near limits t_min), as the
+    scene's route: gates against the plain walk and against list_walk,
+    splits bitwise equal, tests run against list_walk's needed count,
+    and times, by width too."""
     import torch
     from tungsten_tpu_torch.ops import intersect as tis
-    k = kernel_inputs(scene, o, d, t_max)
+    k = kernel_inputs(scene, o, d, t_max, t_min)
     live = k["tmax"] > 0
     t, tri, u, v = wrapper(scene, k, False)
     pt, ptri, pu, pv = tis.bvh_walk(scene, k["o"], k["d"], k["tmin"],
@@ -652,7 +740,7 @@ def check_closest(scene, name, o, d, t_max):
         f"splits=1, {n_ran} run; kernel {ms:.3f} ms, wrapper (front + "
         f"kernel + finalize) {wrap_ms:.3f} ms, plain walk {plain_ms:.3f} "
         f"ms, bound {b:.4f} ms ({by})")
-    out["by_width"] = by_width(scene, name, o, d, t_max, "closest")
+    out["by_width"] = by_width(scene, name, o, d, t_max, "closest", t_min)
     out.update(ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms, bound_ms=b,
                bound_by=by, max_abs_err=err, max_abs_err_final=err_final,
                rays=int(o.shape[0]), tests=n_tests, tests_run=n_ran,
@@ -770,6 +858,48 @@ def check_scene_kernels(scene, settings):
     return prim, cont, shadow
 
 
+def check_media_hop(scene, settings) -> dict:
+    """K1 on the generalized shadow ray's first hop, as _nee's walk traces
+    it: segments from the camera hits toward the area light, near limit
+    EPSILON (per ray in the kernel's rows), far limit the light distance
+    times SHADOW_FUDGE, held to check_closest's gates (plain walk,
+    list_walk, splits, by width); then the full-width hop wave with one
+    ray in 16 live (as a late hop leaves it) timed against the all-live
+    wave, kernel and wrapper."""
+    import torch
+    from tungsten_tpu_torch.integrators import path_tracer as tpt
+    from tungsten_tpu_torch.ops import intersect as tis
+    dev = scene.device
+    n = settings.width * settings.height
+    pix = torch.arange(n, dtype=torch.int32, device=dev).repeat(SPP)
+    smp = torch.arange(SPP, dtype=torch.int32, device=dev).repeat_interleave(n)
+    s0 = tpt.init_wave(scene, settings, pix, smp, SEED)
+    res = tis.bvh_intersect(scene, s0["o"], s0["d"], 0.0,
+                            torch.where(s0["alive"], 3.0e38, 0.0))
+    so, sd, stmax = shadow_segments(scene, s0["o"], s0["d"], res["t"],
+                                    res["tri"], SEED)
+    out = check_closest(scene, "media shadow hop", so, sd, stmax,
+                        t_min=tpt.EPSILON)
+    out.pop("hits")
+    every = torch.arange(so.shape[0], device=dev) % 16 == 0
+    sparse = {}
+    for key, tm in (("all_live", stmax),
+                    ("one_in_16", torch.where(every, stmax, 0.0))):
+        k = kernel_inputs(scene, so, sd, tm, tpt.EPSILON)
+        sparse[key] = {
+            "live": int((tm > 0).sum()),
+            "ms": cuda_ms(lambda: launch(scene, k, "closest")),
+            "wrapper_ms": cuda_ms(lambda: tis.bvh_intersect(
+                scene, so, sd, tpt.EPSILON, tm))}
+    a, b = sparse["all_live"], sparse["one_in_16"]
+    log(f"  media shadow hop, full width: all live ({a['live']} rays) "
+        f"kernel {a['ms']:.3f} ms, bvh_intersect {a['wrapper_ms']:.3f} ms; "
+        f"one in 16 live ({b['live']}) kernel {b['ms']:.3f} ms, "
+        f"bvh_intersect {b['wrapper_ms']:.3f} ms")
+    out["sparse_wave"] = sparse
+    return out
+
+
 def render_counted(scene, settings, twt):
     """The main path with every launch count set to 0 just before and
     read just after: (image, stats, launches)."""
@@ -813,7 +943,7 @@ KERNEL_OF_ROUTE = {"closest": "wave_trace_closest_kernel",
                    "paged_walk": "wave_trace_paged_anyhit_kernel"}
 
 
-def profile_render(render_once) -> dict:
+def profile_render(render_once, summary: dict | None = None) -> dict:
     """One more render under torch.profiler (device activity only): device
     busy time (the union of kernel intervals) against the profiled wall
     time, and the kernels that take the most device time.  The profiler's
@@ -824,7 +954,9 @@ def profile_render(render_once) -> dict:
     and the traversal kernels' device events, in launch order, are
     tallied by route and width: returns {route: {"launches", "ms",
     "by_width": {rays: {"launches", "splits", "ms"}}}}, or {} where the
-    events do not pair with the launches (then not measured)."""
+    events do not pair with the launches (then not measured).  A
+    `summary` dict receives the profiled wall and device busy ms, the
+    kernel launches and the idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -863,6 +995,9 @@ def profile_render(render_once) -> dict:
     total = sum(v[0] for v in by_name.values())
     launches = sum(v[1] for v in by_name.values())
     wave = sum(v[0] for k, v in by_name.items() if "wave_trace" in k)
+    if summary is not None:
+        summary.update(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                       launches=launches, idle=1.0 - busy / wall_us)
     log(f"profile: wall {wall_us / 1e3:.1f} ms under the profiler, device "
         f"busy {busy / 1e3:.1f} ms ({busy / wall_us * 100:.1f} %, idle "
         f"{100 - busy / wall_us * 100:.1f} %), {launches} kernel launches; "
@@ -1181,7 +1316,7 @@ def kernel_row(name, mode, m, launches, replaces, tol, extra, prof):
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
             "max_abs_err_final", "rays", "tests", "tests_run", "wrapper_ms",
             "list_walk_tests", "list_walk_agreement", "splits", "by_width",
-            "paged_walk", "routes")
+            "paged_walk", "routes", "sparse_wave")
     row.update({x: m[x] for x in keys if x in m and x not in row})
     for k, v in extra.items():
         row[k] = {x: v[x] for x in keys if x in v}
@@ -1322,10 +1457,12 @@ def main() -> int:
             f"of {twt.page_clusters()} clusters, walk "
             f"{twt.traversal_kind(zscene)}; bsdf types "
             f"{list(zsettings.present_bsdf_types)}; {time.time() - t0:.2f} s")
-        from tungsten_tpu_torch.bsdf.types import PORTED_TYPES
+        from tungsten_tpu_torch.bsdf.types import (FORWARD_LOBE_TYPES,
+                                                   PORTED_TYPES)
         if not (z_tri >= 600_000 and z_mb * 2**20 >= twt.PAGED_ATTR_BYTES and
                 twt.traversal_kind(zscene) == "paged" and
-                set(zsettings.present_bsdf_types) == set(PORTED_TYPES)):
+                set(zsettings.present_bsdf_types) ==
+                set(PORTED_TYPES) - set(FORWARD_LOBE_TYPES)):
             raise AssertionError("large scene off the paged-path range")
         mark("large scene (a)")
         log("  (b) paged kernels vs plain walk and resident kernels:")
@@ -1355,7 +1492,69 @@ def main() -> int:
         mark("large scene (d)")
         del zscene
 
-        # 8. the CLI at the bench size: output buffers, then adaptive
+        # 8. media and the forward-lobe surfaces, through K1 alone
+        log("media scene:")
+        t0 = time.time()
+        mpath, vdb_s = write_media_scene(tmp)
+        mscene, msettings = flatten_scene(load_scene(mpath))
+        torch.cuda.synchronize()
+        m_tri = mscene.tri_v0.shape[0]
+        grid_mb = sum(g.numel() * g.element_size()
+                      for g in mscene.grid_density) / 2**20
+        media_mb = sum(g.numel() * g.element_size() for g in
+                       mscene.grid_density + mscene.grid_super +
+                       mscene.grid_emission) / 2**20
+        from tungsten_tpu_torch.media.grid import (MED_HOMOGENEOUS,
+                                                   MED_VOXEL)
+        log(f"  (a) {m_tri} triangles, walk {twt.traversal_kind(mscene)}, "
+            f"medium kinds {msettings.med_kinds}, density grid "
+            f"{tuple(mscene.grid_density[0].shape)} "
+            f"{grid_mb:.2f} MiB on the device ({media_mb:.2f} MiB with its "
+            f"supergrid), .vdb written in {vdb_s:.2f} s, voxel integration "
+            f"{msettings.voxel_integration} x {msettings.grid_steps} steps, "
+            f"sampler {'sobol' if msettings.stratified_sampler else 'pcg4d'}"
+            f", bsdf types {list(msettings.present_bsdf_types)}; "
+            f"{time.time() - t0:.2f} s")
+        if not (90_000 <= m_tri <= 100_000 and
+                twt.traversal_kind(mscene) == "resident" and
+                msettings.med_kinds == (MED_HOMOGENEOUS, MED_VOXEL) and
+                tuple(mscene.grid_density[0].shape) ==
+                (MEDIA_GRID + 2,) * 3 and
+                set(FORWARD_LOBE_TYPES) <=
+                set(msettings.present_bsdf_types) and
+                int(mscene.cam_medium) == 0):
+            raise AssertionError("media scene off its layout")
+        mark("media (a)")
+        log("  (b) K1 on the generalized shadow ray's first hop:")
+        mhop = check_media_hop(mscene, msettings)
+        mark("media (b)")
+        log("  (c) render:")
+        mimg, mstats, mlaunches = render_counted(mscene, msettings, twt)
+        log(f"  {msettings.width}x{msettings.height} {SPP} spp max_bounces "
+            f"{msettings.max_bounces}: {mstats['time']:.3f} s, "
+            f"{mstats['rays']} rays, {mstats['mrays_per_s']:.3f} Mrays/s on "
+            f"{card}; wave launches {mlaunches}; image mean "
+            f"{mimg.mean():.6f}")
+        if not (np.isfinite(mimg).all() and mimg.mean() > 0):
+            raise AssertionError("media render: image not finite or black")
+        if not (mlaunches["closest"] > 0 and mlaunches["anyhit"] == 0 and
+                mlaunches["paged_closest"] == 0 and
+                mlaunches["paged_anyhit"] == 0 and
+                mlaunches["paged_walk"] == 0):
+            raise AssertionError(f"media render: not K1 alone {mlaunches}")
+        msum: dict = {}
+        mprof = profile_render(lambda: render(mscene, msettings, spp=SPP,
+                                              seed=SEED, spp_chunk=SPP),
+                               summary=msum)
+        log(f"  media render: {msum.get('launches')} kernel launches a "
+            f"render beside {mstats['mrays_per_s']:.3f} Mrays/s")
+        mark("media (c)")
+        log("  (d)")
+        cross_path(mscene, msettings)
+        mark("media (d)")
+        del mscene
+
+        # 9. the CLI at the bench size: output buffers, then adaptive
         log("cli:")
         bpath = scene_variant(path, "buffers.json", spp=SPP,
                               output_file="buffers.png",
@@ -1381,7 +1580,7 @@ def main() -> int:
                      img, 1.0, 1.0, 0.0, 0.05)
         mark("cli")
 
-        # 9. resume: 8 spp, then continued to 16
+        # 10. resume: 8 spp, then continued to 16
         log("resume:")
         rpath = scene_variant(path, "resume.json", spp=SPP, spp_step=8,
                               output_file="resume.png",
@@ -1394,20 +1593,20 @@ def main() -> int:
         if not (first["spp"] == 8 and second["spp"] == SPP):
             raise AssertionError("resume: wrong sample counts")
         res_hdr = image.load_hdr(os.path.join(rdir, "resume.pfm"))
-        # the same rays as 8a's, summed in float64 atomics in another
+        # the same rays as 9a's, summed in float64 atomics in another
         # order and traced in other waves (a tie between two triangles at
         # equal t may break another way)
         images_agree("resumed 8 + 8 spp vs uninterrupted 16 spp", res_hdr,
                      buf_hdr, 1e-4, 1e-5, 0.999, 1e-4)
         mark("resume")
 
-        # 10. the server
+        # 11. the server
         log("server:")
         server_run(scene_variant(path, "server.json", res=64, spp=8,
                                  spp_step=4))
         mark("server")
 
-    # 11. kernels line and result
+    # 12. kernels line and result
     closest_tol = ("vs plain walk: hit-set agreement > 0.998, same triangle "
                    "> 0.999, t within rtol 2e-3 on > 0.999 (the kernel's "
                    "own t and after the finalize), u/v atol 2e-3; "
@@ -1423,11 +1622,22 @@ def main() -> int:
              "list_walk, splits and tests-run gates on the paged front; "
              "routes: the paged and the resident wrapper timed in turns "
              "(median of 5 after a warm-up, range), occluded sets equal")
+    media = ("; media_hop (the generalized shadow ray's first hop, near "
+             "limit EPSILON per ray) under the same gates, and its "
+             "full-width wave with one ray in 16 live timed (sparse_wave); "
+             "media_launches: K1's launches in the media render")
     k1 = "tungsten_tpu/ops/wave_trace.py:300"
     k3 = "tungsten_tpu/ops/wave_trace.py:724"
+    k1_row = kernel_row("wave_trace_closest", "closest", prim, launches, k1,
+                        closest_tol + split + media,
+                        {"continuation": cont, "media_hop": mhop}, prof)
+    k1_row["media_launches"] = mlaunches["closest"]
+    k1_row["media_render_ms"] = (mprof["closest"]["ms"]
+                                 if mprof.get("closest") else None)
+    k1_row["media_render_by_width"] = (mprof["closest"]["by_width"]
+                                       if mprof.get("closest") else None)
     rows = [
-        kernel_row("wave_trace_closest", "closest", prim, launches, k1,
-                   closest_tol + split, {"continuation": cont}, prof),
+        k1_row,
         kernel_row("wave_trace_anyhit", "anyhit", shadow, launches, k1,
                    anyhit_tol + split, {}, prof),
         kernel_row("wave_trace_paged_closest", "paged_closest", zprim,
@@ -1438,7 +1648,10 @@ def main() -> int:
     ] + leaf_rows
     log(f"render_s {stats['time']:.3f} mrays_per_s "
         f"{stats['mrays_per_s']:.3f} large_render_s {zstats['time']:.3f} "
-        f"large_mrays_per_s {zstats['mrays_per_s']:.3f} cli_buffers_s "
+        f"large_mrays_per_s {zstats['mrays_per_s']:.3f} media_render_s "
+        f"{mstats['time']:.3f} media_mrays_per_s {mstats['mrays_per_s']:.3f}"
+        f" media_launches_per_render {msum.get('launches')} "
+        f"media_idle {msum.get('idle')} cli_buffers_s "
         f"{cli_buf['seconds']:.3f} cli_buffers_mrays_per_s "
         f"{cli_buf['mrays_per_s']:.3f} cli_adaptive_s "
         f"{cli_ad['seconds']:.3f} cli_adaptive_mrays_per_s "

@@ -69,6 +69,10 @@ EXTRA_DEFS = [
      "bsdf0": "b_mirror", "bsdf1": "b_oren"},
 ]
 DEFS = BSDF_DEFS + EXTRA_DEFS
+# the ported types this table covers: all but the forward-lobe types,
+# which take the path tracer off its one-sample-MIS estimator
+# (tests/test_torch_media*.py cover them)
+SURFACE_TYPES = set(tbt.PORTED_TYPES) - set(tbt.FORWARD_LOBE_TYPES)
 N = 4096
 SAMPLE_PART = 0.002
 
@@ -98,7 +102,7 @@ def scenes():
 def test_every_ported_type_is_covered(scenes):
     js, jset, ts, tset, _ = scenes
     assert set(tbt.PORTED_TYPES) == set(tev._REGISTRY)
-    assert set(tset.present_bsdf_types) == set(tbt.PORTED_TYPES)
+    assert set(tset.present_bsdf_types) == SURFACE_TYPES
     assert tset.present_bsdf_types == jset.present_bsdf_types
 
 
@@ -296,7 +300,7 @@ def zoo(tmp_path_factory):
     js, jset = jax_flatten(copy.deepcopy(desc))
     ts = flat_scene_from_numpy(jax_fields(js), "cpu")
     _, tset = flatten_scene(copy.deepcopy(desc), device="cpu")
-    assert set(tset.present_bsdf_types) == set(tbt.PORTED_TYPES)
+    assert set(tset.present_bsdf_types) == SURFACE_TYPES
     assert (tset.width, tset.height, tset.max_bounces) == (16, 12, 6)
     return js, jset, ts, tset
 
@@ -354,7 +358,7 @@ def test_zoo_state_after_bounces_matches_jax(zoo, jax_sampler):
         if bounce < 4:
             seen |= _shaded_types(ts, tstate)
     # the paths shade every ported type within the bounces compared
-    assert seen == set(tbt.PORTED_TYPES), set(tbt.PORTED_TYPES) - seen
+    assert seen == SURFACE_TYPES, SURFACE_TYPES - seen
 
 
 def test_zoo_image_matches_jax(zoo, jax_sampler):

@@ -23,7 +23,11 @@ The tensor-core leaf kernel (K4, K5: csrc/leaf_mma.cu) agrees with its
 plain versions on seeded random bf16 inputs and exactly on the TPU
 tool's all-ones inputs at every shape of the tool, and a launch held to
 one block equals the full grid bitwise; the CLI renders a tiny scene
-file through the wave kernels.
+file through the wave kernels.  The closest-hit kernel honours each
+ray's near limit on mostly dead waves of rays that start on a triangle
+(the generalized shadow ray's hops, t_min = EPSILON), and a small scene
+with fog, a voxel medium and forward-lobe surfaces renders through K1
+alone as the plain path renders it on the CPU.
 """
 from types import SimpleNamespace
 
@@ -53,6 +57,14 @@ def _rays(R, seed=3):
 
 
 def _brute(v0, e1, e2, o, d, t_min, t_max):
+    """t_min: a scalar or (R,) per ray."""
+    t_min = np.asarray(t_min, np.float32)
+    if t_min.ndim == 1:
+        t_min = t_min[:, None]
+    return _brute_t(v0, e1, e2, o, d, t_min, t_max)
+
+
+def _brute_t(v0, e1, e2, o, d, t_min, t_max):
     """f32 Moller-Trumbore against every triangle: (t, tri, u, v)."""
     pv = np.cross(d[:, None, :], e2[None])
     det = np.sum(e1[None] * pv, -1)
@@ -794,3 +806,104 @@ def test_cuda_anyhit_zero_area_triangles(cuda_device):
     _, bi, _, _ = _brute(v0, e1, e2, o, d, 1e-4, tmax)
     assert ((tri >= 0) == (bi >= 0))[live].mean() > 0.998
     assert (tri[~live] == -1).all()
+
+
+@pytest.mark.cuda
+def test_cuda_closest_honours_per_ray_tmin_on_dead_waves(cuda_device):
+    """Rays that start on a soup triangle, as the shadow walk's hops do,
+    with per-ray near limits (EPSILON on most, 1e-3 or 0.2 on some; a
+    zero limit would leave the start triangle's own hit at t ~ 0 to
+    rounding), in
+    waves where one ray in 16 (or in 128) is live: the closest-hit
+    kernel passes the wave gates against the f32 brute force and the
+    plain walk with the same limits, and never returns a hit at or
+    below a ray's near limit."""
+    from tungsten_tpu_torch.integrators.path_tracer import EPSILON
+    v0, e1, e2 = _soup()
+    R = 8 * twt.BLOCK
+    rng = np.random.default_rng(11)
+    k = rng.integers(0, v0.shape[0], R)
+    a, b = rng.uniform(0, 0.5, (2, R)).astype(np.float32)
+    o = (v0[k] + a[:, None] * e1[k] + b[:, None] * e2[k]).astype(np.float32)
+    _, d = _rays(R, seed=12)
+    tmin = np.full((R,), EPSILON, np.float32)
+    tmin[1::5] = 1e-3
+    tmin[2::5] = 0.2
+    sc, order = _scene(v0, e1, e2, cuda_device)
+    for every in (16, 128):
+        tmax = np.where(np.arange(R) % every == 0, np.float32(3e38),
+                        np.float32(0.0))
+        live = tmax > 0
+        before = twt.LAUNCHES["closest"]
+        t, tri, u, v = _hits(twt.wave_intersect, sc, order, o, d, tmin,
+                             tmax, False)
+        assert twt.LAUNCHES["closest"] == before + 1
+        bt, bi, uu, vv = _brute(v0, e1, e2, o, d, tmin, tmax)
+        _gates(t, tri, u, v, bt, bi, uu, vv, live)
+        pt, pi, _, _ = _hits(tis.bvh_walk, sc, order, o, d, tmin, tmax,
+                             False)
+        _gates(t, tri, u, v, pt, pi, uu, vv, live)
+        hit = tri >= 0
+        assert hit[live].mean() > 0.2
+        assert (t[hit] > tmin[hit]).all()
+        # no ray sees the triangle it starts on
+        assert not (hit & (tri == k)).any()
+
+
+@pytest.mark.cuda
+def test_cuda_media_render_matches_plain_path(cuda_device):
+    """A 32x32 render of a fog room with a voxel medium in a `forward`
+    cube and thinsheet / transparency surfaces: through the closest-hit
+    kernel alone (the two-strategy NEE and the generalized shadow ray
+    trace closest hits), and as the plain path renders it on the CPU
+    (<= 1 % of pixels off by more than rtol 1e-3 / atol 1e-4, means
+    within 0.5 %)."""
+    from tungsten_tpu_torch.render import render
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.parse import SceneDesc
+    x = np.linspace(-1, 1, 12, dtype=np.float32)
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+    dens = np.clip(1.0 - (X * X + Y * Y + Z * Z), 0.05, None) * 3.0
+    desc = SceneDesc(
+        path="scene.json", json={},
+        bsdfs=[{"type": "lambert", "albedo": [0.6, 0.5, 0.4]},
+               {"type": "forward"},
+               {"type": "thinsheet", "ior": 1.5, "sigma_a": 0.3},
+               {"type": "transparency", "alpha": 0.5, "base_index": 0}],
+        media=[{"type": "homogeneous", "sigma_a": 0.02, "sigma_s": 0.15},
+               {"type": "voxel", "sigma_a": 0.2, "sigma_s": 1.5,
+                "grid": {"type": "dense", "data": dens.tolist(),
+                         "transform": {"position": [0.3, -0.2, 0],
+                                       "scale": 1.2}}}],
+        primitives=[
+            {"type": "quad", "bsdf_index": 0, "emission": [8.0, 8.0, 8.0],
+             "transform": {"position": [0, 2.4, 0], "rotation": [0, 0, 180]}},
+            {"type": "quad", "bsdf_index": 0,
+             "transform": {"position": [0, -1, 0], "scale": [10, 1, 10]}},
+            {"type": "cube", "bsdf_index": 1, "int_medium_index": 1,
+             "ext_medium_index": 0,
+             "transform": {"position": [0.3, -0.2, 0], "scale": 1.2}},
+            {"type": "quad", "bsdf_index": 2,
+             "transform": {"position": [-1.2, 0, 0.5],
+                           "rotation": [90, 30, 0]}},
+            {"type": "cube", "bsdf_index": 3,
+             "transform": {"position": [-0.9, -0.6, -0.6], "scale": 0.7}}],
+        camera={"type": "pinhole", "resolution": [32, 32], "fov": 60,
+                "medium_index": 0,
+                "transform": {"position": [0, 0.6, 4.0],
+                              "look_at": [0, 0.0, 0]}},
+        integrator={"max_bounces": 8}, renderer={"spp": 4})
+    scene, settings = flatten_scene(desc)
+    assert settings.has_media
+    before = dict(twt.LAUNCHES)
+    gpu = render(scene, settings, spp=4, seed=7, spp_chunk=4)
+    assert twt.LAUNCHES["closest"] > before["closest"]
+    assert all(twt.LAUNCHES[k] == before[k]
+               for k in ("anyhit", "paged_closest", "paged_anyhit",
+                         "paged_walk"))
+    cpu = render(scene.to("cpu"), settings, spp=4, seed=7, spp_chunk=4,
+                 device="cpu")
+    assert np.isfinite(gpu).all() and gpu.mean() > 0
+    close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1)
+    assert close.mean() >= 0.99, close.mean()
+    assert abs(gpu.mean() / cpu.mean() - 1.0) <= 5e-3

@@ -10,7 +10,8 @@ import torch
 
 from tungsten_tpu.scene.flatten import flatten_scene as jax_flatten
 from tungsten_tpu_torch.io import image as timage
-from tungsten_tpu_torch.scene.flatten import (FlatScene, RenderSettings,
+from tungsten_tpu_torch.scene.flatten import (TUPLE_FIELDS, FlatScene,
+                                              RenderSettings,
                                               flat_scene_from_numpy,
                                               flatten_scene)
 from test_output_buffers import _scene
@@ -41,18 +42,25 @@ def _numpy_bits(x):
 
 
 def jax_fields(js):
+    """A JAX FlatScene as numpy, keyed by the port's field names (the
+    tuple fields, bitmaps and the media grids, as lists of arrays)."""
     out = {f.name: np.asarray(getattr(js, f.name))
-           for f in fields(FlatScene) if f.name not in ("tri_fin", "bitmaps")}
-    out["bitmaps"] = [np.asarray(b) for b in js.bitmaps]
+           for f in fields(FlatScene)
+           if f.name != "tri_fin" and f.name not in TUPLE_FIELDS}
+    for name in TUPLE_FIELDS:
+        out[name] = [np.asarray(b) for b in getattr(js, name)]
     return out
 
 
 def _assert_same_scene(ts, ref):
     for f in fields(FlatScene):
-        if f.name == "bitmaps":
-            assert len(ts.bitmaps) == len(ref["bitmaps"])
-            for a, b in zip(ts.bitmaps, ref["bitmaps"]):
-                assert np.array_equal(_numpy_bits(a), _numpy_bits(b))
+        if f.name in TUPLE_FIELDS:
+            got = getattr(ts, f.name)
+            assert len(got) == len(ref[f.name]), f.name
+            for a, b in zip(got, ref[f.name]):
+                a, b = _numpy_bits(a), _numpy_bits(b)
+                assert a.dtype == b.dtype and a.shape == b.shape, f.name
+                assert np.array_equal(a, b), f.name
             continue
         if f.name == "tri_fin":
             want = np.concatenate([ref["tri_v0"], ref["tri_e1"],
@@ -107,11 +115,11 @@ def test_mesh_scene_equals_jax(tmp_path):
 
 
 @pytest.mark.parametrize("key,what", [("crv_seg_p0", "curves"),
-                                      ("med_sigma_a", "media"),
+                                      ("dsk_r", "disks"),
                                       ("sph_radius", "spheres")])
 def test_carry_across_refuses_unported_tables(key, what):
-    """A JAX scene with curves, media or analytic primitives cannot be
-    carried across silently: the port does not shade them yet."""
+    """A JAX scene with curves or analytic primitives cannot be carried
+    across silently: the port does not shade them yet."""
     js, _ = jax_flatten(_scene())
     flds = jax_fields(js)
     flds[key] = np.zeros((1, 4), np.float32)

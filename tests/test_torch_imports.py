@@ -46,7 +46,8 @@ def test_every_port_module_imports_without_jax():
               "ops.wave_trace", "cli", "server", "integrators.checkpoint",
               "tools.mxubench", "tools.denoiser", "tools.hdrmanip",
               "tools.scenemanip", "tools.obj2json", "tools.json2xml",
-              "utils.debug"):
+              "utils.debug", "media.phase", "media.transmittance",
+              "media.grid", "io.vdb"):
         assert "tungsten_tpu_torch." + m in mods
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'flax', 'tungsten_tpu'):\n"
@@ -151,9 +152,8 @@ def test_unported_features_raise():
     desc.primitives.append({"type": "sphere", "bsdf_index": 0})
     with pytest.raises(NotImplementedError, match="sphere"):
         flatten_scene(desc, device="cpu")
-    # the forward-lobe and fiber BSDFs are not ported yet
-    for name in ("thinsheet", "transparency", "forward", "hair",
-                 "rough_wire", "lambertian_fiber"):
+    # the fiber BSDFs are not ported yet
+    for name in ("hair", "rough_wire", "lambertian_fiber"):
         desc = _tiny_scene()
         desc.bsdfs[0] = {"type": name}
         with pytest.raises(NotImplementedError, match=name):

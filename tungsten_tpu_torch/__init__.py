@@ -2,9 +2,11 @@
 
 The same renderer as the JAX package beside it, module for module:
   utils/       math + stateless counter RNG (pcg4d, scrambled Sobol')
-  io/          host-side readers/writers (wo3, obj, pfm, rgbe)
+  io/          host-side readers/writers (wo3, obj, pfm, rgbe, vdb)
   scene/       JSON parse -> SceneDesc -> FlatScene (tensors) + BVH
   bsdf/        material eval/sample/pdf over a parameter table
+  media/       phase functions, transmittance laws, voxel / analytic
+               density grids (optical depth and its inverse)
   cameras/     ray generation, reconstruction filters, tonemaps
   ops/         ray traversal: the CUDA wave kernels (csrc/) and their
                plain PyTorch versions

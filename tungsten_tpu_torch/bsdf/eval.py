@@ -1,17 +1,18 @@
 """Batched BSDF eval / sample / pdf over the flattened material table
-(port of tungsten_tpu/bsdf/eval.py for the surface BSDFs of the JAX
-package's one-sample-MIS branch: lambert, null, mirror, conductor,
+(port of tungsten_tpu/bsdf/eval.py: lambert, null, mirror, conductor,
 rough_conductor, dielectric, rough_dielectric, plastic, rough_plastic,
-oren_nayar, phong, diffuse_transmission, smooth_coat, rough_coat,
-mixed).
+oren_nayar, phong, diffuse_transmission, smooth_coat, rough_coat, mixed,
+and the forward-lobe types thinsheet, transparency and forward, whose
+straight-through lobe `bsdf_forward` evaluates).
 
 Convention (ref Bsdf.hpp + SurfaceScatterEvent): directions in the local
 tangent frame, +z = shading normal; `wi` points away from the surface
 toward the previous vertex; eval() returns f * |cos(theta_o)|; sample()
 returns (wo, weight = f*cos/pdf, pdf, flags); eval()/pdf() cover the
 non-Dirac lobes only.  Dispatch is a masked select over the BSDF types
-present in the scene; nested materials (smooth/rough coat, mixed)
-re-dispatch one level down over the non-nested present types.  A type
+present in the scene; nested materials (smooth/rough coat, mixed,
+transparency) re-dispatch one level down over the non-nested present
+types.  A type
 outside PORTED_TYPES raises NotImplementedError.  Every formula is the
 JAX package's, op for op (each function names its reference source).
 """
@@ -579,6 +580,32 @@ def _phong_sample(sp, wi, U, ctx):
     return (wo,) + _mis_sample(sp, wi, wo, _phong_eval, _phong_pdf, ctx)
 
 
+# ================================================================= thinsheet
+
+def _thinsheet_transmittance(sp, wi):
+    """ref ThinSheetBsdf::eval: the forward-lobe transmittance."""
+    ior = sp.params[..., P.IOR]
+    R, cos_t = fr.thin_film_reflectance(1.0 / ior, torch.abs(wi[..., 2]))
+    sig = sp.params[..., P.SIGMA_A_R:P.SIGMA_A_B + 1]
+    thickness = sp.params[..., P.THICKNESS]
+    atten = torch.exp(-sig * (thickness[..., None] * 2.0 /
+                              torch.clamp(cos_t[..., None], min=1e-6)))
+    atten = torch.where(cos_t[..., None] > 0, atten, 1.0)
+    return (1.0 - R)[..., None] * atten
+
+
+def _thinsheet_sample(sp, wi, U, ctx):
+    R, _ = fr.thin_film_reflectance(1.0 / sp.params[..., P.IOR],
+                                    torch.abs(wi[..., 2]))
+    trans = _thinsheet_transmittance(sp, wi)
+    w = R[..., None] / torch.clamp(
+        1.0 - torch.mean(trans, -1, keepdim=True), min=1e-20)
+    pdf = torch.ones(wi.shape[:-1], dtype=wi.dtype, device=wi.device)
+    flags = torch.full(wi.shape[:-1], FLAG_VALID | FLAG_SPECULAR,
+                       dtype=torch.int32, device=wi.device)
+    return _reflect_z(wi), w.expand(wi.shape), pdf, flags
+
+
 # ====================================================== diffuse transmission
 
 def _difftrans_factor(sp, wi, wo):
@@ -752,6 +779,20 @@ def _mixed_sample(sp, wi, U, ctx):
     return wo, weight, torch.where(valid, pdf, 0.0), flags
 
 
+# ============================================================== transparency
+
+def _transparency_eval(sp, wi, wo, ctx):
+    return _dispatch_eval(sp.child(), wi, wo, ctx["child_types"], ctx)
+
+
+def _transparency_pdf(sp, wi, wo, ctx):
+    return _dispatch_pdf(sp.child(), wi, wo, ctx["child_types"], ctx)
+
+
+def _transparency_sample(sp, wi, U, ctx):
+    return _dispatch_sample(sp.child(), wi, U, ctx["child_types"], ctx)
+
+
 # ------------------------------------------------------------- dispatch core
 
 # type id -> (eval, sample, pdf)
@@ -770,17 +811,22 @@ _REGISTRY = {
                        _rough_plastic_pdf),
     bt.OREN_NAYAR: (_oren_nayar_eval, _oren_nayar_sample, _oren_nayar_pdf),
     bt.PHONG: (_phong_eval, _phong_sample, _phong_pdf),
+    bt.THINSHEET: (_zero_eval, _thinsheet_sample, _zero_pdf),
     bt.DIFFUSE_TRANSMISSION: (_difftrans_eval, _difftrans_sample,
                               _difftrans_pdf),
     bt.SMOOTH_COAT: (_smooth_coat_eval, _smooth_coat_sample,
                      _smooth_coat_pdf),
     bt.ROUGH_COAT: (_smooth_coat_eval, _smooth_coat_sample, _smooth_coat_pdf),
     bt.MIXED: (_mixed_eval, _mixed_sample, _mixed_pdf),
+    bt.TRANSPARENCY: (_transparency_eval, _transparency_sample,
+                      _transparency_pdf),
+    bt.FORWARD: (_zero_eval, _null_sample, _zero_pdf),
 }
 
-# BSDFs whose continuation sample is a Dirac lobe only (the ported ones
-# of the JAX package's set)
-PURE_SPECULAR = frozenset({bt.MIRROR, bt.NULL, bt.CONDUCTOR, bt.DIELECTRIC})
+# BSDFs whose continuation sample is a Dirac lobe only: NEE's
+# AllButSpecular sample fails on them entirely
+PURE_SPECULAR = frozenset({bt.MIRROR, bt.NULL, bt.CONDUCTOR, bt.DIELECTRIC,
+                           bt.THINSHEET, bt.FORWARD})
 
 
 def _fns(t):
@@ -844,12 +890,36 @@ def bsdf_pdf(sp: ShadePoint, wi, wo, present_types):
 
 
 def bsdf_sample(sp: ShadePoint, wi, u_lobe, u1, u2, present_types,
-                u_lobe2=None, adjoint=False):
+                u_lobe2=None, no_specular=False, adjoint=False):
     """Sample a direction for every ray; returns (wo, weight, pdf, flags).
     u_lobe picks a nested BSDF's branch (coat specular, mixed child),
     u_lobe2 a leaf BSDF's lobe (u_lobe when not given), as in
-    tungsten_tpu/bsdf/eval.py:916."""
+    tungsten_tpu/bsdf/eval.py:916.  no_specular is the AllButSpecular
+    request of NEE's bsdf strategy: a sample that took a specular lobe
+    comes back invalid with weight 0."""
     U = {"lobe": u_lobe, "u1": u1, "u2": u2,
          "lobe2": u_lobe2 if u_lobe2 is not None else u_lobe}
-    return _dispatch_sample(sp, wi, U, present_types,
-                            _make_ctx(present_types, adjoint))
+    wo, weight, pdf, flags = _dispatch_sample(
+        sp, wi, U, present_types, _make_ctx(present_types, adjoint))
+    if no_specular:
+        spec = (flags & FLAG_SPECULAR) != 0
+        flags = torch.where(spec, 0, flags).to(torch.int32)
+        weight = torch.where(spec[..., None], 0.0, weight)
+    return wo, weight, pdf, flags
+
+
+def bsdf_forward(sp: ShadePoint, wi, present_types):
+    """Forward-lobe transparency f(wi -> -wi), what the reference's
+    handleSurface evaluates through makeForwardEvent: 1 for `forward`,
+    1 - opacity for `transparency`, the transmittance of `thinsheet`,
+    0 for every other type."""
+    out = _zeros3(wi)
+    if bt.FORWARD in present_types:
+        out = torch.where((sp.type == bt.FORWARD)[..., None], 1.0, out)
+    if bt.TRANSPARENCY in present_types:
+        out = torch.where((sp.type == bt.TRANSPARENCY)[..., None],
+                          (1.0 - sp.ratio())[..., None], out)
+    if bt.THINSHEET in present_types:
+        out = torch.where((sp.type == bt.THINSHEET)[..., None],
+                          _thinsheet_transmittance(sp, wi), out)
+    return out

@@ -4,8 +4,8 @@ and the host-side diffuse-Fresnel precompute.
 Formula parity with ref src/core/bsdfs/Fresnel.hpp: dielectric (with
 internal-reflection handling via eta inversion), conductor (Shirley's
 exact unpolarized form), and the hemispherical diffuse Fresnel integral
-used by plastic/coat energy conservation.  The thin-film term goes with
-the thinsheet BSDF, which is not ported yet.
+used by plastic/coat energy conservation, and the thin-film term of the
+thinsheet BSDF.
 """
 from __future__ import annotations
 
@@ -51,6 +51,20 @@ def conductor_reflectance(eta, k, cos_i):
 def conductor_reflectance_rgb(eta3, k3, cos_i):
     """eta3/k3 (..., 3), cos_i (...,) -> (..., 3)."""
     return conductor_reflectance(eta3, k3, cos_i[..., None])
+
+
+def thin_film_reflectance(eta, cos_i):
+    """Total reflectance of an infinitesimally thin film (all internal
+    bounces summed); returns (R, cosThetaT)."""
+    sin_t_sq = eta * eta * (1.0 - cos_i * cos_i)
+    tir = sin_t_sq > 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin_t_sq, min=0.0))
+    rs = ((eta * cos_i - cos_t) /
+          torch.clamp(eta * cos_i + cos_t, min=1e-20)) ** 2
+    rp = ((eta * cos_t - cos_i) /
+          torch.clamp(eta * cos_t + cos_i, min=1e-20)) ** 2
+    r = 1.0 - ((1.0 - rs) / (1.0 + rs) + (1.0 - rp) / (1.0 + rp)) * 0.5
+    return torch.where(tir, 1.0, r), torch.where(tir, 0.0, cos_t)
 
 
 def compute_diffuse_fresnel(ior: float, samples: int = 100000) -> float:

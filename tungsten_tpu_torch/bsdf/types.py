@@ -7,10 +7,10 @@ The scene flattener packs every BSDF into one SoA table row:
   params      : (NUM_PARAMS,) float32 — slot meanings in `P`
   aux         : (NUM_AUX,) int32 — child indices, microfacet
                 distribution enum, ratio-texture index
-The port evaluates the surface BSDFs of the JAX package's one-sample
-MIS branch (PORTED_TYPES); `parse_bsdf_row` raises NotImplementedError
-for the forward-lobe types (thinsheet, transparency, forward) and the
-fiber types (hair, rough_wire, lambertian_fiber).
+The port evaluates the surface BSDFs and the forward-lobe types
+thinsheet, transparency and forward (PORTED_TYPES); `parse_bsdf_row`
+raises NotImplementedError for the fiber types (hair, rough_wire,
+lambertian_fiber).
 """
 from __future__ import annotations
 
@@ -66,8 +66,11 @@ NAME_TO_TYPE = {
 # the types this port evaluates (bsdf/eval.py)
 PORTED_TYPES = (LAMBERT, NULL, MIRROR, CONDUCTOR, ROUGH_CONDUCTOR,
                 DIELECTRIC, ROUGH_DIELECTRIC, PLASTIC, ROUGH_PLASTIC,
-                OREN_NAYAR, PHONG, SMOOTH_COAT, ROUGH_COAT, MIXED,
-                DIFFUSE_TRANSMISSION)
+                OREN_NAYAR, PHONG, THINSHEET, SMOOTH_COAT, ROUGH_COAT,
+                MIXED, TRANSPARENCY, FORWARD, DIFFUSE_TRANSMISSION)
+# the forward-lobe types: a path may pass straight through them, which
+# takes the path tracer off its one-sample-MIS estimator
+FORWARD_LOBE_TYPES = (THINSHEET, TRANSPARENCY, FORWARD)
 
 DIST_BECKMANN = 0
 DIST_PHONG = 1
@@ -206,6 +209,8 @@ def parse_bsdf_row(b: dict, textures) -> tuple[int, int, np.ndarray,
         params[P.EXTRA1] = float(b.get("diffuse_ratio", 0.2))
     if t in (DIELECTRIC, ROUGH_DIELECTRIC):
         params[P.EXTRA0] = 1.0 if b.get("enable_refraction", True) else 0.0
+    if t == THINSHEET:
+        params[P.EXTRA0] = 1.0 if b.get("enable_interference", False) else 0.0
     if t in (PLASTIC, ROUGH_PLASTIC, SMOOTH_COAT, ROUGH_COAT):
         from tungsten_tpu_torch.bsdf.fresnel import compute_diffuse_fresnel
         params[P.EXTRA0] = compute_diffuse_fresnel(params[P.IOR])
@@ -226,6 +231,9 @@ def parse_bsdf_row(b: dict, textures) -> tuple[int, int, np.ndarray,
         aux[AUX.CHILD1] = int(b.get("bsdf1_index", -1))
     if t in (SMOOTH_COAT, ROUGH_COAT):
         aux[AUX.CHILD0] = int(b.get("substrate_index", -1))
+    if t == TRANSPARENCY:
+        aux[AUX.CHILD0] = int(b.get("base_index", -1))
+        aux[AUX.RATIO_TEX] = textures.add(b.get("alpha", 1.0))
     if t == DIFFUSE_TRANSMISSION:
         params[P.EXTRA0] = float(b.get("transmittance", 0.5))
     return t, albedo_tex, params, aux

@@ -1,23 +1,35 @@
 """Wavefront path tracer (port of tungsten_tpu/integrators/
-path_tracer.py: the surface-only bounce body, NEE, staged compaction).
+path_tracer.py: the bounce body with media and forward-lobe surfaces,
+both NEE estimators, staged compaction).
 
 SoA ray/path state over the whole wavefront; per bounce one closest-hit
 traversal at the top of the body (camera ray at bounce 0, the previous
-body's continuation after) and, with light sampling on, one any-hit
-shadow traversal for the NEE light sample.  The estimator is the JAX
-package's ONE-SAMPLE MIS (`_one_sample_mis` there): the continuation
-bsdf sample doubles as the bsdf-side strategy, and emitter / env hits
-are power-heuristic-weighted against the light-selection-aware NEE
-density.  That branch is the one the JAX package takes for every scene
-the port flattens (no media, no forward-lobe BSDFs, no cap lights, no
-MMLT path-length restriction).  The surface BSDFs of that branch are
-all ported (bsdf/eval.py); a scene with a forward-lobe or fiber BSDF
-raises NotImplementedError.
+body's continuation after) plus the NEE traversals.  Two estimators, as
+in the JAX package:
+
+  * ONE-SAMPLE MIS (`_one_sample_mis`), for scenes without media or
+    forward-lobe surfaces: one any-hit shadow ray for the light sample;
+    the continuation bsdf sample doubles as the bsdf-side strategy, and
+    emitter / env hits are power-heuristic-weighted against the
+    light-selection-aware NEE density.
+  * TWO-STRATEGY NEE (the reference's estimateDirect), for the rest: the
+    light sample and an independent bsdf (or phase) sample toward the
+    chosen light, each weighted by the power heuristic.  Their
+    visibility is the generalized shadow ray (`_shadow_transmittance`):
+    closest-hit hops through forward-lobe surfaces, accumulating each
+    medium segment's transmittance.  Direct emitter and env hits then
+    count only after a specular vertex (or with light sampling off).
+
+Media: homogeneous distance sampling with spectral channel MIS and the
+transmittance laws of media/transmittance.py (HomogeneousMedium.cpp:
+65-108); exponential, atmosphere and voxel media invert their optical
+depth (media/grid.py), voxel grids credit their emission.  Forward-lobe
+surfaces (forward, transparency, thinsheet) pass the path straight
+through with the probability of their forward transparency.
 
 Estimator guards mirror the reference: NEE at every shading vertex
-while bounce < max_bounces - 1; direct emitter and env hits weighted
-unless the previous vertex was specular (or light sampling is off);
-Russian roulette after bounce 2 at max|throughput| < 0.1.
+(surface or medium) while bounce < max_bounces - 1; Russian roulette
+after bounce 2 at max|throughput| < 0.1.
 
 On CUDA the body first reorders the whole wavefront state by the
 traversal sort key (one key sort + one packed row gather) so the
@@ -30,29 +42,29 @@ import torch
 
 from tungsten_tpu_torch.bsdf import types as bt
 from tungsten_tpu_torch.bsdf.eval import (FLAG_SPECULAR, FLAG_VALID,
-                                          ShadePoint, bsdf_eval, bsdf_pdf,
-                                          bsdf_sample)
+                                          ShadePoint, bsdf_eval, bsdf_forward,
+                                          bsdf_pdf, bsdf_sample)
 from tungsten_tpu_torch.integrators import lights as L
+from tungsten_tpu_torch.media import grid as GR
+from tungsten_tpu_torch.media import phase as PH
+from tungsten_tpu_torch.media import transmittance as TR
 from tungsten_tpu_torch.ops.intersect import bvh_intersect, ray_sort_key
-from tungsten_tpu_torch.scene.flatten import LIGHT_INFINITE
+from tungsten_tpu_torch.scene.flatten import LIGHT_AREA, LIGHT_INFINITE
 from tungsten_tpu_torch.utils import rng
 from tungsten_tpu_torch.utils import vecmath as vm
 
 INF = 3.0e38
 EPSILON = 5e-4  # ray-offset epsilon (ref TraceableScene.hpp DefaultEpsilon)
 SHADOW_FUDGE = 1.0 - 1e-3
-
+MAX_SHADOW_HOPS = 8  # forward-surface crossings a shadow ray may pass
 
 def _check_supported(settings):
-    if settings.has_media:
-        raise NotImplementedError(
-            "tungsten_tpu_torch: participating media are not ported yet")
     unported = set(settings.present_bsdf_types) - set(bt.PORTED_TYPES)
     if unported:
         names = sorted(n for n, t in bt.NAME_TO_TYPE.items() if t in unported)
         raise NotImplementedError(
-            f"tungsten_tpu_torch: bsdf types {names} (forward-lobe or "
-            f"fiber) are not ported yet")
+            f"tungsten_tpu_torch: bsdf types {names} (fiber) are not ported "
+            f"yet")
     if settings.num_caps or settings.has_points or settings.has_disk_lights \
             or settings.has_cyl_lights or settings.has_sphere_lights:
         raise NotImplementedError(
@@ -60,9 +72,17 @@ def _check_supported(settings):
             "ported yet")
 
 
+def _has_forward_types(settings) -> bool:
+    return any(t in settings.present_bsdf_types
+               for t in bt.FORWARD_LOBE_TYPES)
+
+
 def _one_sample_mis(settings) -> bool:
-    """The JAX package's one-sample-MIS condition, for ported scenes."""
-    return bool(settings.enable_light_sampling) and settings.num_lights > 0
+    """The JAX package's one-sample-MIS condition, for ported scenes (no
+    cap lights, no MMLT path-length restriction)."""
+    return (not settings.has_media and not _has_forward_types(settings)
+            and bool(settings.enable_light_sampling)
+            and settings.num_lights > 0)
 
 
 def _light_select_pmf(scene, settings, p, li):
@@ -75,32 +95,146 @@ def _light_select_pmf(scene, settings, p, li):
     return wi[..., 0] / torch.clamp(total, min=1e-30)
 
 
+# ---------------------------------------------------------------- media
+
+class _Media:
+    """What the media code needs of a scene, read once per bounce body:
+    the transmittance laws present (one device read) and whether any
+    medium is heterogeneous."""
+
+    def __init__(self, scene, settings):
+        self.laws = TR.present_laws(scene.med_trans_type,
+                                    scene.med_trans_params)
+        self.het = any(k != GR.MED_HOMOGENEOUS for k in settings.med_kinds)
+        self.n = scene.med_sigma_a.shape[0]
+
+
+def _medium_tr(scene, settings, media, med, o, d, seg_len, start_surf,
+               end_surf):
+    """Transmittance (R,3) of `seg_len` through medium index `med` (-1 =
+    vacuum, transmittance 1).  Heterogeneous media integrate the density
+    along the segment (ref VoxelMedium/ExponentialMedium::transmittance);
+    infinite segments through a homogeneous medium transmit 0."""
+    m = torch.clamp(med, 0, media.n - 1).long()
+    sigma_t = scene.med_sigma_a[m] + scene.med_sigma_s[m]
+    if media.het:
+        ut = GR.unit_tau(scene, settings, m, o, d, seg_len, active=med >= 0)
+    else:
+        ut = torch.clamp(seg_len, max=INF)
+    tau = sigma_t * ut[..., None]
+    tr = TR.eval_tr(scene.med_trans_type[m], tau, scene.med_trans_params[m],
+                    start_surf, end_surf, media.laws)
+    # ut is INF only where the density never falls off along an infinite
+    # segment; guard NaNs from 0*inf in the law params
+    tr = torch.where(torch.isfinite(tr), tr, 0.0)
+    tr = torch.where(((seg_len >= INF) & (ut >= INF))[..., None], 0.0, tr)
+    return torch.where((med >= 0)[..., None], tr, 1.0)
+
+
+def _select_medium(scene, prim, cur_med, geometric_backside):
+    """ref Primitive::selectMedium (Primitive.hpp:177-183)."""
+    im = scene.prim_int_medium[prim]
+    em = scene.prim_ext_medium[prim]
+    overrides = (im >= 0) | (em >= 0)
+    return torch.where(overrides, torch.where(geometric_backside, im, em),
+                       cur_med)
+
+
+def _shadow_transmittance(scene, settings, media, o, d, dist, medium,
+                          starts_on_surface, active, endcap_prim):
+    """Generalized shadow ray (ref TraceBase::generalizedShadowRay):
+    walks through forward-lobe surfaces, accumulating their transparency
+    and the transmittance of each medium segment.  Returns (R,3).
+
+    Each hop is one closest-hit traversal from t_min = EPSILON; lanes
+    that are not `active` get t_max = 0 (the JAX package walks every lane
+    and masks the ones its caller does not use; those lanes' results are
+    what differs).  endcap_prim (R,) excludes the target light primitive
+    from occlusion, like the reference's endCap.  The walk stops when no
+    lane is active (one host read a hop) or after MAX_SHADOW_HOPS; lanes
+    still active then are blocked."""
+    types = settings.present_bsdf_types
+    fwd = _has_forward_types(settings)
+    remaining = torch.where(dist >= INF, INF, dist * SHADOW_FUDGE)
+    med = medium
+    tr = torch.ones(o.shape, dtype=torch.float32, device=o.device)
+    start_surf = starts_on_surface
+    hops = 0
+    while hops < MAX_SHADOW_HOPS and bool(active.any()):
+        res = bvh_intersect(scene, o, d, EPSILON,
+                            torch.where(active, remaining, 0.0))
+        did_hit = res["hit"] & active
+        # reaching the target light ends the walk successfully; the
+        # medium segment still runs to the light's surface
+        hit_prim = _hit_prim(scene, res)
+        did_hit = did_hit & (hit_prim != endcap_prim)
+        seg = torch.where(res["hit"] & active, res["t"], remaining)
+        if settings.has_media:
+            seg_tr = _medium_tr(scene, settings, media,
+                                torch.where(active, med, -1), o, d, seg,
+                                start_surf, torch.ones_like(did_hit))
+            tr = tr * torch.where(active[..., None], seg_tr, 1.0)
+        # surface crossing: must be a forward-lobe surface
+        uv, bsdf_idx, prim = _hit_uv_bsdf(scene, res)
+        ng = _hit_ng(scene, res)
+        if fwd:
+            sp = ShadePoint(scene, bsdf_idx.long(), uv)
+            # forward transparency is wi-dependent only for thinsheet
+            cosd = torch.abs(torch.sum(d * ng, dim=-1))
+            wi_proxy = torch.stack(
+                [torch.sqrt(torch.clamp(1 - cosd ** 2, min=0.0)),
+                 torch.zeros_like(cosd), cosd], dim=-1)
+            transp = bsdf_forward(sp, wi_proxy, types)
+        else:
+            transp = torch.zeros_like(tr)
+        passes = torch.amax(transp, dim=-1) > 0.0
+        tr = torch.where((did_hit & ~passes)[..., None], 0.0, tr)
+        tr = tr * torch.where((did_hit & passes)[..., None], transp, 1.0)
+        # medium handoff at the crossing: entering through a front face
+        if settings.has_media:
+            backside = torch.sum(d * ng, dim=-1) > 0.0
+            new_med = _select_medium(scene, prim, med, ~backside)
+            med = torch.where(did_hit & passes, new_med, med)
+        o = torch.where(did_hit[..., None], o + d * res["t"][..., None], o)
+        remaining = torch.where(did_hit, remaining - res["t"], remaining)
+        start_surf = start_surf | did_hit
+        active = active & did_hit & passes & (remaining > EPSILON)
+        hops += 1
+    return torch.where(active[..., None], 0.0, tr)
+
+
 # ----------------------------------------------------------------- NEE
 
 def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
-         want_tr: bool = False):
-    """Next-event estimation toward one chosen light (one-sample MIS: the
-    light strategy only; the continuation ray carries the bsdf strategy).
-    The shadow segment runs through the any-hit traversal with its own
-    ray sort.  Returns ((R,3) contribution excluding path throughput,
-    number of shadow rays traced, and with want_tr (tr (R,3), tr_valid
-    (R,)): the shadow transmittance, valid only where the shadow ray was
-    traced — the visibility AOV's input, ref PathTracer.cpp:92-93 — else
-    None)."""
+         want_tr: bool = False, media=None):
+    """Next-event estimation toward one chosen light, at surface vertices
+    (bsdf) or medium vertices (phase).  ctx: p, frame, sp, wi_local, gate
+    (the vertices that want NEE this bounce) and, with media, is_volume,
+    ray_d, phase_type, phase_g and medium.  One-sample MIS scenes trace
+    the light sample's shadow ray through the any-hit traversal; the
+    others run both strategies (light sample and an independent
+    bsdf/phase sample) through the generalized shadow ray.  Returns
+    ((R,3) contribution excluding path throughput, NEE rays traced, and
+    with want_tr (tr (R,3), tr_valid (R,)): the light strategy's shadow
+    transmittance, valid only where that ray was traced — the visibility
+    AOV's input, ref PathTracer.cpp:92-93 — else None)."""
     p = ctx["p"]
     R = p.shape[0]
     sobol = settings.stratified_sampler
+    types = settings.present_bsdf_types
     t, b, n = ctx["frame"]
     sp = ctx["sp"]
     wi_local = ctx["wi_local"]
     gate = ctx["gate"]
+    is_vol = ctx.get("is_volume")
     u_sel = rng.random_1d(seed, pixel, sample_idx,
                           bounce_dim_base + rng.BounceDims.LIGHT_SELECT, sobol)
     li, sel_weight = L.choose_light(scene, settings, p, u_sel)
     ltype = scene.light_type[li]
 
     u1, u2 = rng.random_2d(seed, pixel, sample_idx,
-                           bounce_dim_base + rng.BounceDims.LIGHT_SAMPLE, sobol)
+                           bounce_dim_base + rng.BounceDims.LIGHT_SAMPLE,
+                           sobol)
     if settings.has_area_lights:
         u_tri = rng.random_1d(seed, pixel, sample_idx,
                               bounce_dim_base + rng.BounceDims.LIGHT_TRI,
@@ -124,24 +258,104 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
         d, dist, pdf, emis, valid = (a["d"], a["dist"], a["pdf"],
                                      a["emission"], a["valid"])
 
-    wo_local = vm.to_local(t, b, n, d)
-    f = bsdf_eval(sp, wi_local, wo_local, settings.present_bsdf_types)
-    pdf_counter = bsdf_pdf(sp, wi_local, wo_local,
-                           settings.present_bsdf_types)
-    do_shadow = valid & (torch.amax(f, dim=-1) > 0.0) & (pdf > 1e-20) & gate
+    def eval_f_pdf(d_world):
+        """(f (R,3) with cos folded in, pdf (R,)) of the scatter function
+        toward d_world: the bsdf at surfaces, the phase function at
+        medium vertices."""
+        wo_local = vm.to_local(t, b, n, d_world)
+        f_s = bsdf_eval(sp, wi_local, wo_local, types)
+        p_s = bsdf_pdf(sp, wi_local, wo_local, types)
+        if not settings.has_media:
+            return f_s, p_s
+        pe = PH.phase_eval(ctx["phase_type"], ctx["phase_g"], ctx["ray_d"],
+                           d_world)
+        return (torch.where(is_vol[..., None], pe[..., None], f_s),
+                torch.where(is_vol, pe, p_s))
 
-    far_sh = torch.where(do_shadow,
-                         torch.where(dist >= INF, INF, dist * SHADOW_FUDGE),
-                         0.0)
-    occ = bvh_intersect(scene, p + d * EPSILON, d, 0.0, far_sh,
-                        any_hit=True)["hit"]
-    tr = torch.where((do_shadow & ~occ)[..., None], 1.0, 0.0)
-    pmf = 1.0 / sel_weight
-    mis_l = L.power_heuristic(pdf * pmf, pdf_counter)
-    out = f * tr * emis / torch.clamp(pdf, min=1e-20)[..., None] \
-        * mis_l[..., None] * sel_weight[..., None]
-    return (out, torch.sum(do_shadow.to(torch.int64)),
-            (tr, do_shadow) if want_tr else None)
+    f, pdf_counter = eval_f_pdf(d)
+    do_shadow = valid & (torch.amax(f, dim=-1) > 0.0) & (pdf > 1e-20) & gate
+    shadow_o = p + d * EPSILON
+
+    if _one_sample_mis(settings):
+        far_sh = torch.where(
+            do_shadow, torch.where(dist >= INF, INF, dist * SHADOW_FUDGE),
+            0.0)
+        occ = bvh_intersect(scene, shadow_o, d, 0.0, far_sh,
+                            any_hit=True)["hit"]
+        tr = torch.where((do_shadow & ~occ)[..., None], 1.0, 0.0)
+        pmf = 1.0 / sel_weight
+        mis_l = L.power_heuristic(pdf * pmf, pdf_counter)
+        out = f * tr * emis / torch.clamp(pdf, min=1e-20)[..., None] \
+            * mis_l[..., None] * sel_weight[..., None]
+        return (out, torch.sum(do_shadow.to(torch.int64)),
+                (tr, do_shadow) if want_tr else None)
+
+    # ---- two strategies: the light sample's generalized shadow ray ----
+    surface_light = ltype == LIGHT_AREA
+    endcap = torch.where(surface_light, scene.light_prim[li], -2)
+    not_vol = ~is_vol if is_vol is not None else torch.ones_like(gate)
+    medium = ctx.get("medium")
+    if medium is None:
+        medium = torch.full((R,), -1, dtype=torch.int32, device=p.device)
+    tr = _shadow_transmittance(scene, settings, media, shadow_o, d, dist,
+                               medium, not_vol, do_shadow, endcap)
+    tr = torch.where(do_shadow[..., None], tr, 0.0)
+    mis_l = L.power_heuristic(pdf, pdf_counter)
+    contrib_l = f * tr * emis / torch.clamp(pdf, min=1e-20)[..., None] \
+        * mis_l[..., None]
+
+    # ---- the independent bsdf/phase sample (ref TraceBase::bsdfSample)
+    ub = rng.random_1d(seed, pixel, sample_idx,
+                       bounce_dim_base + rng.BounceDims.NEE_BSDF_LOBE, sobol)
+    ub1, ub2 = rng.random_2d(seed, pixel, sample_idx,
+                             bounce_dim_base + rng.BounceDims.NEE_BSDF_SAMPLE,
+                             sobol)
+    ub_l2 = rng.random_1d(seed, pixel, sample_idx,
+                          bounce_dim_base + rng.BounceDims.NEE_BSDF_LOBE2,
+                          sobol)
+    wo_b, wt_b, pdf_b, flags_b = bsdf_sample(
+        sp, wi_local, ub, ub1, ub2, types, u_lobe2=ub_l2, no_specular=True)
+    wd = vm.to_global(t, b, n, wo_b)
+    ok_b = ((flags_b & FLAG_VALID) != 0) & (torch.amax(wt_b, dim=-1) > 0)
+    if settings.has_media:
+        pw, ppdf = PH.phase_sample(ctx["phase_type"], ctx["phase_g"],
+                                   ctx["ray_d"], ub1, ub2)
+        wd = vm.where3(is_vol, pw, wd)
+        wt_b = torch.where(is_vol[..., None], 1.0, wt_b)
+        pdf_b = torch.where(is_vol, ppdf, pdf_b)
+        ok_b = torch.where(is_vol, ppdf > 0, ok_b)
+    # the strategy ray is dead where the sample is invalid (specular
+    # vertices: no_specular sampling returns weight 0) or gated off
+    trace_b = ok_b & gate
+    ob = p + wd * EPSILON
+    res_b = bvh_intersect(scene, ob, wd, 0.0, torch.where(trace_b, INF, 0.0))
+    hit_prim = _hit_prim(scene, res_b)
+    nb = _hit_ng(scene, res_b, ob, wd)
+    hit_t = torch.where(res_b["hit"], res_b["t"], 1.0)
+    lpdf = L.area_light_direct_pdf(scene, li, hit_t, wd, nb)
+    front = torch.sum(wd * nb, dim=-1) < 0.0
+    got = surface_light & res_b["hit"] & \
+        (hit_prim == scene.light_prim[li]) & front
+    e_b = scene.light_emission[li]
+    if settings.has_env:
+        is_env = ltype == LIGHT_INFINITE
+        escape = is_env & ~res_b["hit"]
+        e_b = torch.where(is_env[..., None],
+                          L.env_eval(scene, wd, active=escape & trace_b), e_b)
+        lpdf = torch.where(is_env, L.env_pdf(scene, wd,
+                                             active=escape & trace_b), lpdf)
+        got = torch.where(is_env, escape, got)
+    # visibility of the strategy ray: the transmittance along its segment
+    seg = torch.where(res_b["hit"], res_b["t"], INF)
+    tr_b = _shadow_transmittance(scene, settings, media, ob, wd, seg, medium,
+                                 not_vol, trace_b, endcap)
+    mis_b = L.power_heuristic(pdf_b, lpdf)
+    contrib_b = torch.where((ok_b & got)[..., None],
+                            wt_b * tr_b * e_b * mis_b[..., None], 0.0)
+    out = (contrib_l + contrib_b) * sel_weight[..., None]
+    nee_rays = torch.sum(do_shadow.to(torch.int64)) + \
+        torch.sum(trace_b.to(torch.int64))
+    return out, nee_rays, (tr, do_shadow) if want_tr else None
 
 
 # ------------------------------------------------------------ hit expand
@@ -286,6 +500,15 @@ def _init_state(scene, settings, pixel, sample_idx, seed):
         rays=torch.zeros((), dtype=torch.int64, device=dev),
         pixel=pixel, sample=sample_idx,
     )
+    if settings.has_media:
+        # the medium each ray travels in, whether it has not scattered in
+        # it yet (distance sampling starts on a surface), and its scatter
+        # count there
+        state["medium"] = scene.cam_medium.to(torch.int32).expand(R) \
+            .contiguous()
+        state["med_first"] = torch.ones((R,), dtype=torch.bool, device=dev)
+        state["med_bounce"] = torch.zeros((R,), dtype=torch.int32,
+                                          device=dev)
     if _one_sample_mis(settings):
         # pdf of the bsdf sample that produced the current ray
         state["pdf_fwd"] = torch.zeros((R,), dtype=torch.float32, device=dev)
@@ -305,11 +528,96 @@ def _init_state(scene, settings, pixel, sample_idx, seed):
     return state
 
 
+def _sample_medium(scene, settings, media, s, res, seed, dim_base, sobol):
+    """Medium distance sampling at the top of the body (ref
+    HomogeneousMedium::sampleDistance with spectral channel MIS, the
+    heterogeneous media's inverse optical depth, and volumetric
+    emission).  Returns (vol_scatter, alive, throughput, emission,
+    med_point, med_first, med_bounce)."""
+    alive = s["alive"]
+    throughput = s["throughput"]
+    emission = s["emission"]
+    med = s["medium"]
+    laws = media.laws
+    in_med = alive & (med >= 0)
+    mi = torch.clamp(med, 0, media.n - 1).long()
+    sigma_s = scene.med_sigma_s[mi]
+    sigma_t = scene.med_sigma_a[mi] + sigma_s
+    absorb_only = torch.amax(sigma_s, dim=-1) == 0.0
+    tt = scene.med_trans_type[mi]
+    tp = scene.med_trans_params[mi]
+    first = s["med_first"]
+
+    u_c, u_d, u_e = rng.random_3d(seed, s["pixel"], s["sample"],
+                                  dim_base + rng.BounceDims.MEDIUM, sobol)
+    comp = torch.clamp((u_c * 3).to(torch.int32), max=2)
+    sigma_tc = torch.gather(sigma_t, -1, comp[..., None].long())[..., 0]
+    t_law = TR.sample_distance(tt, tp, first, u_d, u_e, laws)
+    max_t = torch.where(res["hit"], res["t"], INF)
+    if media.het:
+        tau_c = t_law / torch.clamp(sigma_tc, min=1e-20)
+        t_m, rho, tau_tot = GR.inverse_unit_tau(
+            scene, settings, mi, s["o"], s["d"], max_t, tau_c, active=in_med)
+        exited = (t_m >= max_t) | absorb_only
+        ut_used = torch.where(exited, tau_tot, tau_c)
+        rho = torch.where(exited, 1.0, rho)[..., None]
+    else:
+        t_m = t_law / torch.clamp(sigma_tc, min=1e-20)
+        exited = (t_m >= max_t) | absorb_only
+        ut_used = torch.minimum(torch.where(absorb_only, max_t, t_m), max_t)
+        rho = 1.0
+    t_s = torch.minimum(torch.where(absorb_only, max_t, t_m), max_t)
+    tau = sigma_t * ut_used[..., None]
+    sbar = TR.sigma_bar(tt, tp, laws)
+    surf_end = torch.ones_like(exited)
+    w_exit = TR.eval_tr(tt, tau, tp, first, surf_end, laws)
+    p_exit = torch.mean(TR.surface_probability(tt, tau, tp, first, laws),
+                        dim=-1)
+    tr_med = TR.eval_tr(tt, tau, tp, first, ~surf_end, laws)
+    w_scat = tr_med * rho * sigma_s * sbar[..., None]
+    p_scat = torch.mean(rho * sigma_t * TR.medium_pdf(tt, tau, tp, first,
+                                                      laws), dim=-1)
+    w = torch.where(exited[..., None], w_exit, w_scat) / torch.clamp(
+        torch.where(exited, p_exit, p_scat), min=1e-20)[..., None]
+    # absorption-only media skip the MC division (pdf 1, ref :76-82)
+    w = torch.where(absorb_only[..., None], w_exit, w)
+    # volumetric emission at the scatter point (ref PathTracer.cpp:56,
+    # VoxelMedium.cpp:142: grid emission * Tr / pdf, credited before the
+    # weight multiplies in)
+    med_point = s["o"] + s["d"] * t_s[..., None]
+    if media.het and len(scene.grid_density) > 0:
+        lit = in_med & ~exited
+        e_med = GR.emission(scene, settings, mi, med_point, active=lit) * \
+            tr_med / torch.clamp(p_scat, min=1e-20)[..., None]
+        emission = emission + torch.where(lit[..., None], throughput * e_med,
+                                          0.0)
+    throughput = torch.where(in_med[..., None], throughput * w, throughput)
+    # absorption-only and no surface: a homogeneous fog extends to
+    # infinity (weight 0, ref HomogeneousMedium early-out); a bounded or
+    # falling-off heterogeneous medium lets the attenuated ray escape
+    died_in_fog = in_med & absorb_only & ~res["hit"]
+    if media.het:
+        died_in_fog = died_in_fog & \
+            (scene.med_kind[mi] == GR.MED_HOMOGENEOUS)
+    # medium max-bounce cap (ref Medium::_maxBounce)
+    over_bounce = in_med & (s["med_bounce"] > scene.med_max_bounce[mi])
+    vol_scatter = in_med & ~exited & ~died_in_fog & ~over_bounce
+    alive = alive & ~died_in_fog & ~over_bounce
+    scattered = in_med & ~absorb_only
+    med_first = torch.where(scattered, False, first)
+    med_bounce = s["med_bounce"] + scattered.to(torch.int32)
+    return (vol_scatter, alive, throughput, emission, med_point, med_first,
+            med_bounce)
+
+
 def _make_bounce_body(scene, settings, seed):
     """The per-bounce wavefront step: state dict -> state dict."""
     _check_supported(settings)
     body_sort = scene.device.type == "cuda"
     one_sample = _one_sample_mis(settings)
+    fwd_types = _has_forward_types(settings)
+    has_media = settings.has_media
+    media = _Media(scene, settings) if has_media else None
     sobol = settings.stratified_sampler
     types = settings.present_bsdf_types
     els = bool(settings.enable_light_sampling)
@@ -336,8 +644,17 @@ def _make_bounce_body(scene, settings, seed):
                             torch.where(alive, INF, 0.0),
                             presorted=body_sort)
         rays_top = torch.sum(alive.to(torch.int64))
-        active = alive & res["hit"]
-        escaped = alive & ~res["hit"]
+
+        # ---- medium distance sampling ----
+        if has_media:
+            (vol_scatter, alive, throughput, emission, med_point, med_first,
+             med_bounce) = _sample_medium(scene, settings, media, s, res,
+                                          seed, dim_base, sobol)
+            active = alive & res["hit"] & ~vol_scatter
+            escaped = alive & ~res["hit"] & ~vol_scatter
+        else:
+            active = alive & res["hit"]
+            escaped = alive & ~res["hit"]
 
         # ---- escaped rays: environment (ref handleInfiniteLights) ----
         if settings.has_env:
@@ -371,9 +688,21 @@ def _make_bounce_body(scene, settings, seed):
         tan, bit = vm.ortho_frame(ns)
         wi_local = vm.to_local(tan, bit, ns, -s["d"])
         sp = ShadePoint(scene, info["bsdf"], info["uv"])
-        shade = active
 
-        # ---- continuation: bsdf sample ----
+        # ---- forward/transparency lobe passthrough (ref handleSurface
+        # transparency branch: continue straight, no NEE or emission) ----
+        if fwd_types:
+            transp = bsdf_forward(sp, wi_local, types)
+            t_scalar = torch.mean(transp, dim=-1)
+            u_fwd = rng.random_1d(seed, pixel, sample_idx,
+                                  dim_base + rng.BounceDims.FORWARD, sobol)
+            take_forward = active & (u_fwd < t_scalar)
+            fwd_weight = transp / torch.clamp(t_scalar, min=1e-20)[..., None]
+            shade = active & ~take_forward
+        else:
+            shade = active
+
+        # ---- continuation: bsdf sample / phase sample / forward ----
         ul = rng.random_1d(seed, pixel, sample_idx,
                            dim_base + rng.BounceDims.BSDF_LOBE, sobol)
         u1, u2 = rng.random_2d(seed, pixel, sample_idx,
@@ -385,11 +714,44 @@ def _make_bounce_body(scene, settings, seed):
         ok = ((flags & FLAG_VALID) != 0) & (torch.amax(wt, dim=-1) > 0)
         new_d = vm.to_global(tan, bit, ns, wo)
         new_o = info["p"]
-        thr_next = torch.where((active & ok)[..., None], throughput * wt,
+        if fwd_types:
+            new_d = vm.where3(take_forward, s["d"], new_d)
+            wt = torch.where(take_forward[..., None], fwd_weight, wt)
+            ok = torch.where(take_forward,
+                             torch.amax(fwd_weight, dim=-1) > 0, ok)
+        if has_media:
+            mi = torch.clamp(s["medium"], 0, media.n - 1).long()
+            phase_type = scene.med_phase[mi]
+            phase_g = scene.med_g[mi]
+            pw, _ = PH.phase_sample(phase_type, phase_g, s["d"], u1, u2)
+            new_d = vm.where3(vol_scatter, pw, new_d)
+            new_o = vm.where3(vol_scatter, med_point, new_o)
+            ok = torch.where(vol_scatter, True, ok)
+            wt = torch.where(vol_scatter[..., None], 1.0, wt)
+            moved = active | vol_scatter
+        else:
+            moved = active
+        thr_next = torch.where((moved & ok)[..., None], throughput * wt,
                                throughput)
         was_specular = torch.where(shade & ok, (flags & FLAG_SPECULAR) != 0,
                                    s["was_specular"])
-        alive2 = active & ok
+        if has_media:
+            # ref handleVolume: wasSpecular = !enableVolumeLightSampling
+            was_specular = torch.where(
+                vol_scatter, not settings.enable_volume_light_sampling,
+                was_specular)
+        alive2 = moved & ok
+
+        # ---- medium handoff at the surface (ref handleSurface tail) ----
+        if has_media:
+            geo_back = torch.sum(new_d * info["ng"], dim=-1) < 0.0
+            new_med = _select_medium(scene, info["prim"], s["medium"],
+                                     geo_back)
+            crossed = active & ok
+            medium = torch.where(crossed, new_med, s["medium"])
+            # state.reset() on surface scatter
+            med_first = med_first | crossed
+            med_bounce = torch.where(crossed, 0, med_bounce)
 
         # ---- russian roulette (ref PathTracer.cpp:111-117) ----
         r_pdf = torch.amax(torch.abs(thr_next), dim=-1)
@@ -406,16 +768,24 @@ def _make_bounce_body(scene, settings, seed):
         o2 = vm.where3(alive2, new_o + new_d * EPSILON, s["o"])
         d2 = vm.where3(alive2, new_d, s["d"])
 
-        # ---- NEE; the continuation ray is traced at the NEXT body's top
+        # ---- NEE at surface and medium vertices together; the
+        # continuation ray is traced at the NEXT body's top ----
         nee_rays = 0
         tr_nee = None
         if els and settings.num_lights > 0:
-            do_nee = shade & (bounce < settings.max_bounces - 1)
+            vertex = (shade | vol_scatter) if has_media else shade
+            do_nee = vertex & (bounce < settings.max_bounces - 1)
             ctx = dict(p=info["p"], sp=sp, frame=(tan, bit, ns),
                        wi_local=wi_local, gate=do_nee)
+            if has_media:
+                ctx.update(p=vm.where3(vol_scatter, med_point, info["p"]),
+                           is_volume=vol_scatter, ray_d=s["d"],
+                           medium=s["medium"], phase_type=phase_type,
+                           phase_g=phase_g)
             nee, nee_rays, tr_nee = _nee(scene, settings, ctx, seed, pixel,
                                          sample_idx, dim_base,
-                                         want_tr=settings.track_aovs)
+                                         want_tr=settings.track_aovs,
+                                         media=media)
             emission = emission + torch.where(do_nee[..., None],
                                               nee * throughput, 0.0)
 
@@ -453,6 +823,9 @@ def _make_bounce_body(scene, settings, seed):
             rays=s["rays"] + rays_top + nee_rays,
             pixel=pixel, sample=sample_idx,
         )
+        if has_media:
+            out.update(medium=medium, med_first=med_first,
+                       med_bounce=med_bounce)
         if one_sample:
             out["pdf_fwd"] = torch.where(shade & ok, pdf, s["pdf_fwd"])
         if "lane" in s:
