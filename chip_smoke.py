@@ -78,17 +78,36 @@ Phases (any failure exits non-zero):
      torch.profiler (launches per render, device busy share, K1's device
      ms by launch width); (d) a 64x64 4-spp image against the plain path
      on the CPU, with phase 6's gates;
-  9. the CLI (cli.render_scene) on the smoke scene at 256x256: (a) with
+  9. outdoor: (a) the smoke scene's layout under a skydome with an
+     infinite_sphere_cap sun (2 degrees) along its up axis, a point
+     light, an emissive analytic sphere, disk and capped cylinder, a
+     non-emissive analytic disk floor (in place of the floor quad) and
+     two cylinder pillars, a thinlens camera with an aperture bitmap
+     written with the port's IO, cat eye 0.3, its focus on a sphere, the
+     mitchell_netravali filter, the default renderer block; the cap sends
+     it down the simple two-strategy NEE; (b) under phase 4's gates and
+     by width: K1 on its camera rays with the far limits the analytic
+     hits give them, K2 on the simple sub-branch's shadow segments of one
+     full-width bounce body and K1 on that body's bsdf-strategy rays
+     (dead lanes far limit 0; bvh_intersect's time beside the kernel's);
+     (c) the full-width render (256x256, 16 spp, max_bounces 64) from
+     zero launch counts, then one more under torch.profiler (launches
+     per render, device busy share, K1's and K2's device ms by launch
+     width); (d) images against the plain path on the CPU with phase 6's
+     gates: the thinlens scene at 64x64, the same scene under an
+     equirectangular camera at 32x32 and a cubemap camera
+     (horizontal_cross) at 32x24, 4 spp each;
+  10. the CLI (cli.render_scene) on the smoke scene at 256x256: (a) with
      the output buffers (color with sample variance and A/B halves,
      depth, normal, albedo, visibility) at 16 spp, its color held
      against phase 5's image of the same samples; (b) with adaptive
      sampling at 64 spp, spp_step 16 (render_adaptive); launch counts
      from zero for each, every written file loaded and checked;
-  10. resume: the buffers render to 8 spp with enable_resume_render,
-     then continued to 16, against 9a's uninterrupted 16-spp image;
-  11. the HTTP server on a free port rendering the smoke scene at 64x64
+  11. resume: the buffers render to 8 spp with enable_resume_render,
+     then continued to 16, against 10a's uninterrupted 16-spp image;
+  12. the HTTP server on a free port rendering the smoke scene at 64x64
      in two rounds: /status, /render (PNG) and /log;
-  12. the kernels JSON line, then the result line.
+  13. the kernels JSON line, then the result line.
 """
 from __future__ import annotations
 
@@ -372,6 +391,76 @@ def write_media_scene(dirpath: str, res: int = RES, spp: int = SPP,
     with open(path, "w") as f:
         json.dump(sj, f, indent=1)
     return path, write_s
+
+
+def aperture_bitmap(n: int = 33):
+    """A hexagonal aperture bitmap with a brighter rim, (n, n, 3)."""
+    import numpy as np
+    c = (np.arange(n) + 0.5) / n * 2.0 - 1.0
+    X, Y = np.meshgrid(c, c)
+    hexr = np.maximum(np.abs(X) * np.cos(np.pi / 6) + np.abs(Y) * 0.5,
+                      np.abs(Y))
+    img = np.where(hexr <= 0.95, 1.0, 0.0) + \
+        np.where((hexr > 0.8) & (hexr <= 0.95), 0.5, 0.0)
+    return np.repeat(img[..., None], 3, -1).astype(np.float32)
+
+
+def write_outdoor_scene(dirpath: str, res: int = RES, spp: int = SPP) -> str:
+    """Write the outdoor scene: the smoke scene's spheres and area light
+    under a skydome and a 2-degree sun cap along the same axis (the sky
+    .pfm env map goes), a point light, an emissive analytic sphere, disk
+    and capped cylinder, an analytic disk floor in place of the floor
+    quad, two cylinder pillars, a thinlens camera (an aperture bitmap
+    written with the port's IO, cat eye 0.3, focus on the middle
+    sphere, the mitchell_netravali filter).  Returns its path."""
+    from tungsten_tpu_torch.io import image
+    path = write_scene(dirpath, res, spp)
+    with open(path) as f:
+        sj = json.load(f)
+    image.save_hdr(os.path.join(dirpath, "aperture.pfm"), aperture_bitmap())
+    sun = {"rotation": [35, 0, 25]}
+    prims = [p for p in sj["primitives"]
+             if p["type"] not in ("infinite_sphere", "quad")
+             or "emission" in p]
+    for p in prims:
+        if p.get("file") == "sphere_2_1.wo3":
+            p["name"] = "focus"
+    sj["bsdfs"] += [{"name": "stone", "type": "lambert",
+                     "albedo": [0.5, 0.48, 0.45]},
+                    {"name": "lamp", "type": "lambert", "albedo": 0.2}]
+    prims += [
+        {"type": "disk", "bsdf": "floor",
+         "transform": {"position": [0, 0, 0], "scale": 12}},
+        {"type": "cylinder", "bsdf": "stone", "capped": True,
+         "transform": {"position": [-3.4, 1.2, -1.2],
+                       "scale": [0.5, 2.4, 0.5]}},
+        {"type": "cylinder", "bsdf": "stone", "capped": True,
+         "transform": {"position": [3.4, 1.2, -1.2],
+                       "scale": [0.5, 2.4, 0.5]}},
+        {"type": "sphere", "bsdf": "lamp", "emission": [8.0, 5.0, 2.5],
+         "transform": {"position": [0.0, 1.7, -2.2], "scale": 0.3}},
+        {"type": "disk", "bsdf": "lamp", "power": [60.0, 60.0, 80.0],
+         "transform": {"position": [-2.0, 3.0, 1.0], "scale": 0.6,
+                       "rotation": [180, 0, 0]}},
+        {"type": "cylinder", "bsdf": "lamp", "emission": [1.5, 4.0, 2.0],
+         "capped": True,
+         "transform": {"position": [2.6, 0.4, 1.8],
+                       "scale": [0.25, 0.8, 0.25]}},
+        {"type": "point", "emission": [6.0, 6.0, 5.0],
+         "transform": {"position": [1.5, 2.5, 2.5]}},
+        {"type": "skydome", "turbidity": 3.0, "intensity": 2.0,
+         "transform": sun},
+        {"type": "infinite_sphere_cap", "cap_angle": 2.0,
+         "power": [6.0, 5.5, 4.5], "transform": sun}]
+    sj["primitives"] = prims
+    sj["camera"].update({
+        "type": "thinlens", "aperture": "aperture.pfm",
+        "aperture_size": 0.4, "cateye": 0.3, "focus_pivot": "focus",
+        "reconstruction_filter": "mitchell_netravali"})
+    path = os.path.join(dirpath, "outdoor.json")
+    with open(path, "w") as f:
+        json.dump(sj, f, indent=1)
+    return path
 
 
 # ---------------------------------------------------------------- timing
@@ -900,6 +989,79 @@ def check_media_hop(scene, settings) -> dict:
     return out
 
 
+def analytic_far(scene, o, d, t_max):
+    """The far limits bvh_intersect hands the triangle walk: clipped at
+    the geometry box, then cut at the nearest analytic hit."""
+    import torch
+    from tungsten_tpu_torch.ops import intersect as tis
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+    best, sph, dsk, cyl = tis._analytic_prims(
+        scene, o, d, torch.zeros_like(o[:, 0]), tis.geo_clip(scene, o, d,
+                                                             t_max))
+    return best, (sph >= 0) | (dsk >= 0) | (cyl >= 0)
+
+
+def check_outdoor_kernels(scene, settings) -> tuple[dict, dict, dict]:
+    """K1 on the camera rays with the far limits their analytic hits give
+    them, and the traversals of one full-width bounce body through the
+    simple two-strategy NEE, recorded as the body makes them: K2 on its
+    shadow segments (far limit dist * SHADOW_FUDGE, INF toward the cap,
+    0 where no shadow ray is traced) and K1 on its bsdf-strategy rays
+    (far limit INF where the strategy sample is live, else 0), each
+    with the analytic cut bvh_intersect applies, under phase 4's gates
+    and by width.  bvh_intersect's own time on the strategy wave (the
+    sort and the cull run over every ray) is timed beside the kernel.
+    Returns (camera, shadow, strategy)."""
+    import torch
+    from tungsten_tpu_torch.integrators import path_tracer as tpt
+    from tungsten_tpu_torch.ops import intersect as tis
+    dev = scene.device
+    n = settings.width * settings.height
+    pix = torch.arange(n, dtype=torch.int32, device=dev).repeat(SPP)
+    smp = torch.arange(SPP, dtype=torch.int32, device=dev).repeat_interleave(n)
+    s0 = tpt.init_wave(scene, settings, pix, smp, SEED)
+    far, ana = analytic_far(scene, s0["o"], s0["d"],
+                            torch.where(s0["alive"], 3.0e38, 0.0))
+    live = s0["alive"]
+    log(f"  camera rays: {int(live.sum())} live of {live.shape[0]} (the "
+        f"cat eye zeroes the rest); an analytic hit cuts the far limit of "
+        f"{ana[live].float().mean().item():.4f} of the live ones")
+    cam = check_closest(scene, "outdoor camera rays", s0["o"], s0["d"], far)
+    cam.pop("hits")
+    calls = []
+    orig = tpt.bvh_intersect
+
+    def record(sc, o, d, t_min, t_max, any_hit=False, presorted=False):
+        calls.append((o, d, t_min, t_max, any_hit))
+        return orig(sc, o, d, t_min, t_max, any_hit=any_hit,
+                    presorted=presorted)
+    tpt.bvh_intersect = record
+    try:
+        tpt._make_bounce_body(scene, settings, SEED)(s0)
+    finally:
+        tpt.bvh_intersect = orig
+    kinds = [("anyhit" if c[4] else "closest") for c in calls]
+    if kinds != ["closest", "anyhit", "closest"]:
+        raise AssertionError(f"outdoor body: traversals {kinds}, not the "
+                             f"simple sub-branch's three")
+    so, sd, _, s_tmax, _ = calls[1]
+    bo, bd, _, b_tmax, _ = calls[2]
+    s_far, _ = analytic_far(scene, so, sd, s_tmax)
+    log(f"  shadow segments: {int((s_tmax > 0).sum())} traced, "
+        f"{int((s_tmax >= 3.0e38).sum())} toward the cap or the sky")
+    shadow = check_anyhit(scene, so, sd, s_far)
+    b_far, _ = analytic_far(scene, bo, bd, b_tmax)
+    strat = check_closest(scene, "bsdf-strategy rays", bo, bd, b_far)
+    strat.pop("hits")
+    strat["live"] = int((b_tmax > 0).sum())
+    strat["bvh_intersect_ms"] = cuda_ms(
+        lambda: tis.bvh_intersect(scene, bo, bd, 0.0, b_tmax))
+    log(f"  bsdf-strategy rays: {strat['live']} live of {bo.shape[0]}; "
+        f"bvh_intersect {strat['bvh_intersect_ms']:.3f} ms beside the "
+        f"kernel's {strat['ms']:.3f} ms")
+    return cam, shadow, strat
+
+
 def render_counted(scene, settings, twt):
     """The main path with every launch count set to 0 just before and
     read just after: (image, stats, launches)."""
@@ -911,15 +1073,18 @@ def render_counted(scene, settings, twt):
     return img, stats, dict(twt.LAUNCHES)
 
 
-def cross_path(scene, settings, max_bounces: int | None = None) -> None:
-    """A 64x64 4-spp image from the kernel path against the port's plain
-    path on the CPU (the gates: <= 1 % of pixels off by more than
+def cross_path(scene, settings, max_bounces: int | None = None,
+               res=(64, 64), **changes) -> None:
+    """A res-sized 4-spp image from the kernel path against the port's
+    plain path on the CPU (the gates: <= 1 % of pixels off by more than
     rtol 1e-3 / atol 1e-4, means within 0.5 %), at the scene's bounce
-    limit or at `max_bounces`."""
+    limit or at `max_bounces`, with other settings `changes` (a camera
+    type)."""
     import numpy as np
     from tungsten_tpu_torch.render import render
-    small = replace(settings, width=64, height=64,
-                    max_bounces=max_bounces or settings.max_bounces)
+    small = replace(settings, width=res[0], height=res[1],
+                    max_bounces=max_bounces or settings.max_bounces,
+                    **changes)
     t0 = time.time()
     gpu = render(scene, small, spp=4, seed=SEED, spp_chunk=4)
     cpu = render(scene.to("cpu"), small, spp=4, seed=SEED, spp_chunk=4,
@@ -927,7 +1092,8 @@ def cross_path(scene, settings, max_bounces: int | None = None) -> None:
     close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1)
     off = 1.0 - close.mean()
     rel_mean = abs(gpu.mean() / cpu.mean() - 1.0)
-    log(f"cross-path 64x64 4 spp max_bounces {small.max_bounces}: "
+    log(f"cross-path {small.camera_type} {res[0]}x{res[1]} 4 spp "
+        f"max_bounces {small.max_bounces}: "
         f"{off * 100:.3f}% of pixels off by more "
         f"than rtol 1e-3 (atol 1e-4), mean {gpu.mean():.6f} vs "
         f"{cpu.mean():.6f} ({rel_mean * 100:.4f}%), {time.time() - t0:.1f}"
@@ -1554,7 +1720,69 @@ def main() -> int:
         mark("media (d)")
         del mscene
 
-        # 9. the CLI at the bench size: output buffers, then adaptive
+        # 9. analytic prims, cap / point / sky lights, the thinlens camera
+        log("outdoor scene:")
+        t0 = time.time()
+        opath = write_outdoor_scene(tmp)
+        oscene, osettings = flatten_scene(load_scene(opath))
+        torch.cuda.synchronize()
+        o_tri = oscene.tri_v0.shape[0]
+        from tungsten_tpu_torch.integrators.path_tracer import \
+            _one_sample_mis
+        log(f"  (a) {o_tri} triangles, walk {twt.traversal_kind(oscene)}; "
+            f"{oscene.sph_radius.shape[0]} spheres, {oscene.dsk_r.shape[0]} "
+            f"disks, {oscene.cyl_r.shape[0]} cylinders; {osettings.num_lights}"
+            f" lights (caps {osettings.num_caps}, points "
+            f"{osettings.has_points}), env {tuple(oscene.env_image.shape)} "
+            f"baked sky; camera {osettings.camera_type} aperture bitmap "
+            f"{oscene.cam_ap_hw.tolist()} focus {osettings.focus_distance:.3f}"
+            f" cat eye {osettings.cat_eye}, filter {osettings.filter}; "
+            f"one-sample MIS {_one_sample_mis(osettings)}; "
+            f"{time.time() - t0:.2f} s")
+        if not (90_000 <= o_tri <= 100_000 and
+                twt.traversal_kind(oscene) == "resident" and
+                osettings.num_caps == 1 and osettings.has_points and
+                osettings.has_sphere_lights and osettings.has_disk_lights and
+                osettings.has_cyl_lights and osettings.aperture_tex and
+                osettings.camera_type == "thinlens" and
+                not _one_sample_mis(osettings)):
+            raise AssertionError("outdoor scene off its layout")
+        mark("outdoor (a)")
+        log("  (b) K1 and K2 under analytic far limits and the simple NEE:")
+        ocam, oshadow, ostrat = check_outdoor_kernels(oscene, osettings)
+        mark("outdoor (b)")
+        log("  (c) render:")
+        oimg, ostats, olaunches = render_counted(oscene, osettings, twt)
+        log(f"  {osettings.width}x{osettings.height} {SPP} spp max_bounces "
+            f"{osettings.max_bounces}: {ostats['time']:.3f} s, "
+            f"{ostats['rays']} rays, {ostats['mrays_per_s']:.3f} Mrays/s on "
+            f"{card}; wave launches {olaunches}; image mean "
+            f"{oimg.mean():.6f}")
+        if not (np.isfinite(oimg).all() and oimg.mean() > 0):
+            raise AssertionError("outdoor render: image not finite or black")
+        if not (olaunches["closest"] > 0 and olaunches["anyhit"] > 0 and
+                olaunches["paged_closest"] == 0 and
+                olaunches["paged_anyhit"] == 0 and
+                olaunches["paged_walk"] == 0):
+            raise AssertionError(f"outdoor render: not K1 and K2 "
+                                 f"{olaunches}")
+        osum: dict = {}
+        oprof = profile_render(lambda: render(oscene, osettings, spp=SPP,
+                                              seed=SEED, spp_chunk=SPP),
+                               summary=osum)
+        log(f"  outdoor render: {osum.get('launches')} kernel launches a "
+            f"render beside {ostats['mrays_per_s']:.3f} Mrays/s")
+        mark("outdoor (c)")
+        log("  (d)")
+        cross_path(oscene, osettings)
+        cross_path(oscene, osettings, res=(32, 32),
+                   camera_type="equirectangular")
+        cross_path(oscene, osettings, res=(32, 24), camera_type="cubemap",
+                   cubemap_mode="horizontal_cross")
+        mark("outdoor (d)")
+        del oscene
+
+        # 10. the CLI at the bench size: output buffers, then adaptive
         log("cli:")
         bpath = scene_variant(path, "buffers.json", spp=SPP,
                               output_file="buffers.png",
@@ -1580,7 +1808,7 @@ def main() -> int:
                      img, 1.0, 1.0, 0.0, 0.05)
         mark("cli")
 
-        # 10. resume: 8 spp, then continued to 16
+        # 11. resume: 8 spp, then continued to 16
         log("resume:")
         rpath = scene_variant(path, "resume.json", spp=SPP, spp_step=8,
                               output_file="resume.png",
@@ -1593,20 +1821,20 @@ def main() -> int:
         if not (first["spp"] == 8 and second["spp"] == SPP):
             raise AssertionError("resume: wrong sample counts")
         res_hdr = image.load_hdr(os.path.join(rdir, "resume.pfm"))
-        # the same rays as 9a's, summed in float64 atomics in another
+        # the same rays as 10a's, summed in float64 atomics in another
         # order and traced in other waves (a tie between two triangles at
         # equal t may break another way)
         images_agree("resumed 8 + 8 spp vs uninterrupted 16 spp", res_hdr,
                      buf_hdr, 1e-4, 1e-5, 0.999, 1e-4)
         mark("resume")
 
-        # 11. the server
+        # 12. the server
         log("server:")
         server_run(scene_variant(path, "server.json", res=64, spp=8,
                                  spp_step=4))
         mark("server")
 
-    # 12. kernels line and result
+    # 13. kernels line and result
     closest_tol = ("vs plain walk: hit-set agreement > 0.998, same triangle "
                    "> 0.999, t within rtol 2e-3 on > 0.999 (the kernel's "
                    "own t and after the finalize), u/v atol 2e-3; "
@@ -1626,20 +1854,35 @@ def main() -> int:
              "limit EPSILON per ray) under the same gates, and its "
              "full-width wave with one ray in 16 live timed (sparse_wave); "
              "media_launches: K1's launches in the media render")
+    outdoor = ("; outdoor_*: the outdoor scene (analytic prims, the simple "
+               "two-strategy NEE) under the same gates, far limits cut at "
+               "the analytic hits; outdoor_launches / outdoor_render_ms: "
+               "its render's")
     k1 = "tungsten_tpu/ops/wave_trace.py:300"
     k3 = "tungsten_tpu/ops/wave_trace.py:724"
     k1_row = kernel_row("wave_trace_closest", "closest", prim, launches, k1,
-                        closest_tol + split + media,
-                        {"continuation": cont, "media_hop": mhop}, prof)
-    k1_row["media_launches"] = mlaunches["closest"]
-    k1_row["media_render_ms"] = (mprof["closest"]["ms"]
-                                 if mprof.get("closest") else None)
-    k1_row["media_render_by_width"] = (mprof["closest"]["by_width"]
-                                       if mprof.get("closest") else None)
+                        closest_tol + split + media + outdoor,
+                        {"continuation": cont, "media_hop": mhop,
+                         "outdoor_camera": ocam,
+                         "outdoor_strategy": ostrat}, prof)
+    k2_row = kernel_row("wave_trace_anyhit", "anyhit", shadow, launches, k1,
+                        anyhit_tol + split + outdoor,
+                        {"outdoor_shadow": oshadow}, prof)
+    for row, mode in ((k1_row, "closest"), (k2_row, "anyhit")):
+        for tag, lc, pr in (("media", mlaunches, mprof),
+                            ("outdoor", olaunches, oprof)):
+            if tag == "media" and mode == "anyhit":
+                continue
+            row[f"{tag}_launches"] = lc[mode]
+            row[f"{tag}_render_ms"] = pr[mode]["ms"] if pr.get(mode) \
+                else None
+            row[f"{tag}_render_by_width"] = (pr[mode]["by_width"]
+                                             if pr.get(mode) else None)
+    k1_row["outdoor_strategy"].update(
+        {k: ostrat[k] for k in ("live", "bvh_intersect_ms")})
     rows = [
         k1_row,
-        kernel_row("wave_trace_anyhit", "anyhit", shadow, launches, k1,
-                   anyhit_tol + split, {}, prof),
+        k2_row,
         kernel_row("wave_trace_paged_closest", "paged_closest", zprim,
                    zlaunches, k3, closest_tol + split,
                    {"continuation": zcont}, zprof),
@@ -1651,7 +1894,11 @@ def main() -> int:
         f"large_mrays_per_s {zstats['mrays_per_s']:.3f} media_render_s "
         f"{mstats['time']:.3f} media_mrays_per_s {mstats['mrays_per_s']:.3f}"
         f" media_launches_per_render {msum.get('launches')} "
-        f"media_idle {msum.get('idle')} cli_buffers_s "
+        f"media_idle {msum.get('idle')} outdoor_render_s "
+        f"{ostats['time']:.3f} outdoor_mrays_per_s "
+        f"{ostats['mrays_per_s']:.3f} outdoor_launches_per_render "
+        f"{osum.get('launches')} outdoor_idle {osum.get('idle')} "
+        f"cli_buffers_s "
         f"{cli_buf['seconds']:.3f} cli_buffers_mrays_per_s "
         f"{cli_buf['mrays_per_s']:.3f} cli_adaptive_s "
         f"{cli_ad['seconds']:.3f} cli_adaptive_mrays_per_s "

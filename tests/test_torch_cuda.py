@@ -27,7 +27,12 @@ file through the wave kernels.  The closest-hit kernel honours each
 ray's near limit on mostly dead waves of rays that start on a triangle
 (the generalized shadow ray's hops, t_min = EPSILON), and a small scene
 with fog, a voxel medium and forward-lobe surfaces renders through K1
-alone as the plain path renders it on the CPU.
+alone as the plain path renders it on the CPU.  With analytic spheres in
+the soup, the closest-hit kernel takes each ray's far limit from the
+analytic hit and K2 the simple NEE's shadow segments (far limit
+dist * SHADOW_FUDGE), both against the f32 brute force; and a small
+scene of analytic prims with cap, point and skydome lights under a
+thinlens camera renders through K1 and K2 as the plain path renders it.
 """
 from types import SimpleNamespace
 
@@ -901,6 +906,150 @@ def test_cuda_media_render_matches_plain_path(cuda_device):
     assert all(twt.LAUNCHES[k] == before[k]
                for k in ("anyhit", "paged_closest", "paged_anyhit",
                          "paged_walk"))
+    cpu = render(scene.to("cpu"), settings, spp=4, seed=7, spp_chunk=4,
+                 device="cpu")
+    assert np.isfinite(gpu).all() and gpu.mean() > 0
+    close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1)
+    assert close.mean() >= 0.99, close.mean()
+    assert abs(gpu.mean() / cpu.mean() - 1.0) <= 5e-3
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_under_analytic_far_limits(cuda_device):
+    """Analytic spheres in the soup: bvh_intersect tests them first and
+    hands K1 each ray's far limit from the nearest sphere hit (0 where a
+    ray is dead), so the triangle walk must honour far limits well inside
+    the box; K2 takes shadow segments toward points on the spheres, far
+    limit dist * SHADOW_FUDGE.  Both against the f32 brute force with the
+    same limits (the wave gates), the sphere channel where no triangle
+    is nearer."""
+    from tungsten_tpu_torch.integrators.path_tracer import SHADOW_FUDGE
+    v0, e1, e2 = _soup()
+    R = 4 * twt.BLOCK
+    o, _ = _rays(R, seed=21)
+    sc, order = _scene(v0, e1, e2, cuda_device)
+    rng = np.random.default_rng(22)
+    c = rng.uniform(-1.5, 1.5, (12, 3)).astype(np.float32)
+    r = rng.uniform(0.2, 0.5, 12).astype(np.float32)
+    # rays aimed near the spheres, so that many end on one
+    aim = c[rng.integers(0, 12, R)] + rng.normal(
+        scale=0.4, size=(R, 3)).astype(np.float32)
+    d = (aim - o) / np.linalg.norm(aim - o, axis=-1, keepdims=True)
+    d = d.astype(np.float32)
+    sc.sph_center = torch.from_numpy(c).to(cuda_device)
+    sc.sph_radius = torch.from_numpy(r).to(cuda_device)
+    for k in ("dsk_r", "cyl_r"):
+        setattr(sc, k, torch.zeros((0,), device=cuda_device))
+    tmax = np.full((R,), 3e38, np.float32)
+    tmax[::9] = 0.0
+    live = tmax > 0
+    to = lambda x: torch.from_numpy(x).to(cuda_device)   # noqa: E731
+    # the analytic test alone gives the triangle walk's far limits
+    best_t, sph, _, _ = tis._analytic_prims(
+        sc, to(o), to(d), to(np.zeros(R, np.float32)),
+        tis.geo_clip(sc, to(o), to(d), to(tmax)))
+    sph_hit = (sph >= 0).cpu().numpy()
+    assert sph_hit[live].mean() > 0.2
+    before = dict(twt.LAUNCHES)
+    res = tis.bvh_intersect(sc, to(o), to(d), 0.0, to(tmax))
+    assert twt.LAUNCHES["closest"] == before["closest"] + 1
+    far = best_t.cpu().numpy()
+    bt, bi, uu, vv = _brute(v0, e1, e2, o, d, 0.0, far)
+    tri = res["tri"].cpu().numpy()
+    tri = np.where(tri >= 0, order[np.clip(tri, 0, None)], -1)
+    _gates(res["t"].cpu().numpy(), tri, res["u"].cpu().numpy(),
+           res["v"].cpu().numpy(), bt, bi, uu, vv, live)
+    # a sphere wins exactly where no triangle is nearer
+    got_sph = res["sph"].cpu().numpy() >= 0
+    assert ((got_sph == (sph_hit & (bi < 0))) | ~live).mean() > 0.998
+    # the plain walk under the same limits agrees
+    pt, pi, _, _ = _hits(tis.bvh_walk, sc, order, o, d,
+                         np.zeros(R, np.float32), far, False)
+    assert ((pi >= 0) == (bi >= 0))[live].mean() > 0.998
+
+    # K2 on shadow segments toward points on the spheres' near sides (the
+    # simple NEE's), the far limits cut by any sphere in between
+    k = rng.integers(0, 12, R)
+    w = rng.normal(size=(R, 3)).astype(np.float32)
+    w /= np.linalg.norm(w, axis=-1, keepdims=True)
+    w = np.where(np.sum(w * (o - c[k]), -1, keepdims=True) < 0, -w, w)
+    q = c[k] + r[k, None] * w
+    to_q = q - o
+    dist = np.linalg.norm(to_q, axis=-1).astype(np.float32)
+    sd = (to_q / dist[:, None]).astype(np.float32)
+    far_s = np.where(live, dist * np.float32(SHADOW_FUDGE),
+                     np.float32(0.0)).astype(np.float32)
+    best_s, sph_s, _, _ = tis._analytic_prims(
+        sc, to(o), to(sd), to(np.zeros(R, np.float32)),
+        tis.geo_clip(sc, to(o), to(sd), to(far_s)))
+    before = dict(twt.LAUNCHES)
+    occ = tis.bvh_intersect(sc, to(o), to(sd), 0.0, to(far_s),
+                            any_hit=True)
+    assert twt.LAUNCHES["anyhit"] == before["anyhit"] + 1
+    occ_tri = (occ["tri"] >= 0).cpu().numpy()
+    far_k2 = best_s.cpu().numpy()
+    _, bi_s, _, _ = _brute(v0, e1, e2, o, sd, 0.0, far_k2)
+    assert (occ_tri == (bi_s >= 0))[live].mean() > 0.998
+    assert not occ_tri[~live].any()
+    assert 0.05 < occ_tri[live].mean() < 0.95
+    assert np.array_equal(occ["hit"].cpu().numpy(),
+                          occ_tri | (sph_s >= 0).cpu().numpy())
+    _, tri_c, _, _ = _hits(twt.wave_intersect, sc, order, o, sd,
+                           np.zeros(R, np.float32), far_k2, False)
+    assert np.array_equal(occ_tri, tri_c >= 0)
+
+
+@pytest.mark.cuda
+def test_cuda_analytic_render_matches_plain_path(cuda_device, tmp_path):
+    """A 32x32 render of analytic prims (an emissive sphere, disk and
+    capped cylinder, a disk floor), a point light, a skydome with an
+    infinite_sphere_cap sun and a thinlens camera with a cat eye: the cap
+    takes the simple two-strategy NEE, so K1 and K2 both launch, and the
+    image is the plain path's on the CPU (<= 1 % of pixels off by more
+    than rtol 1e-3 / atol 1e-4, means within 0.5 %)."""
+    from tungsten_tpu_torch.render import render
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.parse import SceneDesc
+    sun = {"rotation": [25, 0, 15]}
+    desc = SceneDesc(
+        path=str(tmp_path / "scene.json"), json={},
+        bsdfs=[{"type": "lambert", "albedo": [0.6, 0.5, 0.4]},
+               {"type": "mirror", "albedo": 0.9}],
+        primitives=[
+            {"type": "disk", "bsdf_index": 0,
+             "transform": {"position": [0, -1, 0], "scale": 6}},
+            {"type": "cube", "bsdf_index": 0,
+             "transform": {"position": [0.3, -0.6, 0], "scale": 0.8}},
+            {"type": "sphere", "bsdf_index": 0, "emission": [5, 4, 3],
+             "transform": {"position": [-0.8, 0, -0.5], "scale": 0.3}},
+            {"type": "disk", "bsdf_index": 0, "power": [30, 30, 30],
+             "transform": {"position": [0, 2, 0], "scale": 0.6,
+                           "rotation": [180, 0, 0]}},
+            {"type": "cylinder", "bsdf_index": 1, "capped": True,
+             "transform": {"position": [1, -0.4, -0.5],
+                           "scale": [0.4, 1.2, 0.4]}},
+            {"type": "cylinder", "bsdf_index": 0, "emission": [1, 3, 1],
+             "transform": {"position": [-1.2, -0.5, 0.6],
+                           "scale": [0.2, 1.0, 0.2]}},
+            {"type": "point", "emission": [3, 3, 3],
+             "transform": {"position": [0.5, 1.2, 1.0]}},
+            {"type": "skydome", "transform": sun},
+            {"type": "infinite_sphere_cap", "cap_angle": 2.0,
+             "power": [4, 4, 3], "transform": sun},
+            {"type": "sphere", "name": "pivot", "bsdf_index": 1,
+             "transform": {"position": [0.4, 0.1, 0.6], "scale": 0.3}}],
+        media=[], camera={"type": "thinlens", "resolution": [32, 32],
+                          "fov": 60, "aperture_size": 0.05,
+                          "cateye": 0.03, "focus_pivot": "pivot",
+                          "reconstruction_filter": "mitchell_netravali",
+                          "transform": {"position": [0, 0.6, 4.0],
+                                        "look_at": [0, 0.0, 0]}},
+        integrator={"max_bounces": 8}, renderer={"spp": 4})
+    scene, settings = flatten_scene(desc)
+    assert settings.num_caps == 1 and settings.has_points
+    before = dict(twt.LAUNCHES)
+    gpu = render(scene, settings, spp=4, seed=7, spp_chunk=4)
+    assert all(twt.LAUNCHES[k] > before[k] for k in ("closest", "anyhit"))
     cpu = render(scene.to("cpu"), settings, spp=4, seed=7, spp_chunk=4,
                  device="cpu")
     assert np.isfinite(gpu).all() and gpu.mean() > 0

@@ -115,13 +115,19 @@ def test_mesh_scene_equals_jax(tmp_path):
 
 
 @pytest.mark.parametrize("key,what", [("crv_seg_p0", "curves"),
-                                      ("dsk_r", "disks"),
-                                      ("sph_radius", "spheres")])
+                                      ("crv_pc_q0", "curves"),
+                                      ("bsdf_type", "fiber")])
 def test_carry_across_refuses_unported_tables(key, what):
-    """A JAX scene with curves or analytic primitives cannot be carried
-    across silently: the port does not shade them yet."""
+    """A JAX scene with curves (segment or piece tables) or a fiber BSDF
+    cannot be carried across silently: the port does not shade them
+    yet."""
+    from tungsten_tpu.bsdf import types as jbt
     js, _ = jax_flatten(_scene())
     flds = jax_fields(js)
-    flds[key] = np.zeros((1, 4), np.float32)
+    if key == "bsdf_type":
+        flds[key] = np.asarray(flds[key]).copy()
+        flds[key][-1] = jbt.HAIR
+    else:
+        flds[key] = np.zeros((1, 4), np.float32)
     with pytest.raises(NotImplementedError, match=what):
         flat_scene_from_numpy(flds, "cpu")

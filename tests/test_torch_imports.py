@@ -47,14 +47,20 @@ def test_every_port_module_imports_without_jax():
               "tools.mxubench", "tools.denoiser", "tools.hdrmanip",
               "tools.scenemanip", "tools.obj2json", "tools.json2xml",
               "utils.debug", "media.phase", "media.transmittance",
-              "media.grid", "io.vdb"):
+              "media.grid", "io.vdb", "scene.sky", "scene.hosek_data",
+              "cameras.camera", "integrators.lights"):
         assert "tungsten_tpu_torch." + m in mods
+    # the sky bake reads the port's own copy of the Hosek-Wilkie data
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'flax', 'tungsten_tpu'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            "from tungsten_tpu_torch.scene import hosek_data, sky\n"
+            "assert hosek_data.DATASET.startswith("
+            f"{os.path.join(PKG, 'scene')!r})\n"
+            "assert sky.generate_sky([0, 1, 0], width=8, height=4).max() > 0\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'tungsten_tpu') and sys.modules[m] is not None]\n"
             "assert not bad, bad\n")
@@ -149,8 +155,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_unported_features_raise():
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     desc = _tiny_scene()
-    desc.primitives.append({"type": "sphere", "bsdf_index": 0})
-    with pytest.raises(NotImplementedError, match="sphere"):
+    desc.primitives.append({"type": "curves", "bsdf_index": 0,
+                            "file": "hair.bcc"})
+    with pytest.raises(NotImplementedError, match="curves"):
         flatten_scene(desc, device="cpu")
     # the fiber BSDFs are not ported yet
     for name in ("hair", "rough_wire", "lambertian_fiber"):

@@ -1,6 +1,7 @@
 """Wavefront path tracer (port of tungsten_tpu/integrators/
-path_tracer.py: the bounce body with media and forward-lobe surfaces,
-both NEE estimators, staged compaction).
+path_tracer.py: the bounce body with media, forward-lobe surfaces and
+analytic primitives, every light type of the JAX package, both NEE
+estimators, staged compaction).
 
 SoA ray/path state over the whole wavefront; per bounce one closest-hit
 traversal at the top of the body (camera ray at bounce 0, the previous
@@ -12,13 +13,17 @@ in the JAX package:
     the continuation bsdf sample doubles as the bsdf-side strategy, and
     emitter / env hits are power-heuristic-weighted against the
     light-selection-aware NEE density.
-  * TWO-STRATEGY NEE (the reference's estimateDirect), for the rest: the
-    light sample and an independent bsdf (or phase) sample toward the
-    chosen light, each weighted by the power heuristic.  Their
+  * TWO-STRATEGY NEE (the reference's estimateDirect), for the rest
+    (media, forward-lobe surfaces, cap lights): the light sample and an
+    independent bsdf (or phase) sample toward the chosen light, each
+    weighted by the power heuristic.  With media or forward lobes their
     visibility is the generalized shadow ray (`_shadow_transmittance`):
     closest-hit hops through forward-lobe surfaces, accumulating each
-    medium segment's transmittance.  Direct emitter and env hits then
-    count only after a specular vertex (or with light sampling off).
+    medium segment's transmittance.  Without them (a cap-light scene)
+    the simple sub-branch traces one any-hit shadow segment and one
+    closest hit for the strategy ray.  Direct emitter, env and cap hits
+    then count only after a specular vertex (or with light sampling
+    off); point lights are Dirac and take the light strategy alone.
 
 Media: homogeneous distance sampling with spectral channel MIS and the
 transmittance laws of media/transmittance.py (HomogeneousMedium.cpp:
@@ -49,7 +54,9 @@ from tungsten_tpu_torch.media import grid as GR
 from tungsten_tpu_torch.media import phase as PH
 from tungsten_tpu_torch.media import transmittance as TR
 from tungsten_tpu_torch.ops.intersect import bvh_intersect, ray_sort_key
-from tungsten_tpu_torch.scene.flatten import LIGHT_AREA, LIGHT_INFINITE
+from tungsten_tpu_torch.scene.flatten import (
+    LIGHT_AREA, LIGHT_CAP, LIGHT_CYLINDER, LIGHT_DISK, LIGHT_INFINITE,
+    LIGHT_POINT, LIGHT_SPHERE)
 from tungsten_tpu_torch.utils import rng
 from tungsten_tpu_torch.utils import vecmath as vm
 
@@ -65,11 +72,6 @@ def _check_supported(settings):
         raise NotImplementedError(
             f"tungsten_tpu_torch: bsdf types {names} (fiber) are not ported "
             f"yet")
-    if settings.num_caps or settings.has_points or settings.has_disk_lights \
-            or settings.has_cyl_lights or settings.has_sphere_lights:
-        raise NotImplementedError(
-            "tungsten_tpu_torch: cap, point and analytic lights are not "
-            "ported yet")
 
 
 def _has_forward_types(settings) -> bool:
@@ -78,11 +80,12 @@ def _has_forward_types(settings) -> bool:
 
 
 def _one_sample_mis(settings) -> bool:
-    """The JAX package's one-sample-MIS condition, for ported scenes (no
-    cap lights, no MMLT path-length restriction)."""
+    """The JAX package's one-sample-MIS condition (the port has no MMLT
+    path-length restriction): no media, no forward lobes, light sampling
+    on, and no cap lights."""
     return (not settings.has_media and not _has_forward_types(settings)
             and bool(settings.enable_light_sampling)
-            and settings.num_lights > 0)
+            and settings.num_lights > 0 and settings.num_caps == 0)
 
 
 def _light_select_pmf(scene, settings, p, li):
@@ -235,10 +238,11 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
     u1, u2 = rng.random_2d(seed, pixel, sample_idx,
                            bounce_dim_base + rng.BounceDims.LIGHT_SAMPLE,
                            sobol)
-    if settings.has_area_lights:
+    if settings.has_area_lights or settings.has_cyl_lights:
         u_tri = rng.random_1d(seed, pixel, sample_idx,
                               bounce_dim_base + rng.BounceDims.LIGHT_TRI,
                               sobol)
+    if settings.has_area_lights:
         a = L.area_light_sample(scene, li, p, u_tri, u1, u2)
     else:
         # every light is the env: skip the triangle alias machinery
@@ -257,6 +261,41 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
     else:
         d, dist, pdf, emis, valid = (a["d"], a["dist"], a["pdf"],
                                      a["emission"], a["valid"])
+    if settings.num_caps > 0:
+        is_cap = ltype == LIGHT_CAP
+        cd, cpdf = L.cap_light_sample(scene, li, u1, u2)
+        d = vm.where3(is_cap, cd, d)
+        dist = torch.where(is_cap, INF, dist)
+        pdf = torch.where(is_cap, cpdf, pdf)
+        emis = torch.where(is_cap[..., None], scene.light_emission[li], emis)
+        valid = valid | is_cap
+    # point lights are Dirac: the light strategy alone, weight 1
+    if settings.has_points:
+        is_pt = ltype == LIGHT_POINT
+        pvec = scene.light_aux[li, :3] - p
+        p_rsq = torch.sum(pvec * pvec, dim=-1)
+        p_dist = torch.sqrt(torch.clamp(p_rsq, min=1e-20))
+        d = vm.where3(is_pt, pvec / p_dist[..., None], d)
+        dist = torch.where(is_pt, p_dist, dist)
+        pdf = torch.where(is_pt, p_rsq, pdf)
+        emis = torch.where(is_pt[..., None], scene.light_emission[li], emis)
+        valid = valid | is_pt
+    for present, kind, sample in (
+            (settings.has_disk_lights, LIGHT_DISK,
+             lambda: L.disk_light_sample(scene, li, p, u1, u2)),
+            (settings.has_cyl_lights, LIGHT_CYLINDER,
+             lambda: L.cyl_light_sample(scene, li, p, u1, u2, u_tri)),
+            (settings.has_sphere_lights, LIGHT_SPHERE,
+             lambda: L.sphere_light_sample(scene, li, p, u1, u2))):
+        if not present:
+            continue
+        is_k = ltype == kind
+        ls = sample()
+        d = vm.where3(is_k, ls["d"], d)
+        dist = torch.where(is_k, ls["dist"], dist)
+        pdf = torch.where(is_k, ls["pdf"], pdf)
+        emis = torch.where(is_k[..., None], ls["emission"], emis)
+        valid = torch.where(is_k, ls["valid"], valid)
 
     def eval_f_pdf(d_world):
         """(f (R,3) with cos folded in, pdf (R,)) of the scatter function
@@ -285,22 +324,43 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
         tr = torch.where((do_shadow & ~occ)[..., None], 1.0, 0.0)
         pmf = 1.0 / sel_weight
         mis_l = L.power_heuristic(pdf * pmf, pdf_counter)
+        if settings.has_points:
+            mis_l = torch.where(is_pt, 1.0, mis_l)
         out = f * tr * emis / torch.clamp(pdf, min=1e-20)[..., None] \
             * mis_l[..., None] * sel_weight[..., None]
         return (out, torch.sum(do_shadow.to(torch.int64)),
                 (tr, do_shadow) if want_tr else None)
 
-    # ---- two strategies: the light sample's generalized shadow ray ----
+    # ---- two strategies: the light sample's visibility, through the
+    # generalized shadow ray where media or forward lobes are present,
+    # else one any-hit segment (the simple sub-branch) ----
+    simple = not settings.has_media and not _has_forward_types(settings)
     surface_light = ltype == LIGHT_AREA
+    if settings.has_disk_lights or settings.has_cyl_lights or \
+            settings.has_sphere_lights:
+        surface_light = surface_light | (ltype == LIGHT_DISK) | \
+            (ltype == LIGHT_CYLINDER) | (ltype == LIGHT_SPHERE)
     endcap = torch.where(surface_light, scene.light_prim[li], -2)
     not_vol = ~is_vol if is_vol is not None else torch.ones_like(gate)
     medium = ctx.get("medium")
     if medium is None:
         medium = torch.full((R,), -1, dtype=torch.int32, device=p.device)
-    tr = _shadow_transmittance(scene, settings, media, shadow_o, d, dist,
-                               medium, not_vol, do_shadow, endcap)
-    tr = torch.where(do_shadow[..., None], tr, 0.0)
+    if simple:
+        # the reference's occluded() with farT shy of the light sample:
+        # no endcap test (TraceableScene.hpp occlusion path)
+        far_sh = torch.where(
+            do_shadow, torch.where(dist >= INF, INF, dist * SHADOW_FUDGE),
+            0.0)
+        occ = bvh_intersect(scene, shadow_o, d, 0.0, far_sh,
+                            any_hit=True)["hit"]
+        tr = torch.where((do_shadow & ~occ)[..., None], 1.0, 0.0)
+    else:
+        tr = _shadow_transmittance(scene, settings, media, shadow_o, d, dist,
+                                   medium, not_vol, do_shadow, endcap)
+        tr = torch.where(do_shadow[..., None], tr, 0.0)
     mis_l = L.power_heuristic(pdf, pdf_counter)
+    if settings.has_points:
+        mis_l = torch.where(is_pt, 1.0, mis_l)
     contrib_l = f * tr * emis / torch.clamp(pdf, min=1e-20)[..., None] \
         * mis_l[..., None]
 
@@ -332,7 +392,9 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
     hit_prim = _hit_prim(scene, res_b)
     nb = _hit_ng(scene, res_b, ob, wd)
     hit_t = torch.where(res_b["hit"], res_b["t"], 1.0)
-    lpdf = L.area_light_direct_pdf(scene, li, hit_t, wd, nb)
+    lpdf = L.area_light_direct_pdf(
+        scene, li, hit_t, wd, nb, p=p,
+        has_sphere_lights=settings.has_sphere_lights)
     front = torch.sum(wd * nb, dim=-1) < 0.0
     got = surface_light & res_b["hit"] & \
         (hit_prim == scene.light_prim[li]) & front
@@ -345,10 +407,22 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
         lpdf = torch.where(is_env, L.env_pdf(scene, wd,
                                              active=escape & trace_b), lpdf)
         got = torch.where(is_env, escape, got)
-    # visibility of the strategy ray: the transmittance along its segment
-    seg = torch.where(res_b["hit"], res_b["t"], INF)
-    tr_b = _shadow_transmittance(scene, settings, media, ob, wd, seg, medium,
-                                 not_vol, trace_b, endcap)
+    if settings.num_caps > 0:
+        aux = scene.light_aux[li]
+        in_cap = torch.sum(wd * aux[..., :3], dim=-1) >= aux[..., 3]
+        got = torch.where(is_cap, ~res_b["hit"] & in_cap, got)
+        e_b = torch.where(is_cap[..., None], scene.light_emission[li], e_b)
+        lpdf = torch.where(is_cap, L.cap_pdf_value(aux[..., 3]), lpdf)
+    if settings.has_points:
+        got = got & ~is_pt   # no bsdf strategy toward a Dirac light
+    if simple:
+        # the closest hit already decides the strategy ray's visibility
+        tr_b = 1.0
+    else:
+        # the transmittance along the strategy ray's segment
+        seg = torch.where(res_b["hit"], res_b["t"], INF)
+        tr_b = _shadow_transmittance(scene, settings, media, ob, wd, seg,
+                                     medium, not_vol, trace_b, endcap)
     mis_b = L.power_heuristic(pdf_b, lpdf)
     contrib_b = torch.where((ok_b & got)[..., None],
                             wt_b * tr_b * e_b * mis_b[..., None], 0.0)
@@ -407,24 +481,33 @@ def _hit_ng(scene, res, o=None, d=None):
         ng = vm.where3(res["dsk"] >= 0, scene.dsk_n[di], ng)
     if scene.cyl_r.shape[0] > 0:
         yi = _clip_idx(res["cyl"], scene.cyl_r.shape[0])
-        p = o + d * res["t"][..., None]
-        rot = scene.cyl_rot[yi]
-        pl = torch.sum((p - scene.cyl_pos[yi])[..., :, None] * rot, dim=-2)
-        r_y = torch.clamp(scene.cyl_r[yi], min=1e-20)
-        hh = torch.clamp(scene.cyl_hh[yi], min=1e-20)
-        px, py, pz = pl[..., 0] / r_y, pl[..., 1], pl[..., 2] / r_y
-        on_cap = (torch.abs(torch.abs(py) - hh) < 1e-4 * hh) & \
-            (px * px + pz * pz < 1.0) & scene.cyl_capped[yi]
-        n_side = torch.stack([px, torch.zeros_like(px), pz], -1)
-        n_side = n_side / torch.clamp(
-            torch.linalg.vector_norm(n_side, dim=-1, keepdim=True), min=1e-20)
-        n_cap = torch.stack([torch.zeros_like(py),
-                             torch.where(py >= 0, 1.0, -1.0),
-                             torch.zeros_like(py)], -1)
-        n_loc = vm.where3(on_cap, n_cap, n_side)
-        ng = vm.where3(res["cyl"] >= 0,
-                       torch.sum(rot * n_loc[..., None, :], dim=-1), ng)
+        n_w = _cyl_hit(scene, yi, o + d * res["t"][..., None])[0]
+        ng = vm.where3(res["cyl"] >= 0, n_w, ng)
     return ng
+
+
+def _cyl_hit(scene, yi, p):
+    """A hit p on analytic cylinder yi (ref Cylinder::intersectionInfo,
+    Cylinder.cpp:123-133): a cap hit (on an end plane within tolerance,
+    inside the unit circle; the rim belongs to the side) takes the axial
+    normal, a side hit the radial one.  Returns (n (R,3) world, on_cap,
+    the local hit (px, py, pz) with xz over the radius, half height)."""
+    rot = scene.cyl_rot[yi]
+    pl = torch.sum((p - scene.cyl_pos[yi])[..., :, None] * rot, dim=-2)
+    r_y = torch.clamp(scene.cyl_r[yi], min=1e-20)
+    hh = torch.clamp(scene.cyl_hh[yi], min=1e-20)
+    px, py, pz = pl[..., 0] / r_y, pl[..., 1], pl[..., 2] / r_y
+    on_cap = (torch.abs(torch.abs(py) - hh) < 1e-4 * hh) & \
+        (px * px + pz * pz < 1.0) & scene.cyl_capped[yi]
+    n_side = torch.stack([px, torch.zeros_like(px), pz], -1)
+    n_side = n_side / torch.clamp(
+        torch.linalg.vector_norm(n_side, dim=-1, keepdim=True), min=1e-20)
+    n_cap = torch.stack([torch.zeros_like(py),
+                         torch.where(py >= 0, 1.0, -1.0),
+                         torch.zeros_like(py)], -1)
+    n_loc = vm.where3(on_cap, n_cap, n_side)
+    return (torch.sum(rot * n_loc[..., None, :], dim=-1), on_cap,
+            (px, py, pz), hh)
 
 
 def _hit_uv_bsdf(scene, res):
@@ -451,7 +534,8 @@ def _hit_uv_bsdf(scene, res):
 
 
 def _expand_hit(scene, o, d, res):
-    """IntersectionInfo expansion: position, normals, uv, prim, bsdf."""
+    """IntersectionInfo expansion: position, normals, uv, prim, bsdf, over
+    the triangle and analytic (sphere, disk, cylinder) channels."""
     t = res["t"]
     p = o + d * t[..., None]
     u = res["u"][..., None]
@@ -476,6 +560,48 @@ def _expand_hit(scene, o, d, res):
             torch.tensor([0.0, 0.0, 1.0], device=p.device), p.shape)
         uv = torch.cat([u, v], dim=-1)
         prim = torch.zeros(t.shape, dtype=torch.int32, device=p.device)
+    if scene.sph_radius.shape[0] > 0:
+        is_s = res["sph"] >= 0
+        si = _clip_idx(res["sph"], scene.sph_radius.shape[0])
+        ng_s = (p - scene.sph_center[si]) / torch.clamp(
+            scene.sph_radius[si][..., None], min=1e-20)
+        ng = vm.where3(is_s, ng_s, ng)
+        ns = vm.where3(is_s, ng_s, ns)
+        prim = torch.where(is_s, scene.sph_prim[si], prim)
+        uv_s = torch.stack(
+            [torch.atan2(ng_s[..., 2], ng_s[..., 0]) * vm.INV_TWO_PI + 0.5,
+             torch.acos(torch.clamp(-ng_s[..., 1], -1, 1)) * vm.INV_PI], -1)
+        uv = torch.where(is_s[..., None], uv_s, uv)
+    if scene.dsk_r.shape[0] > 0:
+        # ref Disk::intersectionInfo (Disk.cpp:113-127): Ng = Ns = n, uv
+        # (azimuth, radial fraction) in the disk's frame
+        is_d = res["dsk"] >= 0
+        di = _clip_idx(res["dsk"], scene.dsk_r.shape[0])
+        nd = scene.dsk_n[di]
+        dv = p - scene.dsk_c[di]
+        tan_d, bit_d = vm.ortho_frame(nd)
+        x = torch.sum(dv * bit_d, dim=-1)
+        y = torch.sum(dv * tan_d, dim=-1)
+        r_frac = torch.linalg.vector_norm(dv, dim=-1) / \
+            torch.clamp(scene.dsk_r[di], min=1e-20)
+        ng = vm.where3(is_d, nd, ng)
+        ns = vm.where3(is_d, nd, ns)
+        prim = torch.where(is_d, scene.dsk_prim[di], prim)
+        uv = torch.where(is_d[..., None], torch.stack(
+            [torch.atan2(y, x) * vm.INV_TWO_PI + 0.5, r_frac], -1), uv)
+    if scene.cyl_r.shape[0] > 0:
+        is_y = res["cyl"] >= 0
+        yi = _clip_idx(res["cyl"], scene.cyl_r.shape[0])
+        # caps take planar uv, the side (azimuth, height)
+        n_w, on_cap, (px, py, pz), hh = _cyl_hit(scene, yi, p)
+        uv_y = torch.where(
+            on_cap[..., None], torch.stack([px, pz], -1) * 0.5 + 0.5,
+            torch.stack([torch.atan2(pz, px) * vm.INV_TWO_PI + 0.5,
+                         py / (2.0 * hh) + 0.5], -1))
+        ng = vm.where3(is_y, n_w, ng)
+        ns = vm.where3(is_y, n_w, ns)
+        prim = torch.where(is_y, scene.cyl_prim[yi], prim)
+        uv = torch.where(is_y[..., None], uv_y, uv)
     prim = torch.clamp(prim, 0, scene.prim_bsdf.shape[0] - 1).long()
     return dict(p=p, ng=ng, ns=ns, uv=uv, prim=prim,
                 bsdf=scene.prim_bsdf[prim].long())
@@ -656,26 +782,36 @@ def _make_bounce_body(scene, settings, seed):
             active = alive & res["hit"]
             escaped = alive & ~res["hit"]
 
-        # ---- escaped rays: environment (ref handleInfiniteLights) ----
-        if settings.has_env:
+        # ---- escaped rays: environment and caps (ref
+        # handleInfiniteLights) ----
+        if settings.has_env or settings.num_caps > 0:
             env_ok = escaped & (bounce >= settings.min_bounces)
             guard = s["was_specular"] | (not els)
-            env_val = L.env_eval(scene, s["d"], active=env_ok)
-            env_guard = guard | (scene.env_light_index < 0)
-            if one_sample:
-                eli = torch.broadcast_to(scene.env_light_index,
-                                         pixel.shape).to(torch.int32)
-                epdf = L.env_pdf(scene, s["d"], active=env_ok) * \
-                    _light_select_pmf(scene, settings, s["o"], eli)
-                w_env = torch.where(env_guard, 1.0,
-                                    L.power_heuristic(s["pdf_fwd"], epdf))
+            if settings.has_env:
+                env_val = L.env_eval(scene, s["d"], active=env_ok)
+                env_guard = guard | (scene.env_light_index < 0)
+                if one_sample:
+                    eli = torch.broadcast_to(scene.env_light_index,
+                                             pixel.shape).to(torch.int32)
+                    epdf = L.env_pdf(scene, s["d"], active=env_ok) * \
+                        _light_select_pmf(scene, settings, s["o"], eli)
+                    w_env = torch.where(
+                        env_guard, 1.0, L.power_heuristic(s["pdf_fwd"], epdf))
+                    emission = emission + torch.where(
+                        env_ok[..., None],
+                        throughput * env_val * w_env[..., None], 0.0)
+                else:
+                    emission = emission + torch.where(
+                        (env_ok & env_guard)[..., None],
+                        throughput * env_val, 0.0)
+            if settings.num_caps > 0:
+                # a samplable cap counts under the guard, an unsamplable
+                # one always
+                cap_samp, cap_unsamp = L.eval_caps(scene, s["d"])
                 emission = emission + torch.where(
-                    env_ok[..., None], throughput * env_val * w_env[..., None],
-                    0.0)
-            else:
-                emission = emission + torch.where(
-                    (env_ok & env_guard)[..., None], throughput * env_val,
-                    0.0)
+                    env_ok[..., None], throughput * (
+                        torch.where(guard[..., None], cap_samp, 0.0)
+                        + cap_unsamp), 0.0)
 
         info = _expand_hit(scene, s["o"], s["d"], res)
         # two-sided shading: flip the shading frame toward the ray;
@@ -805,8 +941,9 @@ def _make_bounce_body(scene, settings, seed):
         take_emit = shade & is_emissive & front & \
             (bounce >= settings.min_bounces)
         if one_sample:
-            lpdf = L.area_light_direct_pdf(scene, li.long(), res["t"],
-                                           s["d"], info["ng"]) * \
+            lpdf = L.area_light_direct_pdf(
+                scene, li.long(), res["t"], s["d"], info["ng"], p=s["o"],
+                has_sphere_lights=settings.has_sphere_lights) * \
                 _light_select_pmf(scene, settings, s["o"], li)
             w_emit = torch.where(guard, 1.0,
                                  L.power_heuristic(s["pdf_fwd"], lpdf))

@@ -94,9 +94,8 @@ def _argmin_winner(ts, best_t):
 def _analytic_prims(scene, o, d, t_min, t_max):
     """Dense tests against every analytic primitive (spheres, disks,
     cylinders — counts are tiny).  Returns (best_t, sph, dsk, cyl)
-    winner channels, each -1 where that type did not win.  flatten_scene
-    produces none of them yet; the tests are here for the traversal's
-    contract (and a scene carried across from the JAX package)."""
+    winner channels, each -1 where that type did not win; best_t is the
+    far limit the triangle traversal then gets."""
     R = o.shape[0]
     best_t = t_max
     neg = torch.full((R,), -1, dtype=torch.int32, device=o.device)
@@ -260,7 +259,9 @@ def bvh_intersect(scene, o, d, t_min, t_max, any_hit: bool = False,
                   presorted: bool = False):
     """Closest-hit (or any-hit) traversal of the scene's triangles and
     analytic primitives (curves are not ported: a scene carrying them
-    raises in flat_scene_from_numpy).
+    raises in flat_scene_from_numpy).  A scene without triangles returns
+    straight after the analytic test: no kernel launches on empty
+    tables.
 
     o, d (R,3); t_min/t_max scalars or (R,).  `presorted`: the caller
     guarantees rays already arrive in ray_sort_key order (the path
@@ -272,6 +273,11 @@ def bvh_intersect(scene, o, d, t_min, t_max, any_hit: bool = False,
     t_min = torch.broadcast_to(_f32(t_min, o), (R,))
     best_t, sph, dsk, cyl = _analytic_prims(
         scene, o, d, t_min, geo_clip(scene, o, d, t_max))
+    if scene.tri_v0.shape[0] == 0:
+        z = torch.zeros((R,), dtype=torch.float32, device=o.device)
+        return dict(t=best_t, tri=torch.full_like(sph, -1), sph=sph,
+                    dsk=dsk, cyl=cyl, u=z, v=z,
+                    hit=(sph >= 0) | (dsk >= 0) | (cyl >= 0))
     if o.is_cuda:
         t, tri, u, v = _wave_dispatch(scene, o, d, t_min, best_t, any_hit,
                                       presorted)

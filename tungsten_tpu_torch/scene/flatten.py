@@ -7,13 +7,17 @@ rows; emissive primitives form a light table with alias tables; an
 equirect env map carries its importance-sampling tables.  FlatScene is
 a dataclass of tensors on one device.
 
-The port flattens what its path tracer renders: quad, cube, mesh and
-infinite_sphere (env map) primitives, the BSDFs of
+The port flattens what its path tracer renders: quad, cube and mesh
+primitives, the analytic disk, sphere and cylinder, infinite_sphere
+(env map), infinite_sphere_cap, point and skydome (a Hosek-Wilkie sky
+baked to an env map, scene/sky.py) emitters, the BSDFs of
 bsdf/types.py::PORTED_TYPES (nested children are table rows of their
-own, so present_bsdf_types lists them), area lights and the env light,
+own, so present_bsdf_types lists them), every light those make,
 homogeneous, exponential, atmosphere and voxel media (dense `.npy`,
-inline data or `.vdb` grids) bound to primitives and the camera,
-pinhole cameras, the path_tracer integrator.  Anything else raises
+inline data or `.vdb` grids) bound to primitives and the camera, the
+pinhole, thinlens (disk or bitmap aperture, cat eye, focus pivot),
+equirectangular and cubemap cameras, the path_tracer integrator.
+Anything else (curves, instances, the fiber BSDFs) raises
 NotImplementedError naming it.  The numbers are the JAX package's: the
 same host numpy code builds every table, so every field is equal to the
 JAX build (bf16 fields included).
@@ -43,7 +47,10 @@ LIGHT_DISK = 4
 LIGHT_CYLINDER = 5
 LIGHT_SPHERE = 6
 
-PORTED_PRIMITIVES = ("quad", "cube", "mesh", "infinite_sphere")
+PORTED_PRIMITIVES = ("quad", "cube", "mesh", "infinite_sphere", "disk",
+                     "sphere", "cylinder", "infinite_sphere_cap", "point",
+                     "skydome")
+PORTED_CAMERAS = ("pinhole", "thinlens", "equirectangular", "cubemap")
 
 
 def _lt_slot_of_tri(lt_tri_l, num_tris):
@@ -102,7 +109,7 @@ class FlatScene:
     wk_sbox: torch.Tensor     # (16, NSp)
     wk_attr: torch.Tensor     # (NCp*16, 128)
     wk_remap: torch.Tensor    # (NCp*128,) i32
-    # --- analytic primitives (always empty in the port) ---
+    # --- analytic primitives ---
     sph_center: torch.Tensor
     sph_radius: torch.Tensor
     sph_prim: torch.Tensor
@@ -150,6 +157,11 @@ class FlatScene:
     # --- scene-wide occluder bounds ---
     geo_lo: torch.Tensor
     geo_hi: torch.Tensor
+    # --- infinite sphere caps (directional "sun" emitters) ---
+    cap_dir: torch.Tensor         # (C,3)
+    cap_cos: torch.Tensor         # (C,) 2 = never hit (no caps)
+    cap_emission: torch.Tensor    # (C,3)
+    cap_samplable: torch.Tensor   # (C,) bool
     # --- media (ref HomogeneousMedium / ExponentialMedium /
     # AtmosphericMedium / VoxelMedium) ---
     med_sigma_a: torch.Tensor     # (M,3) material sigma_a * density
@@ -185,6 +197,9 @@ class FlatScene:
     # --- camera ---
     cam_mat: torch.Tensor
     cam_plane_dist: torch.Tensor
+    cam_ap_prob: torch.Tensor     # (N,) thinlens aperture alias keep-prob
+    cam_ap_alias: torch.Tensor    # (N,) i32
+    cam_ap_hw: torch.Tensor       # (2,) i32 aperture bitmap (H, W)
     cam_ratio: torch.Tensor
 
     @property
@@ -219,7 +234,12 @@ class RenderSettings:
     tonemap: str = "gamma"
     filter: str = "tent"
     camera_type: str = "pinhole"
+    cubemap_mode: str = "horizontal_cross"
     fov_deg: float = 60.0
+    focus_distance: float = 1.0
+    aperture_size: float = 0.001
+    aperture_tex: bool = False  # thinlens aperture bitmap present
+    cat_eye: float = 0.0
     spp_step: int = 16
     stratified_sampler: bool = False  # scrambled Sobol' vs pcg4d hash
     adaptive_sampling: bool = False
@@ -735,23 +755,20 @@ def _flatten_media(desc: SceneDesc):
 def flat_scene_from_numpy(flds: dict, device=None) -> FlatScene:
     """Build the port's FlatScene from a dict of numpy arrays keyed by
     FlatScene field name — e.g. the fields of a JAX FlatScene — so both
-    packages render the very same scene, BSDF table included.  Extra keys
-    are ignored, but a scene with curves, analytic primitives or fiber
-    BSDFs (which the port's shading does not handle yet) raises
-    NotImplementedError; `tri_fin` is packed from tri_v0/e1/e2 when
-    absent; `bitmaps` and the grid fields (TUPLE_FIELDS) are sequences
-    of arrays."""
+    packages render the very same scene, BSDF table, analytic primitives,
+    caps and aperture table included.  Extra keys are ignored, but a
+    scene with curves or fiber BSDFs (which the port does not handle
+    yet) raises NotImplementedError; `tri_fin` is packed from
+    tri_v0/e1/e2 when absent; `bitmaps` and the grid fields
+    (TUPLE_FIELDS) are sequences of arrays."""
     dev = resolve_device(device)
     fiber = {bsdf_types.HAIR, bsdf_types.ROUGH_WIRE,
              bsdf_types.LAMBERTIAN_FIBER}
     if fiber & {int(t) for t in np.asarray(flds["bsdf_type"]).ravel()}:
         raise _unsupported("fiber BSDFs")
-    for key, what in (("crv_seg_p0", "curves"),
-                      ("sph_radius", "analytic spheres"),
-                      ("dsk_r", "analytic disks"),
-                      ("cyl_r", "analytic cylinders")):
+    for key in ("crv_seg_p0", "crv_pc_q0"):
         if key in flds and np.asarray(flds[key]).shape[0] > 0:
-            raise _unsupported(what)
+            raise _unsupported(f"curves ({key})")
     out = {}
     for f in fields(FlatScene):
         if f.name == "tri_fin" and f.name not in flds:
@@ -783,7 +800,7 @@ def flatten_scene(desc: SceneDesc, device=None
     if integ.get("type", "path_tracer") != "path_tracer":
         raise _unsupported(f"integrator {integ.get('type')!r}")
     cam = desc.camera
-    if cam.get("type", "pinhole") != "pinhole":
+    if cam.get("type", "pinhole") not in PORTED_CAMERAS:
         raise _unsupported(f"camera {cam.get('type')!r}")
 
     bsdf_rows = [bsdf_types.parse_bsdf_row(b, textures) for b in desc.bsdfs]
@@ -792,12 +809,16 @@ def flatten_scene(desc: SceneDesc, device=None
 
     vec3 = _vec3
     geom = _GeomAccum()
+    spheres_c, spheres_r, spheres_p = [], [], []
+    disks = dict(c=[], n=[], r=[], cos=[], prim=[])
+    cyls = dict(pos=[], rot=[], r=[], hh=[], capped=[], prim=[])
     prim_bsdf, prim_emission_tex = [], []
     prim_int_med, prim_ext_med = [], []
     prim_power: dict[int, np.ndarray] = {}
     lights = []
-    light_tri_ranges = []
     env_info = None
+    caps = []
+    points = []
 
     prim_id = -1
     for prim in desc.primitives:
@@ -825,7 +846,6 @@ def flatten_scene(desc: SceneDesc, device=None
         prim_emission_tex.append(etex)
 
         samplable = bool(prim.get("sample", True))
-        tri_start = geom.count()
         if ptype == "quad":
             verts, n = _quad_verts(m)
             normals = np.repeat(n[None], 4, axis=0)
@@ -849,7 +869,73 @@ def flatten_scene(desc: SceneDesc, device=None
             else:
                 nrm = np.zeros_like(pos)  # flat: zero shading normals -> Ng
             geom.add_tris(pos, mesh.uv, nrm, mesh.indices, prim_id)
-        else:  # infinite_sphere
+        elif ptype == "disk":
+            # analytic disk (ref Disk.cpp:315-327 prepareForRender: center
+            # T*0, radius the larger xz scale of a unit disk, normal
+            # T*(0,1,0); Disk.cpp:64-87 world-space plane test)
+            center = xform.transform_point(m, [0, 0, 0])
+            sv = xform.transform_vectors(m, [[1, 0, 0], [0, 0, 1]])
+            r = float(max(np.linalg.norm(sv[0]), np.linalg.norm(sv[1])))
+            n = xform.transform_normals(m, [[0, 1, 0]])[0]
+            n = (n / max(np.linalg.norm(n), 1e-30)).astype(np.float32)
+            disks["c"].append(np.asarray(center, np.float32))
+            disks["n"].append(n)
+            disks["r"].append(r)
+            disks["cos"].append(np.cos(np.deg2rad(
+                float(prim.get("cone_angle", 90.0)))))
+            disks["prim"].append(prim_id)
+            if etex >= 0 and samplable:
+                lights.append({"type": LIGHT_DISK, "prim": prim_id,
+                               "tex": etex, "slot": len(disks["r"]) - 1})
+            if prim_id in prim_power:
+                # powerToRadianceFactor = INV_PI / area (Disk.cpp:40-43)
+                textures.const[etex] = (
+                    prim_power.pop(prim_id)
+                    / (np.pi * max(np.pi * r * r, 1e-20))).astype(np.float32)
+        elif ptype == "sphere":
+            center = xform.transform_point(m, [0, 0, 0])
+            radius = float(np.linalg.norm(
+                xform.transform_vectors(m, [[1, 0, 0]])[0]))
+            spheres_c.append(center)
+            spheres_r.append(radius)
+            spheres_p.append(prim_id)
+            if etex >= 0 and samplable:
+                # cone-sampled sphere emitter (ref Sphere::sampleDirect)
+                lights.append({"type": LIGHT_SPHERE, "prim": prim_id,
+                               "tex": etex, "slot": len(spheres_r) - 1})
+            if prim_id in prim_power:
+                # powerToRadianceFactor = INV_PI / area, area = 4 pi r^2
+                textures.const[etex] = (
+                    prim_power.pop(prim_id)
+                    / (4.0 * np.pi * np.pi * max(radius * radius, 1e-20))
+                ).astype(np.float32)
+        elif ptype == "cylinder":
+            # analytic y-aligned cylinder (ref Cylinder.cpp:288-303: rot
+            # = extractRotation, radius = 0.5 * the larger xz scale,
+            # halfHeight = 0.5 * the y scale; Cylinder.cpp:56-109 local
+            # cap and quadric tests)
+            capped = bool(prim.get("capped", True))
+            pos = np.asarray(xform.transform_point(m, [0, 0, 0]), np.float32)
+            cols = xform.transform_vectors(
+                m, [[1, 0, 0], [0, 1, 0], [0, 0, 1]])
+            scale = np.linalg.norm(cols, axis=-1)
+            rot = (np.asarray(cols).T
+                   / np.maximum(scale[None, :], 1e-30)).astype(np.float32)
+            r = float(0.5 * max(scale[0], scale[2]))
+            hh = float(0.5 * scale[1])
+            for k, v in (("pos", pos), ("rot", rot), ("r", r), ("hh", hh),
+                         ("capped", capped), ("prim", prim_id)):
+                cyls[k].append(v)
+            area = (2.0 * np.pi * r * r if capped else 0.0) \
+                + 2.0 * np.pi * r * 2.0 * hh
+            if etex >= 0 and samplable:
+                lights.append({"type": LIGHT_CYLINDER, "prim": prim_id,
+                               "tex": etex, "slot": len(cyls["r"]) - 1})
+            if prim_id in prim_power:
+                textures.const[etex] = (
+                    prim_power.pop(prim_id)
+                    / (np.pi * max(area, 1e-20))).astype(np.float32)
+        elif ptype == "infinite_sphere":
             if etex >= 0:
                 rot = m[:3, :3].astype(np.float32)
                 norm = np.linalg.norm(rot, axis=0, keepdims=True)
@@ -857,9 +943,47 @@ def flatten_scene(desc: SceneDesc, device=None
                             "rot": rot / np.maximum(norm, 1e-30),
                             "samplable": samplable}
             continue
-        if etex >= 0 and samplable:
+        elif ptype == "infinite_sphere_cap":
+            # directional "sun" cap (ref InfiniteSphereCap.cpp): direction
+            # the transform's up axis, radiance the emission or power *
+            # INV_TWO_PI / (1 - cos(cap_angle))
+            cap_d = xform.transform_vectors(m, [[0.0, 1.0, 0.0]])[0]
+            cap_d = cap_d / max(np.linalg.norm(cap_d), 1e-30)
+            cos_cap = float(np.cos(np.deg2rad(
+                float(prim.get("cap_angle", 10.0)))))
+            if power is not None:
+                rad = np.asarray(vec3(power)) / (2.0 * np.pi) / \
+                    max(1.0 - cos_cap, 1e-9)
+            else:
+                rad = np.asarray(vec3(emission if emission is not None
+                                      else 1.0))
+            caps.append({"prim": prim_id, "dir": cap_d, "cos": cos_cap,
+                         "emission": rad.astype(np.float32),
+                         "samplable": samplable})
+            continue
+        elif ptype == "point":
+            pos = xform.transform_point(m, [0, 0, 0])
+            rad = np.asarray(vec3(emission if emission is not None
+                                  else (power if power is not None else 1.0)))
+            points.append({"prim": prim_id, "pos": pos.astype(np.float32),
+                           "emission": rad.astype(np.float32)})
+            continue
+        else:  # skydome
+            # a daylight dome baked to an env map (ref Skydome.cpp:292-317;
+            # the sun direction is the transform's up axis)
+            from tungsten_tpu_torch.scene.sky import generate_sky
+            sun = xform.transform_vectors(m, [[0.0, 1.0, 0.0]])[0]
+            sky_img = generate_sky(
+                sun, turbidity=float(prim.get("turbidity", 3.0)),
+                intensity=float(prim.get("intensity", 2.0)),
+                temperature=float(prim.get("temperature", 5777.0)),
+                gamma_scale=float(prim.get("gamma_scale", 1.0)))
+            env_info = {"prim": prim_id, "tex": -1, "image": sky_img,
+                        "rot": np.eye(3, dtype=np.float32),
+                        "samplable": samplable}
+            continue
+        if etex >= 0 and samplable and ptype in ("quad", "cube", "mesh"):
             lights.append({"type": LIGHT_AREA, "prim": prim_id, "tex": etex})
-            light_tri_ranges.append((tri_start, geom.count()))
 
     num_prims = prim_id + 1
 
@@ -885,8 +1009,11 @@ def flatten_scene(desc: SceneDesc, device=None
     tri_v0, tri_e1, tri_e2 = cat["v0"], cat["e1"], cat["e2"]
     tri_prim = cat["prim"]
 
-    # ---- lights ----
-    L = len(lights) + (1 if env_info and env_info["samplable"] else 0)
+    # ---- lights: surface lights in primitive order, the env, then the
+    # samplable caps and the points ----
+    n_env = 1 if env_info and env_info["samplable"] else 0
+    L = len(lights) + n_env + sum(1 for c in caps if c["samplable"]) + \
+        len(points)
     light_type = np.zeros(max(L, 1), np.int32)
     light_prim = np.full(max(L, 1), -1, np.int32)
     light_emission = np.zeros((max(L, 1), 3), np.float32)
@@ -912,6 +1039,36 @@ def flatten_scene(desc: SceneDesc, device=None
             power / (np.pi * max(area, 1e-20))).astype(np.float32)
 
     for li, light in enumerate(lights):
+        if light["type"] != LIGHT_AREA:
+            # analytic emitters: area and bounding sphere from their
+            # primitive tables, no triangle alias rows
+            slot = light["slot"]
+            light_type[li] = light["type"]
+            light_prim[li] = light["prim"]
+            light_slot[li] = slot
+            light_emission[li] = textures.const[light["tex"]]
+            light_tri_off[li] = sum(len(x) for x in lt_tri_l)
+            light_tri_cnt[li] = 0
+            if light["type"] == LIGHT_SPHERE:
+                r = spheres_r[slot]
+                light_area[li] = 4.0 * np.pi * r * r
+                light_bsr[li, :3] = spheres_c[slot]
+                light_bsr[li, 3] = r
+            elif light["type"] == LIGHT_DISK:
+                r = disks["r"][slot]
+                light_area[li] = np.pi * r * r
+                light_bsr[li, :3] = disks["c"][slot]
+                light_bsr[li, 3] = r
+            else:
+                r, hh = cyls["r"][slot], cyls["hh"][slot]
+                light_area[li] = (2.0 * np.pi * r * r
+                                  if cyls["capped"][slot] else 0.0) \
+                    + 2.0 * np.pi * r * 2.0 * hh
+                light_bsr[li, :3] = cyls["pos"][slot]
+                light_bsr[li, 3] = np.sqrt(r * r + hh * hh)
+            light_lum[li] = float(np.max(textures.const[light["tex"]]))
+            prim_light[light["prim"]] = li
+            continue
         ids = np.nonzero(tri_prim == light["prim"])[0]
         areas = tri_area[ids]
         total = float(areas.sum())
@@ -940,9 +1097,11 @@ def flatten_scene(desc: SceneDesc, device=None
     env_scale = 1.0
     if env_info is not None:
         tex_id = env_info["tex"]
-        bid = textures.bitmap_id[tex_id]
-        if bid >= 0:
-            env_image = np.asarray(textures.bitmaps[bid], np.float32)
+        if env_info.get("image") is not None:
+            env_image = env_info["image"]
+        elif textures.bitmap_id[tex_id] >= 0:
+            env_image = np.asarray(
+                textures.bitmaps[textures.bitmap_id[tex_id]], np.float32)
         else:
             env_image = np.broadcast_to(textures.const[tex_id][None, None],
                                         (1, 1, 3)).astype(np.float32)
@@ -959,6 +1118,42 @@ def flatten_scene(desc: SceneDesc, device=None
     (cond_pdf, cond_cdf, marg_pdf, marg_cdf,
      env_alias) = _build_env_distribution(env_image)
 
+    # ---- cap and point lights ----
+    li_next = len(lights) + n_env
+    nc = max(len(caps), 1)
+    cap_dir = np.zeros((nc, 3), np.float32)
+    cap_cos = np.full(nc, 2.0, np.float32)   # 2: no direction is inside
+    cap_em = np.zeros((nc, 3), np.float32)
+    cap_samp = np.zeros(nc, bool)
+    for ci, cap in enumerate(caps):
+        cap_dir[ci] = cap["dir"]
+        cap_cos[ci] = cap["cos"]
+        cap_em[ci] = cap["emission"]
+        cap_samp[ci] = cap["samplable"]
+        if cap["samplable"]:
+            li = li_next
+            li_next += 1
+            light_type[li] = LIGHT_CAP
+            light_prim[li] = cap["prim"]
+            light_emission[li] = cap["emission"]
+            light_aux[li, :3] = cap["dir"]
+            light_aux[li, 3] = cap["cos"]
+            # ref InfiniteSphereCap::approximateRadiance
+            light_lum[li] = 2.0 * np.pi * (1.0 - cap["cos"]) * \
+                float(np.max(cap["emission"]))
+            prim_light[cap["prim"]] = li
+    for pt in points:
+        li = li_next
+        li_next += 1
+        light_type[li] = LIGHT_POINT
+        light_prim[li] = pt["prim"]
+        light_emission[li] = pt["emission"]
+        light_aux[li, :3] = pt["pos"]
+        # the selection weight divides by r^2 at the shading point
+        # (lights.py::_choose_light_weights)
+        light_lum[li] = float(np.max(pt["emission"]))
+        prim_light[pt["prim"]] = li
+
     # ---- camera ----
     cam_mat = xform.parse_transform(cam.get("transform"))
     cam_mat[:3, 0] = -cam_mat[:3, 0]  # ref Camera::fromJson flips right axis
@@ -969,6 +1164,19 @@ def flatten_scene(desc: SceneDesc, device=None
     fov = float(cam.get("fov", 60.0))
     plane_dist = 1.0 / np.tan(np.deg2rad(fov) * 0.5)
     ratio = res[1] / res[0]
+    # thinlens focus pivot (ref ThinlensCamera::prepareForRender): the
+    # distance from the camera to the named primitive's origin
+    focus_distance = float(cam.get("focus_distance", 1.0))
+    pivot = cam.get("focus_pivot")
+    if pivot:
+        for prim in desc.primitives:
+            if prim.get("name") == pivot:
+                pm = xform.parse_transform(prim.get("transform"))
+                focus_distance = float(np.linalg.norm(
+                    pm[:3, 3] - cam_mat[:3, 3]))
+                break
+    cam_ap_prob, cam_ap_alias, cam_ap_hw, aperture_tex = _aperture(
+        cam.get("aperture"), desc.resolve_path)
 
     rend = desc.renderer
     settings = RenderSettings(
@@ -987,16 +1195,24 @@ def flatten_scene(desc: SceneDesc, device=None
         tonemap=cam.get("tonemap", "gamma"),
         filter=cam.get("reconstruction_filter", "tent"),
         camera_type=cam.get("type", "pinhole"),
+        cubemap_mode=cam.get("mode", "horizontal_cross"),
         fov_deg=fov,
+        focus_distance=focus_distance,
+        aperture_size=float(cam.get("aperture_size", 0.001)),
+        aperture_tex=aperture_tex,
+        cat_eye=float(cam.get("cateye", cam.get("cat_eye", 0.0))),
         has_env=env_info is not None,
         num_lights=int(L),
         present_bsdf_types=tuple(sorted({int(r[0]) for r in bsdf_rows})),
-        has_area_lights=len(lights) > 0,
+        num_caps=len(caps),
+        has_points=len(points) > 0,
+        has_disk_lights=any(lt["type"] == LIGHT_DISK for lt in lights),
+        has_cyl_lights=any(lt["type"] == LIGHT_CYLINDER for lt in lights),
+        has_sphere_lights=any(lt["type"] == LIGHT_SPHERE for lt in lights),
+        has_area_lights=any(lt["type"] == LIGHT_AREA for lt in lights),
         integrator_type=integ.get("type", "path_tracer"),
         **media_kw,
     )
-    if settings.filter not in ("tent", "box", "dirac"):
-        raise _unsupported(f"reconstruction filter {settings.filter!r}")
 
     tex_type, tex_const, tex_params, tex_bitmap_id, bitmaps = \
         textures.finalize()
@@ -1012,15 +1228,29 @@ def flatten_scene(desc: SceneDesc, device=None
     tri_fin = np.concatenate([tri_v0, tri_e1, tri_e2], axis=1) \
         if len(tri_v0) else np.zeros((0, 9), np.float32)
 
+    # scene-wide occluder bounds: the triangles and the analytic prims
+    los, his = [], []
     if len(tri_v0):
-        geo_lo = p_min.min(0).astype(np.float32)
-        geo_hi = p_max.max(0).astype(np.float32)
-    else:
-        geo_lo = geo_hi = np.zeros(3, np.float32)
-
-    z3 = np.zeros((0, 3), np.float32)
-    zf = np.zeros((0,), np.float32)
-    zi = np.zeros((0,), np.int32)
+        los.append(p_min.min(0))
+        his.append(p_max.max(0))
+    if spheres_c:
+        sc = np.asarray(spheres_c, np.float32)
+        sr = np.asarray(spheres_r, np.float32)[:, None]
+        los.append((sc - sr).min(0))
+        his.append((sc + sr).max(0))
+    if disks["c"]:
+        dc = np.asarray(disks["c"], np.float32)
+        dr = np.asarray(disks["r"], np.float32)[:, None]
+        los.append((dc - dr).min(0))
+        his.append((dc + dr).max(0))
+    if cyls["pos"]:
+        cp = np.asarray(cyls["pos"], np.float32)
+        cr = np.sqrt(np.asarray(cyls["r"], np.float32) ** 2
+                     + np.asarray(cyls["hh"], np.float32) ** 2)[:, None]
+        los.append((cp - cr).min(0))
+        his.append((cp + cr).max(0))
+    geo_lo = (np.min(los, axis=0) if los else np.zeros(3)).astype(np.float32)
+    geo_hi = (np.max(his, axis=0) if his else np.zeros(3)).astype(np.float32)
     host = dict(
         tri_v0=tri_v0, tri_e1=tri_e1, tri_e2=tri_e2, tri_shade=tri_shade,
         tri_n0=cat["n0"], tri_n1=cat["n1"], tri_n2=cat["n2"],
@@ -1030,10 +1260,20 @@ def flatten_scene(desc: SceneDesc, device=None
         bvh_meta=bvh.meta, bvh_skip=bvh.skip,
         wk_boxes=wk_boxes, wk_cbox=wk_cbox, wk_attr=wk_attr,
         wk_remap=wk_remap, wk_sbox=wk_sbox,
-        sph_center=z3, sph_radius=zf, sph_prim=zi,
-        dsk_c=z3, dsk_n=z3, dsk_r=zf, dsk_cos=zf, dsk_prim=zi,
-        cyl_pos=z3, cyl_rot=np.zeros((0, 3, 3), np.float32), cyl_r=zf,
-        cyl_hh=zf, cyl_capped=np.zeros((0,), bool), cyl_prim=zi,
+        sph_center=np.asarray(spheres_c, np.float32).reshape(-1, 3),
+        sph_radius=np.asarray(spheres_r, np.float32),
+        sph_prim=np.asarray(spheres_p, np.int32),
+        dsk_c=np.asarray(disks["c"], np.float32).reshape(-1, 3),
+        dsk_n=np.asarray(disks["n"], np.float32).reshape(-1, 3),
+        dsk_r=np.asarray(disks["r"], np.float32),
+        dsk_cos=np.asarray(disks["cos"], np.float32),
+        dsk_prim=np.asarray(disks["prim"], np.int32),
+        cyl_pos=np.asarray(cyls["pos"], np.float32).reshape(-1, 3),
+        cyl_rot=np.asarray(cyls["rot"], np.float32).reshape(-1, 3, 3),
+        cyl_r=np.asarray(cyls["r"], np.float32),
+        cyl_hh=np.asarray(cyls["hh"], np.float32),
+        cyl_capped=np.asarray(cyls["capped"], bool),
+        cyl_prim=np.asarray(cyls["prim"], np.int32),
         prim_bsdf=np.asarray(prim_bsdf, np.int32),
         prim_emission_tex=np.asarray(prim_emission_tex, np.int32),
         prim_light=prim_light,
@@ -1055,6 +1295,8 @@ def flatten_scene(desc: SceneDesc, device=None
         lt_slot=_lt_slot_of_tri(lt_tri_l, len(tri_v0)),
         light_tri_off=light_tri_off, light_tri_cnt=light_tri_cnt,
         geo_lo=geo_lo, geo_hi=geo_hi,
+        cap_dir=cap_dir, cap_cos=cap_cos, cap_emission=cap_em,
+        cap_samplable=cap_samp,
         **media_host,
         prim_int_medium=np.asarray(prim_int_med, np.int32),
         prim_ext_medium=np.asarray(prim_ext_med, np.int32),
@@ -1068,6 +1310,8 @@ def flatten_scene(desc: SceneDesc, device=None
         env_light_index=np.int32(env_light_index),
         env_emission_scale=np.float32(env_scale),
         cam_mat=cam_mat, cam_plane_dist=np.float32(plane_dist),
+        cam_ap_prob=cam_ap_prob.astype(np.float32),
+        cam_ap_alias=cam_ap_alias.astype(np.int32), cam_ap_hw=cam_ap_hw,
         cam_ratio=np.float32(ratio),
     )
     flat = flat_scene_from_numpy(host, dev)
@@ -1076,6 +1320,28 @@ def flatten_scene(desc: SceneDesc, device=None
     flat.env_image = flat.env_image.to(torch.bfloat16)
     flat.env_quad = flat.env_quad.to(torch.bfloat16)
     return flat, settings
+
+
+def _aperture(spec, resolve_path):
+    """A thinlens aperture bitmap (ref ThinlensCamera `_aperture`, sampled
+    MAP_UNIFORM) -> (alias keep-probability, alias, (H, W), present): an
+    alias table over the texels' mean channel.  No bitmap (or an all-dark
+    one) keeps the analytic uniform disk."""
+    prob = np.zeros((1,), np.float32)
+    alias = np.zeros((1,), np.int32)
+    hw = np.asarray([1, 1], np.int32)
+    if isinstance(spec, str) or (isinstance(spec, dict)
+                                 and spec.get("type") == "bitmap"):
+        from tungsten_tpu_torch.io import image as image_io
+        path = spec if isinstance(spec, str) else spec["file"]
+        img = np.asarray(image_io.load_image(resolve_path(path)), np.float32)
+        if img.ndim == 3:
+            img = img.mean(axis=-1)
+        lum = np.maximum(img.reshape(-1), 0.0)
+        if lum.sum() > 0:
+            prob, alias = _build_alias(lum / lum.sum())
+            return prob, alias, np.asarray(img.shape, np.int32), True
+    return prob, alias, hw, False
 
 
 def load_flat_scene(path, device=None):
