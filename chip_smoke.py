@@ -7,8 +7,9 @@ Phases (any failure exits non-zero):
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
   2. build: the CUDA wave kernels (csrc/wave_trace.cu, nvcc: the
      closest-hit, resident any-hit and paged any-hit kernels), the
-     tensor-core leaf kernel (csrc/leaf_mma.cu, nvcc) and the host BVH
-     library (g++), the three compiles started together;
+     tensor-core leaf kernel (csrc/leaf_mma.cu, nvcc), the curve-piece
+     walk C1 (csrc/curve_trace.cu, nvcc) and the host BVH library (g++),
+     the four compiles started together;
   2b. leaf kernels (K4, K5): each of the five kernel rows (mma_loop,
      mma_loop_stores, leaf_variant_a/b/c) against its plain version,
      exactly on the TPU tool's all-ones inputs and within the stated
@@ -97,17 +98,41 @@ Phases (any failure exits non-zero):
      gates: the thinlens scene at 64x64, the same scene under an
      equirectangular camera at 32x32 and a cubemap camera
      (horizontal_cross) at 32x24, 4 spp each;
-  10. the CLI (cli.render_scene) on the smoke scene at 256x256: (a) with
+  10. hair: (a) a groom of 16,384 seeded random-walk strands of 24 nodes
+     in bcsdf_cylinder mode with the hair BCSDF (melanin ratio 1.0,
+     concentration 1.3, roughness 0.3, scale angle 2.5), 2,048 ribbon
+     strands with rough_wire and 1,024 half_cylinder strands with
+     lambertian_fiber (curve files written with the port's io/curves.py:
+     .fiber, .hair), an `instances` primitive stamping a 16x8 UV-sphere
+     mesh 64 times, a lambert floor, an area light and an
+     infinite_sphere_cap sun (the simple two-strategy NEE); its strand,
+     segment, piece and node counts, the curve tables' MiB on the card
+     and the host flatten seconds; (b) the curve-piece walk C1
+     (ops/curve_trace.py) against the plain curve walk on the first
+     65,536 rays of the camera rays (far limits from K1 and the analytic
+     test, as bvh_intersect forms them), body 1's shadow segments (any
+     hit) and body 2's continuation rays: hit set and segment equal on
+     >= 0.9999, t within rtol 1e-5 / atol 1e-6; node visits, piece tests, the
+     distinct rows read and the bound; times at full width and on 1,024
+     and 65,536 rays, the plain walk's, bvh_intersect's; (c) the
+     full-width render (256x256, 16 spp, max_bounces 64) from zero
+     launch counts, C1 (both modes), K1 and K2 all launching, then one
+     more under torch.profiler (launches per render, device busy share,
+     C1's device ms by launch width); (d) the scene cut to 256 + 32 + 16
+     strands at 32x32, 4 spp, 16 bounces against the plain path on the
+     CPU with phase 6's gates;
+  11. the CLI (cli.render_scene) on the smoke scene at 256x256: (a) with
      the output buffers (color with sample variance and A/B halves,
      depth, normal, albedo, visibility) at 16 spp, its color held
      against phase 5's image of the same samples; (b) with adaptive
      sampling at 64 spp, spp_step 16 (render_adaptive); launch counts
      from zero for each, every written file loaded and checked;
-  11. resume: the buffers render to 8 spp with enable_resume_render,
-     then continued to 16, against 10a's uninterrupted 16-spp image;
-  12. the HTTP server on a free port rendering the smoke scene at 64x64
+  12. resume: the buffers render to 8 spp with enable_resume_render,
+     then continued to 16, against 11a's uninterrupted 16-spp image;
+  13. the HTTP server on a free port rendering the smoke scene at 64x64
      in two rounds: /status, /render (PNG) and /log;
-  13. the kernels JSON line, then the result line.
+  14. the kernels JSON line (ten rows: K1, K2, K3 closest and any hit,
+     the five leaf rows and C1), then the result line.
 """
 from __future__ import annotations
 
@@ -129,6 +154,14 @@ ZOO_SEG = (160, 80)   # 25,280 triangles a sphere, 606,720 for the 24
 ZOO_CROSS_BOUNCES = 16
 SKY_W, SKY_H = 512, 256
 MEDIA_GRID = 256      # the voxel medium's density grid, 256^3 f32
+# the hair scene: the groom's strands and nodes a strand, the ribbon and
+# half-cylinder strands, the instanced spheres; its cross-path copy's
+# strands (groom, ribbon, half-cylinder) and bounces
+HAIR_STRANDS, HAIR_NODES = 16384, 24
+HAIR_RIBBONS, HAIR_HALF, HAIR_SPHERES = 2048, 1024, 64
+HAIR_CROSS = (256, 32, 16)
+HAIR_CROSS_BOUNCES = 16
+C1_CHECK = 65536      # rays of each set held against the plain curve walk
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside the
 # tensor cores
 PEAK_BYTES = 3.35e12
@@ -458,6 +491,93 @@ def write_outdoor_scene(dirpath: str, res: int = RES, spp: int = SPP) -> str:
         "aperture_size": 0.4, "cateye": 0.3, "focus_pivot": "focus",
         "reconstruction_filter": "mitchell_netravali"})
     path = os.path.join(dirpath, "outdoor.json")
+    with open(path, "w") as f:
+        json.dump(sj, f, indent=1)
+    return path
+
+
+def hair_strands(n: int, n_nodes: int, seed: int, width: float, center,
+                 radius: float, step: float):
+    """n seeded random-walk strands of n_nodes nodes rising from a disk
+    (the generator of tests/test_fiber.py::test_hair_scene_render,
+    vectorized and scaled): the port's CurveData."""
+    import numpy as np
+    from tungsten_tpu_torch.io import curves
+    r = np.random.default_rng(seed)
+    ang = r.uniform(0.0, 2.0 * np.pi, n)
+    rad = radius * np.sqrt(r.uniform(0.0, 1.0, n))
+    base = np.asarray(center, np.float64)[None] + np.stack(
+        [rad * np.cos(ang), np.zeros(n), rad * np.sin(ang)], 1)
+    steps = step * np.stack([r.normal(0, 0.3, (n, n_nodes)),
+                             np.ones((n, n_nodes)),
+                             r.normal(0, 0.3, (n, n_nodes))], -1)
+    pts = base[:, None] + np.cumsum(steps, 1)
+    nodes = np.concatenate([pts, np.full((n, n_nodes, 1), width)],
+                           -1).reshape(-1, 4).astype(np.float32)
+    ends = (np.arange(1, n + 1) * n_nodes).astype(np.uint32)
+    return curves.CurveData(ends, nodes, curves.init_normals(ends, nodes))
+
+
+def write_hair_scene(dirpath: str, strands=(HAIR_STRANDS, HAIR_RIBBONS,
+                                            HAIR_HALF),
+                     res: int = RES, spp: int = SPP,
+                     name: str = "hair.json") -> str:
+    """Write the hair scene: a groom of seeded random-walk strands of
+    HAIR_NODES nodes in bcsdf_cylinder mode with the hair BCSDF (a
+    .fiber file), ribbon strands with rough_wire (a .hair file) and
+    half-cylinder strands with lambertian_fiber (a .fiber file), an
+    `instances` primitive stamping a 16x8 UV-sphere mesh HAIR_SPHERES
+    times, a lambert floor quad, an area light and an
+    infinite_sphere_cap sun (the simple two-strategy NEE).  Returns its
+    path."""
+    import numpy as np
+    from tungsten_tpu_torch.io import curves, mesh
+    n_groom, n_ribbon, n_half = strands
+    curves.save_fiber(os.path.join(dirpath, "groom.fiber"), hair_strands(
+        n_groom, HAIR_NODES, 21, 0.003, (0, 0, 0), 0.8, 0.05))
+    curves.save_hair(os.path.join(dirpath, "ribbons.hair"), hair_strands(
+        n_ribbon, HAIR_NODES, 22, 0.01, (1.5, 0, 0.2), 0.4, 0.04))
+    curves.save_fiber(os.path.join(dirpath, "half.fiber"), hair_strands(
+        n_half, HAIR_NODES, 23, 0.01, (-1.5, 0, 0.2), 0.4, 0.04))
+    pos, nrm, uv, idx = uv_sphere(16, 8)
+    mesh.save_wo3(os.path.join(dirpath, "ball.wo3"), mesh.Mesh(
+        pos=pos, normal=nrm, uv=uv, indices=idx,
+        material=np.zeros(len(idx), np.int32)))
+    ring = 2.0 * np.pi * np.arange(HAIR_SPHERES) / HAIR_SPHERES
+    bsdfs = [{"name": "hair", "type": "hair", "scale_angle": 2.5,
+              "melanin_ratio": 1.0, "melanin_concentration": 1.3,
+              "roughness": 0.3},
+             {"name": "wire", "type": "rough_wire", "material": "Cu",
+              "roughness": 0.2},
+             {"name": "fiber", "type": "lambertian_fiber",
+              "albedo": [0.6, 0.5, 0.35]},
+             {"name": "floor", "type": "lambert", "albedo": [0.55, 0.5, 0.45]},
+             {"name": "ball", "type": "lambert", "albedo": [0.3, 0.5, 0.7]},
+             {"name": "light", "type": "lambert", "albedo": 0.0}]
+    prims = [
+        {"type": "curves", "file": "groom.fiber", "bsdf": "hair",
+         "mode": "bcsdf_cylinder"},
+        {"type": "curves", "file": "ribbons.hair", "bsdf": "wire",
+         "mode": "ribbon"},
+        {"type": "curves", "file": "half.fiber", "bsdf": "fiber",
+         "mode": "half_cylinder"},
+        {"type": "instances", "bsdf": "ball",
+         "masters": [{"type": "mesh", "file": "ball.wo3", "smooth": True,
+                      "transform": {"scale": 0.15}}],
+         "instances": [{"id": 0, "transform": {"position": [
+             2.6 * float(np.cos(a)), 0.15, 2.6 * float(np.sin(a))]}}
+             for a in ring]},
+        {"type": "quad", "bsdf": "floor",
+         "transform": {"position": [0, 0, 0], "scale": [12, 1, 12]}},
+        {"type": "quad", "bsdf": "light", "emission": [10.0, 9.5, 9.0],
+         "transform": {"position": [-0.5, 3.5, -1.0], "scale": [2, 1, 2],
+                       "rotation": [0, 0, 180]}},
+        {"type": "infinite_sphere_cap", "cap_angle": 3.0,
+         "power": [5.0, 4.6, 4.0], "transform": {"rotation": [40, 0, 30]}}]
+    sj = scene_json(bsdfs, prims, res, spp)
+    sj["camera"].update({"fov": 42, "transform": {
+        "position": [0, 1.1, -3.9], "look_at": [0, 0.55, 0]}})
+    path = os.path.join(dirpath, name)
     with open(path, "w") as f:
         json.dump(sj, f, indent=1)
     return path
@@ -1062,15 +1182,183 @@ def check_outdoor_kernels(scene, settings) -> tuple[dict, dict, dict]:
     return cam, shadow, strat
 
 
+def curve_inputs(scene, o, d, t_min, t_max, any_hit: bool):
+    """The curve walk's inputs as bvh_intersect forms them: per-ray near
+    limits, and far limits that are the best t of the triangles (K1, or
+    K2's occlusion) and the analytic prims where they hit, else t_max
+    clipped at the geometry box; for any hit t_min where they occlude."""
+    import torch
+    from tungsten_tpu_torch.ops import intersect as tis
+    R = o.shape[0]
+    tmin = torch.broadcast_to(torch.as_tensor(
+        t_min, dtype=torch.float32, device=o.device), (R,)).contiguous()
+    t_clip = tis.geo_clip(scene, o, d, t_max)
+    front = tis._tri_analytic(scene, o, d, tmin, t_clip, any_hit, False)
+    far = torch.where(front["hit"], tmin if any_hit else front["t"], t_clip)
+    return tmin, far.contiguous()
+
+
+def curve_bound_ms(scene, R: int, visits: int, tests: int, nodes: int,
+                   pieces: int) -> tuple[float, str]:
+    """Least time for a C1 launch: the bytes it must move (the distinct
+    node and piece rows this run's rays read, each once, the rays in and
+    the results out) over the HBM rate vs its f32 operations (a slab
+    test a node visit, a half-cylinder test a piece test) over the f32
+    rate.  A ray reads o, d, t_min and t_max (32 B) and writes t, seg, u,
+    v and hit (17 B); the walk's counts are statistics that a render does
+    not store."""
+    from tungsten_tpu_torch.ops import curve_trace as tct
+    nbytes = nodes * 32 + pieces * 64 + R * (32 + 17)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (visits * tct.FLOPS_PER_NODE + tests * tct.FLOPS_PER_PIECE) \
+        / PEAK_F32 * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_curves(scene, name, o, d, t_min, t_max, any_hit: bool) -> dict:
+    """C1 on one ray set at full width against the plain curve walk on the
+    first C1_CHECK rays, on the same device and inputs (curve_inputs):
+    the hit set equal on >= 0.9999 of the live rays (far limit above the
+    near limit); in closest hit the segment on >= 0.9999 of the rays
+    both hit, t within rtol 1e-5 / atol 1e-6 where the segments agree;
+    dead rays visit no node.  In any hit the hit set also equals C1's closest
+    hit's on the same inputs.
+    Times with CUDA events (median of 5 after a warm-up) at full width
+    and on the first 1,024 and 65,536 rays, the plain walk's checking
+    run (once), and bvh_intersect on the whole set."""
+    import torch
+    from tungsten_tpu_torch.ops import curve_trace as tct
+    from tungsten_tpu_torch.ops import intersect as tis
+    R = o.shape[0]
+    tmin, far = curve_inputs(scene, o, d, t_min, t_max, any_hit)
+    live = far > tmin
+    t, seg, u, v, hit, counts, nmark, pmark = tct.curve_kernel(
+        scene.crv_rows, scene.cbvh_rows, o, d, tmin, far, any_hit,
+        stats=True)
+    n = min(C1_CHECK, R)
+    plain = []
+    plain_ms = event_ms(lambda: plain.extend(tis.curve_walk_plain(
+        scene, o[:n], d[:n], tmin[:n], far[:n], any_hit)))
+    pt, pseg, pu, pv, phit = plain
+    lv = live[:n]
+    agree = (hit[:n] == phit)[lv].float().mean().item()
+    both = hit[:n] & phit
+    seg_eq = (seg[:n] == pseg)[both].float().mean().item() \
+        if bool(both.any()) else 1.0
+    err = abs_err = 0.0
+    if not any_hit:
+        s = both & (seg[:n] == pseg)
+        dt = (t[:n] - pt).abs()
+        err = float(dt[s].max()) if bool(s.any()) else 0.0
+        # rtol 1e-5, and atol 1e-6 for a ray that leaves a strand and
+        # meets a strand again at t of 1e-4 to 1e-2: there t's difference
+        # is the rounding of its hit point, a few ulps of the scene's unit
+        # scale (an ulp of 1 is 1.2e-7; up to 3.9e-7 seen on the H100).
+        # abs_err: the largest |dt| beyond the rtol part, what atol covers
+        abs_err = float((dt - 1e-5 * pt.abs())[s].clamp(min=0.0).max()) \
+            if bool(s.any()) else 0.0
+        bad = s & (dt > 1e-5 * pt.abs() + 1e-6)
+        if bool(bad.any()):
+            raise AssertionError(
+                f"{name}: C1 t off the plain walk's on {int(bad.sum())} of "
+                f"{int(s.sum())} rays: t {t[:n][bad][:8].tolist()} vs "
+                f"{pt[bad][:8].tolist()}")
+    else:
+        ch = tct.curve_kernel(scene.crv_rows, scene.cbvh_rows, o, d, tmin,
+                              far, False)[4]
+        if not torch.equal(ch, hit):
+            raise AssertionError(f"{name}: any-hit set differs from C1's "
+                                 f"closest hit set")
+    if bool((counts[0][~live] != 0).any()):
+        raise AssertionError(f"{name}: a dead ray visited nodes")
+    visits, tests = int(counts[0].sum()), int(counts[1].sum())
+    nodes, pieces = int(nmark.sum()), int(pmark.sum())
+    log(f"  {name}: {R} rays ({int(live.sum())} live, hit share "
+        f"{hit.float().mean().item():.4f}); vs plain on {n}: hit set "
+        f"{agree:.6f}, segment {seg_eq:.6f}, max |dt| {err:.3g} "
+        f"(beyond rtol 1e-5: {abs_err:.3g}); node "
+        f"visits {visits} ({visits / max(int(live.sum()), 1):.1f} a live "
+        f"ray), piece tests {tests}; distinct rows read: {nodes} nodes, "
+        f"{pieces} pieces")
+    # an any-hit walk stops at its first hit, the plain walk after its
+    # leaf: only the hit set is theirs to share
+    if not (agree >= 0.9999 and (any_hit or seg_eq >= 0.9999)):
+        raise AssertionError(f"{name}: C1 vs the plain curve walk: hit set "
+                             f"{agree}, segment {seg_eq}")
+
+    def run(k):
+        return tct.curve_kernel(scene.crv_rows, scene.cbvh_rows, o[:k],
+                                d[:k], tmin[:k], far[:k], any_hit)
+    ms = cuda_ms(lambda: run(R))
+    widths = {str(k): cuda_ms(lambda k=k: run(k)) for k in (1024, 65536)
+              if k < R}
+    wrap_ms = cuda_ms(lambda: tis.bvh_intersect(scene, o, d, t_min, t_max,
+                                                any_hit=any_hit))
+    b, by = curve_bound_ms(scene, R, visits, tests, nodes, pieces)
+    log(f"  {name}: C1 {ms:.3f} ms at full width ("
+        + ", ".join(f"{k} rays {x:.3f} ms" for k, x in widths.items())
+        + f"), plain walk {plain_ms:.1f} ms on {n} rays, bound {b:.4f} ms "
+        f"({by}); bvh_intersect {wrap_ms:.3f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, plain_rays=n, bound_ms=b,
+                bound_by=by, max_abs_err=err, t_abs_err=abs_err,
+                rays=R, live=int(live.sum()),
+                node_visits=visits, piece_tests=tests, distinct_nodes=nodes,
+                distinct_pieces=pieces, by_width=widths,
+                bvh_intersect_ms=wrap_ms, hit_agreement=agree,
+                segment_agreement=seg_eq)
+
+
+def check_hair_kernels(scene, settings) -> tuple[dict, dict, dict]:
+    """C1 on the traversals of the first two full-width bounce bodies,
+    recorded as the bodies make them (the simple two-strategy NEE: a
+    closest hit, an any-hit shadow segment, a closest-hit strategy ray a
+    body): the camera rays (body 1's top trace), the shadow segments of
+    body 1 in any hit, and the continuation rays (body 2's top trace).
+    Returns (camera, shadow, continuation)."""
+    import torch
+    from tungsten_tpu_torch.integrators import path_tracer as tpt
+    dev = scene.device
+    n = settings.width * settings.height
+    pix = torch.arange(n, dtype=torch.int32, device=dev).repeat(SPP)
+    smp = torch.arange(SPP, dtype=torch.int32, device=dev).repeat_interleave(n)
+    s = tpt.init_wave(scene, settings, pix, smp, SEED)
+    calls = []
+    orig = tpt.bvh_intersect
+
+    def record(sc, o, d, t_min, t_max, any_hit=False, presorted=False):
+        calls.append((o, d, t_min, t_max, any_hit))
+        return orig(sc, o, d, t_min, t_max, any_hit=any_hit,
+                    presorted=presorted)
+    tpt.bvh_intersect = record
+    try:
+        body = tpt._make_bounce_body(scene, settings, SEED)
+        body(body(s))
+    finally:
+        tpt.bvh_intersect = orig
+    kinds = [("anyhit" if c[4] else "closest") for c in calls]
+    if kinds != ["closest", "anyhit", "closest"] * 2:
+        raise AssertionError(f"hair bodies: traversals {kinds}, not the "
+                             f"simple sub-branch's")
+    out = []
+    for name, c in (("hair camera rays", calls[0]),
+                    ("hair shadow segments", calls[1]),
+                    ("hair continuation rays", calls[3])):
+        o, d, t_min, t_max, any_hit = c
+        out.append(check_curves(scene, name, o, d, t_min, t_max, any_hit))
+    return tuple(out)
+
+
 def render_counted(scene, settings, twt):
-    """The main path with every launch count set to 0 just before and
-    read just after: (image, stats, launches)."""
+    """The main path with every launch count (the wave kernels' and C1's)
+    set to 0 just before and read just after: (image, stats, launches)."""
+    from tungsten_tpu_torch.ops import curve_trace as tct
     from tungsten_tpu_torch.render import render
-    for key in twt.LAUNCHES:
-        twt.LAUNCHES[key] = 0
+    for counts in (twt.LAUNCHES, tct.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
     img, stats = render(scene, settings, spp=SPP, seed=SEED, spp_chunk=SPP,
                         return_stats=True)
-    return img, stats, dict(twt.LAUNCHES)
+    return img, stats, dict(twt.LAUNCHES, **tct.LAUNCHES)
 
 
 def cross_path(scene, settings, max_bounces: int | None = None,
@@ -1103,6 +1391,8 @@ def cross_path(scene, settings, max_bounces: int | None = None,
 
 
 KERNEL_OF_ROUTE = {"closest": "wave_trace_closest_kernel",
+                   "curve_closest": "curve_trace_kernel",
+                   "curve_anyhit": "curve_trace_kernel",
                    "paged_closest": "wave_trace_closest_kernel",
                    "anyhit": "wave_trace_anyhit_kernel",
                    "paged_anyhit": "wave_trace_anyhit_kernel",
@@ -1126,8 +1416,10 @@ def profile_render(render_once, summary: dict | None = None) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from tungsten_tpu_torch.ops import curve_trace as tct
     from tungsten_tpu_torch.ops import wave_trace as twt
     twt.LAUNCH_LOG = []
+    tct.LAUNCH_LOG = []
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1135,8 +1427,10 @@ def profile_render(render_once, summary: dict | None = None) -> dict:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         launched = twt.LAUNCH_LOG
+        curve_launched = tct.LAUNCH_LOG
     finally:
         twt.LAUNCH_LOG = None
+        tct.LAUNCH_LOG = None
     kern = [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
             for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA]
@@ -1161,28 +1455,37 @@ def profile_render(render_once, summary: dict | None = None) -> dict:
     total = sum(v[0] for v in by_name.values())
     launches = sum(v[1] for v in by_name.values())
     wave = sum(v[0] for k, v in by_name.items() if "wave_trace" in k)
+    curve = sum(v[0] for k, v in by_name.items() if "curve_trace" in k)
     if summary is not None:
         summary.update(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
-                       launches=launches, idle=1.0 - busy / wall_us)
+                       launches=launches, idle=1.0 - busy / wall_us,
+                       curve_share=curve / total)
     log(f"profile: wall {wall_us / 1e3:.1f} ms under the profiler, device "
         f"busy {busy / 1e3:.1f} ms ({busy / wall_us * 100:.1f} %, idle "
         f"{100 - busy / wall_us * 100:.1f} %), {launches} kernel launches; "
         f"wave kernels {wave / 1e3:.1f} ms ({wave / total * 100:.1f} % of "
-        f"kernel time)")
+        f"kernel time)" + (f"; C1 {curve / 1e3:.1f} ms "
+                           f"({curve / total * 100:.1f} %)"
+                           if curve_launched else ""))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (us, n) in top:
         log(f"  {us / 1e3:9.2f} ms {n:6d}x {us / total * 100:5.1f} %  "
             f"{name[:90]}")
     trav = sorted((s, e, name) for s, e, name in kern
                   if "wave_trace" in name)
+    ctrav = sorted((s, e, name) for s, e, name in kern
+                   if "curve_trace" in name)
     if len(trav) != len(launched) or not all(
             KERNEL_OF_ROUTE[route] in name
-            for (_, _, name), (route, _, _) in zip(trav, launched)):
-        log(f"  traversal launches by width: not measured ({len(trav)} "
-            f"device events, {len(launched)} launches logged)")
+            for (_, _, name), (route, _, _) in zip(trav, launched)) or \
+            len(ctrav) != len(curve_launched):
+        log(f"  traversal launches by width: not measured ({len(trav)} + "
+            f"{len(ctrav)} device events, {len(launched)} + "
+            f"{len(curve_launched)} launches logged)")
         return {}
     tally: dict[str, dict] = {}
-    for (s, e, _), (route, rays, splits) in zip(trav, launched):
+    for (s, e, _), (route, rays, splits) in zip(
+            trav + ctrav, launched + [(r, n, 1) for r, n in curve_launched]):
         r = tally.setdefault(route, {"launches": 0, "ms": 0.0,
                                      "by_width": {}})
         w = r["by_width"].setdefault(str(rays), {"launches": 0,
@@ -1505,6 +1808,7 @@ def main() -> int:
     import numpy as np
     from tungsten_tpu_torch import native
     from tungsten_tpu_torch.io import image
+    from tungsten_tpu_torch.ops import curve_trace as tct
     from tungsten_tpu_torch.ops import wave_trace as twt
     from tungsten_tpu_torch.render import render
     from tungsten_tpu_torch.scene.flatten import flatten_scene
@@ -1534,19 +1838,21 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     log(card)
 
-    # 2. build (both nvcc and g++ at once)
+    # 2. build (the three nvcc and the g++ compiles at once)
     t0 = time.time()
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         k_fut = ex.submit(twt.load_kernels)
         l_fut = ex.submit(mxb.load_kernels)
+        c_fut = ex.submit(tct.load_kernel)
         b_fut = ex.submit(native.get_lib)
         lib = k_fut.result()
         leaf_lib = l_fut.result()
+        curve_lib = c_fut.result()
         bvh_lib = b_fut.result()
     log(f"build: {time.time() - t0:.2f} s (wave kernels {lib._name}; leaf "
-        f"kernel {leaf_lib._name}; host BVH build "
-        f"{'native' if bvh_lib is not None else 'numpy'})")
-    for built in (lib, leaf_lib):
+        f"kernel {leaf_lib._name}; curve kernel {curve_lib._name}; host BVH "
+        f"build {'native' if bvh_lib is not None else 'numpy'})")
+    for built in (lib, leaf_lib, curve_lib):
         with open(built._name + ".log") as f:
             for line in f.read().splitlines():
                 if any(x in line for x in ("registers", "spill",
@@ -1624,11 +1930,15 @@ def main() -> int:
             f"{twt.traversal_kind(zscene)}; bsdf types "
             f"{list(zsettings.present_bsdf_types)}; {time.time() - t0:.2f} s")
         from tungsten_tpu_torch.bsdf.types import (FORWARD_LOBE_TYPES,
-                                                   PORTED_TYPES)
+                                                   HAIR, LAMBERTIAN_FIBER,
+                                                   PORTED_TYPES, ROUGH_WIRE)
+        # every surface type: not the forward lobes (phase 8) nor the
+        # fiber BCSDFs, which shade curves (phase 10)
         if not (z_tri >= 600_000 and z_mb * 2**20 >= twt.PAGED_ATTR_BYTES and
                 twt.traversal_kind(zscene) == "paged" and
                 set(zsettings.present_bsdf_types) ==
-                set(PORTED_TYPES) - set(FORWARD_LOBE_TYPES)):
+                set(PORTED_TYPES) - set(FORWARD_LOBE_TYPES)
+                - {HAIR, LAMBERTIAN_FIBER, ROUGH_WIRE}):
             raise AssertionError("large scene off the paged-path range")
         mark("large scene (a)")
         log("  (b) paged kernels vs plain walk and resident kernels:")
@@ -1782,7 +2092,81 @@ def main() -> int:
         mark("outdoor (d)")
         del oscene
 
-        # 10. the CLI at the bench size: output buffers, then adaptive
+        # 10. curves in three modes with the fiber BCSDFs, instances, C1
+        log("hair scene:")
+        t0 = time.time()
+        hpath = write_hair_scene(tmp)
+        t_write = time.time() - t0
+        t0 = time.time()
+        hscene, hsettings = flatten_scene(load_scene(hpath))
+        torch.cuda.synchronize()
+        t_flat = time.time() - t0
+        h_tri = hscene.tri_v0.shape[0]
+        crv_mb = sum(getattr(hscene, f).numel() * getattr(hscene, f)
+                     .element_size() for f in vars(hscene)
+                     if f.startswith(("crv_", "cbvh_"))) / 2**20
+        hair_mb = sum(getattr(hscene, f).numel() * 4 for f in vars(hscene)
+                      if f.startswith("hair_")) / 2**20
+        n_seg = hscene.crv_seg_p0.shape[0]
+        n_pc = hscene.crv_pc_q0.shape[0]
+        log(f"  (a) {sum((HAIR_STRANDS, HAIR_RIBBONS, HAIR_HALF))} strands "
+            f"of {HAIR_NODES} nodes ({HAIR_STRANDS} groom bcsdf_cylinder "
+            f"hair, {HAIR_RIBBONS} ribbon rough_wire, {HAIR_HALF} "
+            f"half_cylinder lambertian_fiber), {n_seg} segments, {n_pc} "
+            f"pieces, {hscene.cbvh_meta.shape[0]} piece-BVH nodes; curve "
+            f"tables {crv_mb:.1f} MiB on the card (packed rows included), "
+            f"hair tables {hair_mb:.2f} MiB; {h_tri} triangles "
+            f"({HAIR_SPHERES} instanced spheres, floor, light), walk "
+            f"{twt.traversal_kind(hscene)}; curve modes "
+            f"{hsettings.curve_modes}, bsdf types "
+            f"{list(hsettings.present_bsdf_types)}; one-sample MIS "
+            f"{_one_sample_mis(hsettings)}; files written in {t_write:.2f} "
+            f"s, flatten {t_flat:.2f} s")
+        if not (n_seg == sum((HAIR_STRANDS, HAIR_RIBBONS, HAIR_HALF))
+                * (HAIR_NODES - 2) and n_pc == 8 * n_seg and
+                hsettings.curve_modes == (1, 2, 3) and
+                twt.traversal_kind(hscene) == "resident" and
+                10_000 <= h_tri <= 20_000 and hsettings.num_caps == 1 and
+                not _one_sample_mis(hsettings)):
+            raise AssertionError("hair scene off its layout")
+        mark("hair (a)")
+        log("  (b) C1 against the plain curve walk:")
+        hcam, hshadow, hcont = check_hair_kernels(hscene, hsettings)
+        mark("hair (b)")
+        log("  (c) render:")
+        himg, hstats, hlaunches = render_counted(hscene, hsettings, twt)
+        log(f"  {hsettings.width}x{hsettings.height} {SPP} spp max_bounces "
+            f"{hsettings.max_bounces}: {hstats['time']:.3f} s, "
+            f"{hstats['rays']} rays, {hstats['mrays_per_s']:.3f} Mrays/s on "
+            f"{card}; launches {hlaunches}; image mean {himg.mean():.6f}")
+        if not (np.isfinite(himg).all() and himg.mean() > 0):
+            raise AssertionError("hair render: image not finite or black")
+        if not (hlaunches["curve_closest"] > 0 and
+                hlaunches["curve_anyhit"] > 0 and
+                hlaunches["closest"] > 0 and hlaunches["anyhit"] > 0 and
+                hlaunches["paged_closest"] == 0 and
+                hlaunches["paged_walk"] == 0):
+            raise AssertionError(f"hair render: C1, K1 and K2 do not all "
+                                 f"launch {hlaunches}")
+        hsum: dict = {}
+        hprof = profile_render(lambda: render(hscene, hsettings, spp=SPP,
+                                              seed=SEED, spp_chunk=SPP),
+                               summary=hsum)
+        log(f"  hair render: {hsum.get('launches')} kernel launches a "
+            f"render beside {hstats['mrays_per_s']:.3f} Mrays/s")
+        mark("hair (c)")
+        del hscene
+        log(f"  (d) the scene cut to {HAIR_CROSS} strands (groom, ribbon, "
+            f"half-cylinder), 32x32, 4 spp, {HAIR_CROSS_BOUNCES} bounces:")
+        spath = write_hair_scene(tmp, HAIR_CROSS, res=32, spp=4,
+                                 name="hair_small.json")
+        sscene, ssettings = flatten_scene(load_scene(spath))
+        cross_path(sscene, ssettings, max_bounces=HAIR_CROSS_BOUNCES,
+                   res=(32, 32))
+        mark("hair (d)")
+        del sscene
+
+        # 11. the CLI at the bench size: output buffers, then adaptive
         log("cli:")
         bpath = scene_variant(path, "buffers.json", spp=SPP,
                               output_file="buffers.png",
@@ -1808,7 +2192,7 @@ def main() -> int:
                      img, 1.0, 1.0, 0.0, 0.05)
         mark("cli")
 
-        # 11. resume: 8 spp, then continued to 16
+        # 12. resume: 8 spp, then continued to 16
         log("resume:")
         rpath = scene_variant(path, "resume.json", spp=SPP, spp_step=8,
                               output_file="resume.png",
@@ -1821,20 +2205,20 @@ def main() -> int:
         if not (first["spp"] == 8 and second["spp"] == SPP):
             raise AssertionError("resume: wrong sample counts")
         res_hdr = image.load_hdr(os.path.join(rdir, "resume.pfm"))
-        # the same rays as 10a's, summed in float64 atomics in another
+        # the same rays as 11a's, summed in float64 atomics in another
         # order and traced in other waves (a tie between two triangles at
         # equal t may break another way)
         images_agree("resumed 8 + 8 spp vs uninterrupted 16 spp", res_hdr,
                      buf_hdr, 1e-4, 1e-5, 0.999, 1e-4)
         mark("resume")
 
-        # 12. the server
+        # 13. the server
         log("server:")
         server_run(scene_variant(path, "server.json", res=64, spp=8,
                                  spp_step=4))
         mark("server")
 
-    # 13. kernels line and result
+    # 14. kernels line and result
     closest_tol = ("vs plain walk: hit-set agreement > 0.998, same triangle "
                    "> 0.999, t within rtol 2e-3 on > 0.999 (the kernel's "
                    "own t and after the finalize), u/v atol 2e-3; "
@@ -1880,6 +2264,47 @@ def main() -> int:
                                              if pr.get(mode) else None)
     k1_row["outdoor_strategy"].update(
         {k: ostrat[k] for k in ("live", "bvh_intersect_ms")})
+    for row, mode in ((k1_row, "closest"), (k2_row, "anyhit")):
+        row["hair_launches"] = hlaunches[mode]
+        row["hair_render_ms"] = hprof[mode]["ms"] if hprof.get(mode) \
+            else None
+    c1_tol = ("vs the plain curve walk (ops/intersect.py::curve_walk_plain, "
+              "the JAX _curve_traverse step for step) on the first 65,536 "
+              "rays of each set, on the card: hit set equal on >= 0.9999 "
+              "of live rays; closest hit: segment equal on >= 0.9999 of the "
+              "rays both hit, t within rtol 1e-5 / atol 1e-6 where the "
+              "segments agree (atol: a ray leaving a strand meets a strand "
+              "again at t of 1e-4 to 1e-2, where t differs by a few ulps of "
+              "the scene's unit scale; nvcc "
+              "contracts multiply-adds, so an edge hit may flip); any "
+              "hit: the hit set also equal to C1's closest hit's (the first "
+              "hit's segment is the walk's own); dead rays visit no node; "
+              "max_abs_err the camera rays' max |dt|")
+    c1_keys = ("ms", "plain_ms", "plain_rays", "bound_ms", "bound_by",
+               "max_abs_err", "t_abs_err", "rays", "live", "node_visits",
+               "piece_tests", "distinct_nodes", "distinct_pieces", "by_width",
+               "bvh_intersect_ms", "hit_agreement", "segment_agreement")
+    c1_row = {
+        "name": "curve_trace", "route": "cuda",
+        "source": "tungsten_tpu_torch/csrc/curve_trace.cu",
+        "replaces": "tungsten_tpu/ops/intersect.py:175 (_curve_traverse, "
+                    "an XLA while_loop, not a Pallas kernel)",
+        "launches": hlaunches["curve_closest"] + hlaunches["curve_anyhit"],
+        "launches_closest": hlaunches["curve_closest"],
+        "launches_anyhit": hlaunches["curve_anyhit"],
+        "max_abs_err": hcam["max_abs_err"], "ms": hcam["ms"],
+        "plain_ms": hcam["plain_ms"], "bound_ms": hcam["bound_ms"],
+        "bound_by": hcam["bound_by"], "library_ms": None,
+        "tolerance": c1_tol,
+        "camera": {k: hcam[k] for k in c1_keys},
+        "continuation": {k: hcont[k] for k in c1_keys},
+        "shadow": {k: hshadow[k] for k in c1_keys},
+        "render_ms": sum(hprof[r]["ms"] for r in ("curve_closest",
+                                                   "curve_anyhit")
+                         if hprof.get(r)) if hprof else None,
+        "render_by_width": {r: hprof[r]["by_width"] for r in (
+            "curve_closest", "curve_anyhit") if hprof.get(r)} or None,
+        "hair_render_curve_share": hsum.get("curve_share")}
     rows = [
         k1_row,
         k2_row,
@@ -1888,7 +2313,7 @@ def main() -> int:
                    {"continuation": zcont}, zprof),
         kernel_row("wave_trace_paged_anyhit", "paged_anyhit", zshadow,
                    zlaunches, k3, anyhit_tol + split + paged, {}, zprof),
-    ] + leaf_rows
+    ] + leaf_rows + [c1_row]
     log(f"render_s {stats['time']:.3f} mrays_per_s "
         f"{stats['mrays_per_s']:.3f} large_render_s {zstats['time']:.3f} "
         f"large_mrays_per_s {zstats['mrays_per_s']:.3f} media_render_s "
@@ -1898,6 +2323,10 @@ def main() -> int:
         f"{ostats['time']:.3f} outdoor_mrays_per_s "
         f"{ostats['mrays_per_s']:.3f} outdoor_launches_per_render "
         f"{osum.get('launches')} outdoor_idle {osum.get('idle')} "
+        f"hair_render_s {hstats['time']:.3f} hair_mrays_per_s "
+        f"{hstats['mrays_per_s']:.3f} hair_launches_per_render "
+        f"{hsum.get('launches')} hair_idle {hsum.get('idle')} "
+        f"hair_c1_share {hsum.get('curve_share')} "
         f"cli_buffers_s "
         f"{cli_buf['seconds']:.3f} cli_buffers_mrays_per_s "
         f"{cli_buf['mrays_per_s']:.3f} cli_adaptive_s "

@@ -46,7 +46,7 @@ from tungsten_tpu_torch.scene.flatten import (flat_scene_from_numpy,
                                               flatten_scene)
 from test_bsdf import BSDF_DEFS
 from test_torch_flatten import jax_fields
-from test_torch_path_tracer import _lanes_agree
+from test_torch_path_tracer import _jax_image, _lanes_agree
 
 CHECKER = {"type": "checker", "on_color": 0.45, "off_color": 0.08,
            "res_u": 4, "res_v": 4}
@@ -71,8 +71,11 @@ EXTRA_DEFS = [
 DEFS = BSDF_DEFS + EXTRA_DEFS
 # the ported types this table covers: all but the forward-lobe types,
 # which take the path tracer off its one-sample-MIS estimator
-# (tests/test_torch_media*.py cover them)
-SURFACE_TYPES = set(tbt.PORTED_TYPES) - set(tbt.FORWARD_LOBE_TYPES)
+# (tests/test_torch_media*.py cover them), and the fiber BCSDFs, which
+# shade curves (tests/test_torch_fiber.py, test_torch_curves*.py)
+FIBER_TYPES = {tbt.HAIR, tbt.ROUGH_WIRE, tbt.LAMBERTIAN_FIBER}
+SURFACE_TYPES = set(tbt.PORTED_TYPES) - set(tbt.FORWARD_LOBE_TYPES) - \
+    FIBER_TYPES
 N = 4096
 SAMPLE_PART = 0.002
 
@@ -305,16 +308,6 @@ def zoo(tmp_path_factory):
     return js, jset, ts, tset
 
 
-@pytest.fixture
-def jax_sampler(zoo):
-    """render_pass latches the JAX package's sampler in a module global;
-    set it as render_pass would and restore it afterwards."""
-    prev = jrng._SAMPLER
-    jrng.set_sampler(zoo[1].stratified_sampler)
-    yield
-    jrng._SAMPLER = prev
-
-
 def _ids(settings):
     n = settings.width * settings.height
     pixel = np.tile(np.arange(n, dtype=np.uint32), SPP)
@@ -336,21 +329,46 @@ def _shaded_types(ts, state):
     return {int(t) for t in ts.bsdf_type[rows].unique()}
 
 
-def test_zoo_state_after_bounces_matches_jax(zoo, jax_sampler):
+@pytest.fixture(scope="module")
+def zoo_traced(zoo):
+    """Both packages' wavefront state after 0, 1, 2 and 4 bodies, and the
+    JAX state after max_bounces bodies (its image), from one JAX
+    compile (render_pass latches the JAX sampler in a module global: it
+    is set as render_pass would and restored)."""
+    js, jset, ts, tset = zoo
+    prev = jrng._SAMPLER
+    jrng.set_sampler(jset.stratified_sampler)
+    try:
+        pixel, sample = _ids(jset)
+        jstate = jrender._jit_init(js, jset, jnp.asarray(pixel),
+                                   jnp.asarray(sample), np.uint32(SEED))
+        tstate = tpt.init_wave(ts, tset,
+                               torch.from_numpy(pixel.astype(np.int32)),
+                               torch.from_numpy(sample.astype(np.int32)),
+                               SEED)
+        states = {0: (jstate, tstate)}
+        for bounce in (1, 2, 4):
+            jstate = jrender._jit_run(js, jset, np.uint32(SEED), jstate,
+                                      bounce)
+            tstate = tpt.run_bounces(ts, tset, SEED, tstate, bounce)
+            states[bounce] = (jstate, tstate)
+        jlast = jrender._jit_run(js, jset, np.uint32(SEED), jstate,
+                                 jset.max_bounces)
+    finally:
+        jrng._SAMPLER = prev
+    return states, {k: np.asarray(v) for k, v in jlast.items()}
+
+
+def test_zoo_state_after_bounces_matches_jax(zoo, zoo_traced):
     """Per lane: alive, pixel, throughput, emission, o and d within rtol
     1e-4 / atol 1e-5 after 1, 2 and 4 bodies on >= 0.995 of the lanes
     (a lobe choice on its threshold may flip a lane, see the module
     docstring; none parted when this was written)."""
-    js, jset, ts, tset = zoo
-    pixel, sample = _ids(jset)
-    jstate = jrender._jit_init(js, jset, jnp.asarray(pixel),
-                               jnp.asarray(sample), np.uint32(SEED))
-    tstate = tpt.init_wave(ts, tset, torch.from_numpy(pixel.astype(np.int32)),
-                           torch.from_numpy(sample.astype(np.int32)), SEED)
-    seen = _shaded_types(ts, tstate)
+    ts = zoo[2]
+    states, _ = zoo_traced
+    seen = _shaded_types(ts, states[0][1])
     for bounce in (1, 2, 4):
-        jstate = jrender._jit_run(js, jset, np.uint32(SEED), jstate, bounce)
-        tstate = tpt.run_bounces(ts, tset, SEED, tstate, bounce)
+        jstate, tstate = states[bounce]
         assert int(jstate["bounce"]) == tstate["bounce"] == bounce
         agree = _lanes_agree(jstate, tstate)
         assert agree.mean() >= 0.995, (bounce, agree.mean())
@@ -361,13 +379,14 @@ def test_zoo_state_after_bounces_matches_jax(zoo, jax_sampler):
     assert seen == SURFACE_TYPES, SURFACE_TYPES - seen
 
 
-def test_zoo_image_matches_jax(zoo, jax_sampler):
-    """The image: >= 0.99 of the pixels within rtol 1e-3 / atol 1e-4 and
-    the means within 1e-4 relative (the image gates of
+def test_zoo_image_matches_jax(zoo, zoo_traced):
+    """The image against the JAX wave's (its state after max_bounces
+    bodies summed by pixel): >= 0.99 of the pixels within rtol 1e-3 /
+    atol 1e-4 and the means within 1e-4 relative (the image gates of
     tests/test_torch_path_tracer.py)."""
     js, jset, ts, tset = zoo
-    jimg = np.asarray(jrender.render(js, jset, spp=SPP, seed=SEED,
-                                     spp_chunk=SPP))
+    assert int(zoo_traced[1]["bounce"]) == jset.max_bounces
+    jimg = _jax_image(zoo_traced[1], jset)
     img = trender(ts, tset, spp=SPP, seed=SEED, spp_chunk=SPP, device="cpu")
     assert img.shape == jimg.shape == (12, 16, 3)
     assert np.isfinite(img).all() and img.mean() > 0

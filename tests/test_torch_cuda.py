@@ -33,6 +33,11 @@ analytic hit and K2 the simple NEE's shadow segments (far limit
 dist * SHADOW_FUDGE), both against the f32 brute force; and a small
 scene of analytic prims with cap, point and skydome lights under a
 thinlens camera renders through K1 and K2 as the plain path renders it.
+The curve-piece walk C1 (csrc/curve_trace.cu) agrees with the plain
+curve walk on a scene of all four curve modes in closest and any hit,
+gives the live rays of a mostly dead wave their own results bitwise, and
+a small curve scene with the fiber BCSDFs renders through C1, K1 and K2
+as the plain path renders it.
 """
 from types import SimpleNamespace
 
@@ -115,7 +120,8 @@ def _scene(v0, e1, e2, dev):
         wk_cbox=t(cbox), wk_attr=t(attr), wk_remap=t(remap), wk_sbox=t(sbox),
         geo_lo=t(lo.min(0)), geo_hi=t(hi.max(0)),
         sph_center=t(np.zeros((0, 3), np.float32)),
-        sph_radius=t(np.zeros((0,), np.float32))), o
+        sph_radius=t(np.zeros((0,), np.float32)),
+        crv_pc_q0=t(np.zeros((0, 4), np.float32))), o
 
 
 def _hits(fn, sc, order, o, d, tmin, tmax, any_hit):
@@ -1050,6 +1056,185 @@ def test_cuda_analytic_render_matches_plain_path(cuda_device, tmp_path):
     before = dict(twt.LAUNCHES)
     gpu = render(scene, settings, spp=4, seed=7, spp_chunk=4)
     assert all(twt.LAUNCHES[k] > before[k] for k in ("closest", "anyhit"))
+    cpu = render(scene.to("cpu"), settings, spp=4, seed=7, spp_chunk=4,
+                 device="cpu")
+    assert np.isfinite(gpu).all() and gpu.mean() > 0
+    close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1)
+    assert close.mean() >= 0.99, close.mean()
+    assert abs(gpu.mean() / cpu.mean() - 1.0) <= 5e-3
+
+
+def _curve_desc(tmp_path, cap: bool):
+    """A small curve scene written with the port's curve IO: strands in
+    all four modes with the three fiber BCSDFs and lambert, an instanced
+    cube, a floor and an area light, and with `cap` an
+    infinite_sphere_cap sun (the simple two-strategy NEE) instead of
+    one-sample MIS."""
+    from tungsten_tpu_torch.io import curves
+    from tungsten_tpu_torch.scene.parse import SceneDesc
+    r = np.random.default_rng(5)
+    prims = []
+    for i, (mode, bsdf) in enumerate((("cylinder", 3), ("half_cylinder", 2),
+                                      ("bcsdf_cylinder", 0),
+                                      ("ribbon", 1))):
+        n, k = 24, 8
+        base = np.stack([r.uniform(-0.2, 0.2, n) - 0.75 + 0.5 * i,
+                         np.zeros(n), r.uniform(-0.2, 0.2, n)], 1)
+        steps = 0.1 * np.stack([r.normal(0, 0.3, (n, k)), np.ones((n, k)),
+                                r.normal(0, 0.3, (n, k))], -1)
+        if mode == "cylinder":      # strands along x meet vertical rays
+            steps = steps[..., [1, 0, 2]]
+        pts = base[:, None] + np.cumsum(steps, 1)
+        nodes = np.concatenate([pts, np.full((n, k, 1), 0.02)],
+                               -1).reshape(-1, 4).astype(np.float32)
+        ends = (np.arange(1, n + 1) * k).astype(np.uint32)
+        curves.save_fiber(str(tmp_path / f"c{i}.fiber"), curves.CurveData(
+            ends, nodes, curves.init_normals(ends, nodes)))
+        prims.append({"type": "curves", "file": f"c{i}.fiber", "mode": mode,
+                      "bsdf_index": bsdf})
+    prims += [
+        {"type": "instances", "bsdf_index": 3,
+         "masters": [{"type": "cube", "transform": {"scale": 0.2}}],
+         "instances": [{"id": 0, "transform": {"position": [x, 0.1, -0.4]}}
+                       for x in (-0.6, 0.0, 0.6)]},
+        {"type": "quad", "bsdf_index": 3,
+         "transform": {"position": [0, -0.02, 0], "scale": 4}},
+        {"type": "quad", "bsdf_index": 3, "emission": [5, 5, 5],
+         "transform": {"position": [0, 2.0, -0.5], "scale": 1.0,
+                       "rotation": [180, 0, 0]}}]
+    if cap:
+        prims.append({"type": "infinite_sphere_cap", "cap_angle": 5.0,
+                      "power": [4, 4, 3],
+                      "transform": {"rotation": [30, 0, 20]}})
+    return SceneDesc(
+        path=str(tmp_path / "scene.json"), json={},
+        bsdfs=[{"type": "hair", "roughness": 0.3},
+               {"type": "rough_wire", "material": "Cu", "roughness": 0.2},
+               {"type": "lambertian_fiber", "albedo": [0.6, 0.5, 0.3]},
+               {"type": "lambert", "albedo": 0.6}],
+        primitives=prims, media=[],
+        camera={"type": "pinhole", "resolution": [32, 32], "fov": 55,
+                "transform": {"position": [0, 0.5, -2.4],
+                              "look_at": [0, 0.4, 0]}},
+        integrator={"max_bounces": 8}, renderer={"spp": 4})
+
+
+def _curve_rays(R, seed):
+    """Seeded rays at the strands from in front, a quarter vertical
+    (along -y from above), a third with t_min 0.2."""
+    r = np.random.default_rng(seed)
+    o = np.stack([r.uniform(-1.2, 1.2, R), r.uniform(0.0, 1.0, R),
+                  np.full(R, -2.0)], 1)
+    d = np.stack([r.uniform(-1.0, 1.0, R), r.uniform(0.0, 0.9, R),
+                  r.uniform(-0.3, 0.3, R)], 1) - o
+    q = R // 4
+    o[:q] = np.stack([r.uniform(-1.0, -0.3, q), np.full(q, 2.0),
+                      r.uniform(-0.3, 0.3, q)], 1)
+    d[:q] = [0.0, -1.0, 0.0]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_min = np.where(np.arange(R) % 3 == 1, 0.2, 0.0)
+    return o.astype(np.float32), d.astype(np.float32), \
+        t_min.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cuda_curve_kernel_matches_plain_walk(cuda_device, tmp_path,
+                                              any_hit):
+    """C1 against the plain curve walk on the same device and inputs, on a
+    scene of all four curve modes with far limits cut by triangles (the
+    floor, instanced cubes): the hit set and the segment equal on >=
+    0.9999 of the rays, t within rtol 1e-5 where the segments agree;
+    any hit's set equals C1's closest hit's; each launch counted once;
+    dead rays visit no node."""
+    from tungsten_tpu_torch.ops import curve_trace as tct
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    scene, _ = flatten_scene(_curve_desc(tmp_path, cap=False))
+    assert scene.crv_pc_q0.shape[0] == 4 * 24 * 6 * 8
+    R = 8192
+    o, d, tmin = (torch.from_numpy(x).to(cuda_device)
+                  for x in _curve_rays(R, 11))
+    front = tis._tri_analytic(scene, o, d, tmin,
+                              tis.geo_clip(scene, o, d, 3.0e38), False, False)
+    far = torch.where(front["hit"], front["t"], 3.0e38)
+    far[::17] = 0.0                               # dead rays
+    route = "curve_anyhit" if any_hit else "curve_closest"
+    before = dict(tct.LAUNCHES)
+    t, seg, u, v, hit, counts, _, _ = tct.curve_kernel(
+        scene.crv_rows, scene.cbvh_rows, o, d, tmin, far, any_hit,
+        stats=True)
+    assert tct.LAUNCHES[route] == before[route] + 1
+    pt, pseg, pu, pv, phit = tis.curve_walk_plain(scene, o, d, tmin, far,
+                                                  any_hit)
+    assert tct.LAUNCHES[route] == before[route] + 1   # the plain walk: 0
+    assert (hit == phit).float().mean().item() >= 0.9999
+    assert int(hit.sum()) > 200
+    live = far > tmin
+    assert not bool(hit[~live].any()) and not bool(counts[:, ~live].any())
+    assert bool((counts[0][live] > 0).all())
+    if any_hit:
+        closest = tct.curve_kernel(scene.crv_rows, scene.cbvh_rows, o, d,
+                                   tmin, far, False)[4]
+        assert torch.equal(closest, hit)
+        return
+    both = hit & phit
+    assert (seg == pseg)[both].float().mean().item() >= 0.9999
+    s = both & (seg == pseg)
+    assert torch.allclose(t[s], pt[s], rtol=1e-5, atol=0.0)
+    assert torch.equal(t[~hit], far[~hit])
+    modes = scene.crv_seg_mode[seg[hit].long()]
+    assert set(modes.tolist()) == {0, 1, 2, 3}
+    assert bool(hit[: R // 4].any())                  # vertical rays
+
+
+@pytest.mark.cuda
+def test_cuda_curve_kernel_few_live_rays(cuda_device, tmp_path):
+    """A wave of 65,536 rays with one in 256 live gives each live ray the
+    result it gets launched alone with its neighbours, bitwise, and the
+    dead ones a miss with no node visited."""
+    from tungsten_tpu_torch.ops import curve_trace as tct
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    scene, _ = flatten_scene(_curve_desc(tmp_path, cap=False))
+    R = 65536
+    o, d, tmin = (torch.from_numpy(x).to(cuda_device)
+                  for x in _curve_rays(R, 12))
+    far = torch.zeros(R, device=cuda_device)
+    idx = torch.arange(0, R, 256, device=cuda_device)
+    far[idx] = 3.0e38
+    for any_hit in (False, True):
+        wide = tct.curve_kernel(scene.crv_rows, scene.cbvh_rows, o, d, tmin,
+                                far, any_hit, stats=True)[:6]
+        alone = tct.curve_kernel(scene.crv_rows, scene.cbvh_rows, o[idx],
+                                 d[idx], tmin[idx], far[idx], any_hit,
+                                 stats=True)[:6]
+        for a, b in zip(wide, alone):
+            assert torch.equal(a[..., idx], b)
+        dead = far == 0
+        assert not bool(wide[4][dead].any())
+        assert not bool(wide[5][:, dead].any())
+        assert int(wide[4].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_curve_render_matches_plain_path(cuda_device, tmp_path):
+    """A 32x32 render of the four curve modes with the fiber BCSDFs, an
+    instanced cube, a floor and an area light, without a cap: one-sample
+    MIS, so C1 serves both the closest hits and the shadow rays (any
+    hit) beside K1 and K2, and the image is the plain path's on the CPU
+    (<= 1 % of pixels off by more than rtol 1e-3 / atol 1e-4, means
+    within 0.5 %)."""
+    from tungsten_tpu_torch.integrators.path_tracer import _one_sample_mis
+    from tungsten_tpu_torch.ops import curve_trace as tct
+    from tungsten_tpu_torch.render import render
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    scene, settings = flatten_scene(_curve_desc(tmp_path, cap=False))
+    assert _one_sample_mis(settings) and settings.curve_modes == (0, 1, 2, 3)
+    before = dict(twt.LAUNCHES, **tct.LAUNCHES)
+    gpu = render(scene, settings, spp=4, seed=7, spp_chunk=4)
+    after = dict(twt.LAUNCHES, **tct.LAUNCHES)
+    assert all(after[k] > before[k] for k in ("closest", "anyhit",
+                                              "curve_closest",
+                                              "curve_anyhit"))
     cpu = render(scene.to("cpu"), settings, spp=4, seed=7, spp_chunk=4,
                  device="cpu")
     assert np.isfinite(gpu).all() and gpu.mean() > 0

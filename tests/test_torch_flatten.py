@@ -2,6 +2,7 @@
 every field equal (bf16 env tables bit-equal), the wave-kernel cluster
 tables byte-equal, and the carry-across function exact."""
 import copy
+import os
 from dataclasses import fields
 
 import numpy as np
@@ -13,8 +14,17 @@ from tungsten_tpu_torch.io import image as timage
 from tungsten_tpu_torch.scene.flatten import (TUPLE_FIELDS, FlatScene,
                                               RenderSettings,
                                               flat_scene_from_numpy,
-                                              flatten_scene)
+                                              flatten_scene, pack_curve_rows)
 from test_output_buffers import _scene
+
+# Under pytest-xdist each worker imports every test module while it
+# collects, so this runs in every worker before its first test: PyTorch's
+# intra-op pool gets the worker's share of the cores (1 thread for 6
+# workers on 8 cores).  With PyTorch's default of a thread a core, the
+# workers' pools contend, and the port's CPU tests ran 2-12x slower.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+if _WORKERS:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 
 def scene_with_env(tmp_path, mirror_floor):
@@ -41,18 +51,27 @@ def _numpy_bits(x):
     return x.view(np.int16) if x.dtype.name == "bfloat16" else x
 
 
+# the port's packed fields, which the JAX FlatScene does not carry
+PACKED = ("tri_fin", "crv_rows", "cbvh_rows")
+
+
 def jax_fields(js):
     """A JAX FlatScene as numpy, keyed by the port's field names (the
     tuple fields, bitmaps and the media grids, as lists of arrays)."""
     out = {f.name: np.asarray(getattr(js, f.name))
            for f in fields(FlatScene)
-           if f.name != "tri_fin" and f.name not in TUPLE_FIELDS}
+           if f.name not in PACKED and f.name not in TUPLE_FIELDS}
     for name in TUPLE_FIELDS:
         out[name] = [np.asarray(b) for b in getattr(js, name)]
     return out
 
 
 def _assert_same_scene(ts, ref):
+    rows = dict(zip(("crv_rows", "cbvh_rows"), pack_curve_rows(
+        {k: torch.from_numpy(np.array(ref[k])) for k in (
+            "crv_pc_q0", "crv_pc_q1", "crv_pc_nmid", "crv_pc_t0",
+            "crv_pc_t1", "crv_pc_seg", "crv_seg_mode", "cbvh_min",
+            "cbvh_max", "cbvh_meta", "cbvh_skip")})))
     for f in fields(FlatScene):
         if f.name in TUPLE_FIELDS:
             got = getattr(ts, f.name)
@@ -65,6 +84,8 @@ def _assert_same_scene(ts, ref):
         if f.name == "tri_fin":
             want = np.concatenate([ref["tri_v0"], ref["tri_e1"],
                                    ref["tri_e2"]], axis=1)
+        elif f.name in rows:
+            want = rows[f.name].numpy()
         else:
             want = _numpy_bits(ref[f.name])
         got = _numpy_bits(getattr(ts, f.name))
@@ -114,20 +135,39 @@ def test_mesh_scene_equals_jax(tmp_path):
     _assert_same_scene(ts, jax_fields(js))
 
 
-@pytest.mark.parametrize("key,what", [("crv_seg_p0", "curves"),
-                                      ("crv_pc_q0", "curves"),
-                                      ("bsdf_type", "fiber")])
-def test_carry_across_refuses_unported_tables(key, what):
-    """A JAX scene with curves (segment or piece tables) or a fiber BSDF
-    cannot be carried across silently: the port does not shade them
-    yet."""
+@pytest.fixture(scope="module")
+def curve_scene(tmp_path_factory):
+    """A JAX scene with curves in all four modes and the three fiber
+    BCSDFs (a hair row named and one by default), as numpy fields."""
+    from test_torch_curves import FIBERS, desc_of, mixed_prims
+    tmp = str(tmp_path_factory.mktemp("carry"))
+    js, _ = jax_flatten(desc_of(tmp, copy.deepcopy(FIBERS),
+                                mixed_prims(tmp)))
+    return jax_fields(js)
+
+
+@pytest.mark.parametrize("key", ["crv_seg_p0", "crv_pc_q0", "bsdf_type"])
+def test_carry_across_curve_and_fiber_tables(curve_scene, key):
+    """A JAX scene with curves and fiber BSDFs carries across exactly:
+    the segment tables (crv_seg_*), the piece tables with the piece BVH
+    (crv_pc_*, cbvh_*) and the packed rows the curve walk reads, and the
+    BSDF table with the hair tables (bsdf_*, hair_*)."""
     from tungsten_tpu.bsdf import types as jbt
-    js, _ = jax_flatten(_scene())
-    flds = jax_fields(js)
+    ref = curve_scene
+    ts = flat_scene_from_numpy(ref, "cpu")
+    _assert_same_scene(ts, ref)
+    family = {"crv_seg_p0": ("crv_seg_",), "crv_pc_q0": ("crv_pc_", "cbvh_"),
+              "bsdf_type": ("bsdf_", "hair_")}[key]
+    names = [f.name for f in fields(FlatScene)
+             if f.name.startswith(family) and f.name not in PACKED]
+    assert len(names) >= 4 and np.asarray(ref[key]).shape[0] > 0
+    for name in names:
+        assert np.array_equal(getattr(ts, name).numpy(), ref[name]), name
+    if key == "crv_pc_q0":
+        assert ts.crv_rows.shape == (ref[key].shape[0], 16)
+        assert ts.cbvh_rows.shape == (ref["cbvh_meta"].shape[0], 8)
+        assert np.array_equal(ts.crv_rows[:, :4].numpy(), ref[key])
     if key == "bsdf_type":
-        flds[key] = np.asarray(flds[key]).copy()
-        flds[key][-1] = jbt.HAIR
-    else:
-        flds[key] = np.zeros((1, 4), np.float32)
-    with pytest.raises(NotImplementedError, match=what):
-        flat_scene_from_numpy(flds, "cpu")
+        types = set(ref[key].tolist())
+        assert {jbt.HAIR, jbt.ROUGH_WIRE, jbt.LAMBERTIAN_FIBER} <= types
+        assert ts.hair_values.shape[0] == 2

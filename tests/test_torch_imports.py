@@ -48,7 +48,8 @@ def test_every_port_module_imports_without_jax():
               "tools.scenemanip", "tools.obj2json", "tools.json2xml",
               "utils.debug", "media.phase", "media.transmittance",
               "media.grid", "io.vdb", "scene.sky", "scene.hosek_data",
-              "cameras.camera", "integrators.lights"):
+              "cameras.camera", "integrators.lights", "io.curves",
+              "bsdf.fiber", "ops.curve_trace", "ops.intersect"):
         assert "tungsten_tpu_torch." + m in mods
     # the sky bake reads the port's own copy of the Hosek-Wilkie data
     code = ("import sys\n"
@@ -61,6 +62,9 @@ def test_every_port_module_imports_without_jax():
             "assert hosek_data.DATASET.startswith("
             f"{os.path.join(PKG, 'scene')!r})\n"
             "assert sky.generate_sky([0, 1, 0], width=8, height=4).max() > 0\n"
+            "from tungsten_tpu_torch.bsdf import fiber\n"
+            "t = fiber.precompute_hair_azimuthal([0.2, 0.3, 0.5], 0.3)\n"
+            "assert t['values'].shape == (3, 64, 64, 3)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'tungsten_tpu') and sys.modules[m] is not None]\n"
             "assert not bad, bad\n")
@@ -88,12 +92,13 @@ def test_no_forbidden_import_statement(path):
 def test_cuda_sources_stand_alone():
     """Every CUDA source of the port is built by its module's kernel build
     and has a plain C interface: no PyTorch, ATen or pybind header."""
-    from tungsten_tpu_torch.ops import wave_trace
+    from tungsten_tpu_torch.ops import curve_trace, wave_trace
     from tungsten_tpu_torch.tools import mxubench
     csrc = os.path.join(PKG, "csrc")
     cus = sorted(f for f in os.listdir(csrc) if f.endswith((".cu", ".cuh")))
-    assert cus == ["leaf_mma.cu", "wave_trace.cu"]
-    for fn, mod in (("wave_trace.cu", wave_trace), ("leaf_mma.cu", mxubench)):
+    assert cus == ["curve_trace.cu", "leaf_mma.cu", "wave_trace.cu"]
+    for fn, mod in (("wave_trace.cu", wave_trace), ("leaf_mma.cu", mxubench),
+                    ("curve_trace.cu", curve_trace)):
         with open(mod.__file__) as f:
             assert f'"csrc/{fn}"' in f.read(), fn
         with open(os.path.join(csrc, fn)) as f:
@@ -153,27 +158,45 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_features_raise():
+    """What the port does not run yet raises, naming it: a minecraft_map
+    primitive (the JAX package refuses it too) and the integrators other
+    than path_tracer (bidirectional path tracing among them)."""
+    from tungsten_tpu_torch.render import render_pass
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     desc = _tiny_scene()
-    desc.primitives.append({"type": "curves", "bsdf_index": 0,
-                            "file": "hair.bcc"})
-    with pytest.raises(NotImplementedError, match="curves"):
+    desc.primitives.append({"type": "minecraft_map", "bsdf_index": 0,
+                            "file": "level.dat"})
+    with pytest.raises(NotImplementedError, match="minecraft_map"):
         flatten_scene(desc, device="cpu")
-    # the fiber BSDFs are not ported yet
-    for name in ("hair", "rough_wire", "lambertian_fiber"):
-        desc = _tiny_scene()
-        desc.bsdfs[0] = {"type": name}
-        with pytest.raises(NotImplementedError, match=name):
-            flatten_scene(desc, device="cpu")
+    desc = _tiny_scene()
+    desc.integrator = {"type": "bidirectional_path_tracer"}
+    with pytest.raises(NotImplementedError, match="bidirectional"):
+        flatten_scene(desc, device="cpu")
+    scene, settings = flatten_scene(_tiny_scene(), device="cpu")
+    from dataclasses import replace
+    with pytest.raises(NotImplementedError, match="bdpt"):
+        render_pass(scene, replace(settings, integrator_type="bdpt"), 0,
+                    0xBA5EBA11)
 
 
-@pytest.mark.parametrize("kernel", ["closest", "anyhit", "paged_walk"])
+@pytest.mark.parametrize("kernel", ["closest", "anyhit", "paged_walk",
+                                    "curve_closest", "curve_anyhit"])
 def test_kernel_wrappers_refuse_cpu_tensors(kernel):
     """A traversal kernel's wrapper launches on CUDA tensors only: given
     CPU tensors it raises before it builds or launches anything, and
-    counts no launch (the plain walk is the wave_intersect* wrappers'
-    CPU path, not the kernel wrappers')."""
+    counts no launch (the plain walk is the wave_intersect* and
+    curve_walk wrappers' CPU path, not the kernel wrappers')."""
+    from tungsten_tpu_torch.ops import curve_trace as tct
     from tungsten_tpu_torch.ops import wave_trace as twt
+    if kernel.startswith("curve"):
+        o = torch.zeros((8, 3))
+        t = torch.ones((8,))
+        before = dict(tct.LAUNCHES)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            tct.curve_kernel(torch.zeros((8, 16)), torch.zeros((3, 8)), o,
+                             o + 1.0, t * 0, t, kernel == "curve_anyhit")
+        assert tct.LAUNCHES == before
+        return
     nb = twt.BLOCK // twt.WARP
     f = torch.zeros((twt.BLOCK, twt.FCOLS))
     lists = torch.zeros((nb, 128))

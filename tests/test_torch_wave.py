@@ -87,7 +87,8 @@ def _bvh_scene(v0, e1, e2, lib, build, analytic=False):
         tri_prim=lib((np.arange(len(o)) % 8).astype(np.int32)),
         tri_uv0=lib(np.zeros((len(o), 2), np.float32)),
         tri_uv1=lib(np.tile(np.float32([1, 0]), (len(o), 1))),
-        tri_uv2=lib(np.tile(np.float32([0, 1]), (len(o), 1))))
+        tri_uv2=lib(np.tile(np.float32([0, 1]), (len(o), 1))),
+        crv_pc_q0=lib(np.zeros((0, 4), np.float32)))
     if analytic:
         sc.__dict__.update(_analytic(lib))
     return sc, o

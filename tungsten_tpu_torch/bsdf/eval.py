@@ -2,8 +2,9 @@
 (port of tungsten_tpu/bsdf/eval.py: lambert, null, mirror, conductor,
 rough_conductor, dielectric, rough_dielectric, plastic, rough_plastic,
 oren_nayar, phong, diffuse_transmission, smooth_coat, rough_coat, mixed,
-and the forward-lobe types thinsheet, transparency and forward, whose
-straight-through lobe `bsdf_forward` evaluates).
+the forward-lobe types thinsheet, transparency and forward, whose
+straight-through lobe `bsdf_forward` evaluates, and the fiber BCSDFs of
+bsdf/fiber.py: hair, rough_wire and lambertian_fiber).
 
 Convention (ref Bsdf.hpp + SurfaceScatterEvent): directions in the local
 tangent frame, +z = shading normal; `wi` points away from the surface
@@ -12,8 +13,8 @@ returns (wo, weight = f*cos/pdf, pdf, flags); eval()/pdf() cover the
 non-Dirac lobes only.  Dispatch is a masked select over the BSDF types
 present in the scene; nested materials (smooth/rough coat, mixed,
 transparency) re-dispatch one level down over the non-nested present
-types.  A type
-outside PORTED_TYPES raises NotImplementedError.  Every formula is the
+types; a type without an entry (the ERROR row) evaluates to zero, as in
+the JAX package.  Every formula is the
 JAX package's, op for op (each function names its reference source).
 """
 from __future__ import annotations
@@ -823,17 +824,20 @@ _REGISTRY = {
     bt.FORWARD: (_zero_eval, _null_sample, _zero_pdf),
 }
 
+# fiber BCSDFs (hair/rough_wire/lambertian_fiber) live in bsdf/fiber.py
+from tungsten_tpu_torch.bsdf import fiber as _fiber  # noqa: E402
+
+_REGISTRY[bt.HAIR] = (_fiber.hair_eval, _fiber.hair_sample, _fiber.hair_pdf)
+_REGISTRY[bt.ROUGH_WIRE] = (_fiber.rough_wire_eval, _fiber.rough_wire_sample,
+                            _fiber.rough_wire_pdf)
+_REGISTRY[bt.LAMBERTIAN_FIBER] = (
+    _fiber.lambertian_fiber_eval, _fiber.lambertian_fiber_sample,
+    _fiber.lambertian_fiber_pdf)
+
 # BSDFs whose continuation sample is a Dirac lobe only: NEE's
 # AllButSpecular sample fails on them entirely
 PURE_SPECULAR = frozenset({bt.MIRROR, bt.NULL, bt.CONDUCTOR, bt.DIELECTRIC,
                            bt.THINSHEET, bt.FORWARD})
-
-
-def _fns(t):
-    if t not in _REGISTRY:
-        raise NotImplementedError(
-            f"tungsten_tpu_torch: bsdf type {t} is not ported yet")
-    return _REGISTRY[t]
 
 
 def _child_types(present_types):
@@ -847,15 +851,18 @@ def _make_ctx(present_types, adjoint=False):
 def _dispatch_eval(sp, wi, wo, types, ctx):
     out = _zeros3(wi)
     for t in types:
-        out = torch.where((sp.type == t)[..., None],
-                          _fns(t)[0](sp, wi, wo, ctx), out)
+        if t in _REGISTRY:
+            out = torch.where((sp.type == t)[..., None],
+                              _REGISTRY[t][0](sp, wi, wo, ctx), out)
     return out
 
 
 def _dispatch_pdf(sp, wi, wo, types, ctx):
     out = _zeros1(wi)
     for t in types:
-        out = torch.where(sp.type == t, _fns(t)[2](sp, wi, wo, ctx), out)
+        if t in _REGISTRY:
+            out = torch.where(sp.type == t, _REGISTRY[t][2](sp, wi, wo, ctx),
+                              out)
     return out
 
 
@@ -864,8 +871,8 @@ def _dispatch_sample(sp, wi, U, types, ctx):
     weight = _zeros3(wi)
     pdf = _zeros1(wi)
     flags = _zeros1(wi, torch.int32)
-    for t in types:
-        w, wt, p, fl = _fns(t)[1](sp, wi, U, ctx)
+    for t in (t for t in types if t in _REGISTRY):
+        w, wt, p, fl = _REGISTRY[t][1](sp, wi, U, ctx)
         m = sp.type == t
         wo = torch.where(m[..., None], w, wo)
         weight = torch.where(m[..., None], wt, weight)

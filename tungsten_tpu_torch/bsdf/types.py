@@ -7,10 +7,10 @@ The scene flattener packs every BSDF into one SoA table row:
   params      : (NUM_PARAMS,) float32 — slot meanings in `P`
   aux         : (NUM_AUX,) int32 — child indices, microfacet
                 distribution enum, ratio-texture index
-The port evaluates the surface BSDFs and the forward-lobe types
-thinsheet, transparency and forward (PORTED_TYPES); `parse_bsdf_row`
-raises NotImplementedError for the fiber types (hair, rough_wire,
-lambertian_fiber).
+The port evaluates every type of the JAX package (PORTED_TYPES): the
+surface BSDFs, the forward-lobe types thinsheet, transparency and
+forward, and the fiber BCSDFs hair, rough_wire and lambertian_fiber
+(bsdf/fiber.py).
 """
 from __future__ import annotations
 
@@ -67,7 +67,8 @@ NAME_TO_TYPE = {
 PORTED_TYPES = (LAMBERT, NULL, MIRROR, CONDUCTOR, ROUGH_CONDUCTOR,
                 DIELECTRIC, ROUGH_DIELECTRIC, PLASTIC, ROUGH_PLASTIC,
                 OREN_NAYAR, PHONG, THINSHEET, SMOOTH_COAT, ROUGH_COAT,
-                MIXED, TRANSPARENCY, FORWARD, DIFFUSE_TRANSMISSION)
+                MIXED, TRANSPARENCY, FORWARD, DIFFUSE_TRANSMISSION,
+                LAMBERTIAN_FIBER, ROUGH_WIRE, HAIR)
 # the forward-lobe types: a path may pass straight through them, which
 # takes the path tracer off its one-sample-MIS estimator
 FORWARD_LOBE_TYPES = (THINSHEET, TRANSPARENCY, FORWARD)
@@ -159,11 +160,13 @@ COMPLEX_IOR = {
 }
 
 
-def parse_bsdf_row(b: dict, textures) -> tuple[int, int, np.ndarray,
-                                                np.ndarray]:
+def parse_bsdf_row(b: dict, textures, fiber_tables: list | None = None
+                   ) -> tuple[int, int, np.ndarray, np.ndarray]:
     """One scene-JSON bsdf dict -> (type, albedo_tex, params, aux), laid
     out exactly as the JAX package lays out the row.  `textures` is a
-    TextureTableBuilder; texture-valued fields register there."""
+    TextureTableBuilder; texture-valued fields register there.
+    `fiber_tables` collects the precomputed hair azimuthal tables (one
+    dict per hair BSDF); aux[CHILD0] holds the table index."""
     name = b.get("type", "lambert")
     t = NAME_TO_TYPE.get(name, ERROR)
     if t not in PORTED_TYPES:
@@ -185,7 +188,7 @@ def parse_bsdf_row(b: dict, textures) -> tuple[int, int, np.ndarray,
     else:
         params[P.ROUGHNESS] = float(rough)
 
-    if t in (CONDUCTOR, ROUGH_CONDUCTOR):
+    if t in (CONDUCTOR, ROUGH_CONDUCTOR, ROUGH_WIRE):
         if "material" in b:
             eta, k = COMPLEX_IOR[b["material"]]
         else:
@@ -197,6 +200,19 @@ def parse_bsdf_row(b: dict, textures) -> tuple[int, int, np.ndarray,
                 k = (k,) * 3
         params[P.ETA_R:P.ETA_B + 1] = eta
         params[P.K_R:P.K_B + 1] = k
+
+    if t == HAIR:
+        from tungsten_tpu_torch.bsdf import fiber
+        lobe_params, beta_r = fiber.hair_lobe_params(b)
+        params[P.EXTRA0:P.EXTRA3 + 1] = lobe_params
+        if fiber_tables is not None:
+            aux[AUX.CHILD0] = len(fiber_tables)
+            fiber_tables.append(dict(
+                fiber.precompute_hair_azimuthal(fiber.hair_sigma_a(b),
+                                                beta_r),
+                params=lobe_params))
+        else:
+            aux[AUX.CHILD0] = 0
 
     sigma_a = b.get("sigma_a", 0.0)
     if isinstance(sigma_a, (int, float)):

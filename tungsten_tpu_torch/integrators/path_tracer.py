@@ -55,8 +55,8 @@ from tungsten_tpu_torch.media import phase as PH
 from tungsten_tpu_torch.media import transmittance as TR
 from tungsten_tpu_torch.ops.intersect import bvh_intersect, ray_sort_key
 from tungsten_tpu_torch.scene.flatten import (
-    LIGHT_AREA, LIGHT_CAP, LIGHT_CYLINDER, LIGHT_DISK, LIGHT_INFINITE,
-    LIGHT_POINT, LIGHT_SPHERE)
+    CURVE_MODE_BCSDF_CYLINDER, CURVE_MODE_RIBBON, LIGHT_AREA, LIGHT_CAP,
+    LIGHT_CYLINDER, LIGHT_DISK, LIGHT_INFINITE, LIGHT_POINT, LIGHT_SPHERE)
 from tungsten_tpu_torch.utils import rng
 from tungsten_tpu_torch.utils import vecmath as vm
 
@@ -64,15 +64,6 @@ INF = 3.0e38
 EPSILON = 5e-4  # ray-offset epsilon (ref TraceableScene.hpp DefaultEpsilon)
 SHADOW_FUDGE = 1.0 - 1e-3
 MAX_SHADOW_HOPS = 8  # forward-surface crossings a shadow ray may pass
-
-def _check_supported(settings):
-    unported = set(settings.present_bsdf_types) - set(bt.PORTED_TYPES)
-    if unported:
-        names = sorted(n for n, t in bt.NAME_TO_TYPE.items() if t in unported)
-        raise NotImplementedError(
-            f"tungsten_tpu_torch: bsdf types {names} (fiber) are not ported "
-            f"yet")
-
 
 def _has_forward_types(settings) -> bool:
     return any(t in settings.present_bsdf_types
@@ -439,8 +430,8 @@ def _clip_idx(idx, n):
 
 
 def _hit_prim(scene, res):
-    """Primitive id of a hit (-1 on miss), over the triangle and analytic
-    winner channels."""
+    """Primitive id of a hit (-1 on miss), over the triangle, analytic and
+    curve winner channels."""
     if scene.tri_v0.shape[0] > 0:
         prim = torch.where(
             res["tri"] >= 0,
@@ -449,7 +440,7 @@ def _hit_prim(scene, res):
         prim = torch.full(res["t"].shape, -1, dtype=torch.int32,
                           device=res["t"].device)
     for ch, table in (("sph", scene.sph_prim), ("dsk", scene.dsk_prim),
-                      ("cyl", scene.cyl_prim)):
+                      ("cyl", scene.cyl_prim), ("crv", scene.crv_seg_prim)):
         if table.shape[0] > 0:
             prim = torch.where(res[ch] >= 0,
                                table[_clip_idx(res[ch], table.shape[0])], prim)
@@ -525,17 +516,21 @@ def _hit_uv_bsdf(scene, res):
         prim = torch.zeros(res["t"].shape, dtype=torch.int32,
                            device=res["t"].device)
     for ch, table in (("sph", scene.sph_prim), ("dsk", scene.dsk_prim),
-                      ("cyl", scene.cyl_prim)):
+                      ("cyl", scene.cyl_prim), ("crv", scene.crv_seg_prim)):
         if table.shape[0] > 0:
             prim = torch.where(res[ch] >= 0,
                                table[_clip_idx(res[ch], table.shape[0])], prim)
+    if scene.crv_seg_prim.shape[0] > 0:
+        uv = torch.where((res["crv"] >= 0)[..., None],
+                         torch.stack([res["u"], res["v"]], dim=-1), uv)
     prim = _clip_idx(prim, scene.prim_bsdf.shape[0])
     return uv, scene.prim_bsdf[prim], prim
 
 
 def _expand_hit(scene, o, d, res):
     """IntersectionInfo expansion: position, normals, uv, prim, bsdf, over
-    the triangle and analytic (sphere, disk, cylinder) channels."""
+    the triangle, analytic (sphere, disk, cylinder) and curve channels;
+    a scene with curves adds `is_curve` and `crv_tangent`."""
     t = res["t"]
     p = o + d * t[..., None]
     u = res["u"][..., None]
@@ -602,9 +597,66 @@ def _expand_hit(scene, o, d, res):
         ns = vm.where3(is_y, n_w, ns)
         prim = torch.where(is_y, scene.cyl_prim[yi], prim)
         uv = torch.where(is_y[..., None], uv_y, uv)
+    out = dict()
+    if scene.crv_seg_p0.shape[0] > 0:
+        # ref Curves::intersectionInfo (Curves.cpp:484-529): the spline
+        # point and tangent at the hit parameter, the normal per render
+        # mode, the frame's bitangent the tangent (shading_frame)
+        is_crv = res["crv"] >= 0
+        ci = _clip_idx(res["crv"], scene.crv_seg_p0.shape[0])
+        tc = res["u"][..., None]
+        p0c = scene.crv_seg_p0[ci][..., :3]
+        p1c = scene.crv_seg_p1[ci][..., :3]
+        p2c = scene.crv_seg_p2[ci][..., :3]
+        # q(t) = a t^2 + b t + c ; q'(t) = 2 a t + b
+        ac = 0.5 * p0c - p1c + 0.5 * p2c
+        bc = p1c - p0c
+        cc = 0.5 * (p0c + p1c)
+        point = ac * tc * tc + bc * tc + cc
+        tang = vm.safe_normalize(2.0 * ac * tc + bc)
+        mode = scene.crv_seg_mode[ci]
+        # cylinder / half_cylinder: the radial normal at the hit point
+        lp = p - point
+        lp = lp - tang * torch.sum(lp * tang, dim=-1, keepdim=True)
+        ng_c = vm.safe_normalize(lp)
+        # bcsdf_cylinder: the normal faces the viewer, across the tangent
+        nb = -d - tang * torch.sum(tang * -d, dim=-1, keepdim=True)
+        ng_c = torch.where((mode == CURVE_MODE_BCSDF_CYLINDER)[..., None],
+                           vm.safe_normalize(nb), ng_c)
+        # ribbon: the interpolated node normal, across the tangent
+        n0c = scene.crv_seg_n0[ci]
+        n1c = scene.crv_seg_n1[ci]
+        n2c = scene.crv_seg_n2[ci]
+        nr = (0.5 * n0c - n1c + 0.5 * n2c) * tc * tc + (n1c - n0c) * tc \
+            + 0.5 * (n0c + n1c)
+        nr = vm.safe_normalize(tang * torch.sum(tang * nr, dim=-1, keepdim=True)
+                         - nr)
+        ng_c = torch.where((mode == CURVE_MODE_RIBBON)[..., None], nr, ng_c)
+        ng = vm.where3(is_crv, ng_c, ng)
+        ns = vm.where3(is_crv, ng_c, ns)
+        prim = torch.where(is_crv, scene.crv_seg_prim[ci], prim)
+        uv = torch.where(is_crv[..., None],
+                         torch.stack([res["u"], res["v"]], dim=-1), uv)
+        out["is_curve"] = is_crv
+        out["crv_tangent"] = tang
     prim = torch.clamp(prim, 0, scene.prim_bsdf.shape[0] - 1).long()
-    return dict(p=p, ng=ng, ns=ns, uv=uv, prim=prim,
-                bsdf=scene.prim_bsdf[prim].long())
+    out.update(p=p, ng=ng, ns=ns, uv=uv, prim=prim,
+               bsdf=scene.prim_bsdf[prim].long())
+    return out
+
+
+def shading_frame(info, ns):
+    """Tangent frame at a shading point: an arbitrary orthonormal frame
+    for surfaces, tangent-aligned for curves (ref Curves::tangentSpace:
+    the bitangent is the fiber tangent, so local y = sin(theta) for the
+    BCSDFs)."""
+    tan, bit = vm.ortho_frame(ns)
+    if "is_curve" in info:
+        ct = info["crv_tangent"]
+        t2 = vm.safe_normalize(torch.linalg.cross(ct, ns, dim=-1))
+        tan = vm.where3(info["is_curve"], t2, tan)
+        bit = vm.where3(info["is_curve"], ct, bit)
+    return tan, bit
 
 
 # --------------------------------------------------------------- the loop
@@ -738,7 +790,6 @@ def _sample_medium(scene, settings, media, s, res, seed, dim_base, sobol):
 
 def _make_bounce_body(scene, settings, seed):
     """The per-bounce wavefront step: state dict -> state dict."""
-    _check_supported(settings)
     body_sort = scene.device.type == "cuda"
     one_sample = _one_sample_mis(settings)
     fwd_types = _has_forward_types(settings)
@@ -821,7 +872,7 @@ def _make_bounce_body(scene, settings, seed):
             torch.zeros_like(backside)
         flip = flip & ~torch.isin(scene.bsdf_type[info["bsdf"]], transmissive)
         ns = torch.where(flip[..., None], -info["ns"], info["ns"])
-        tan, bit = vm.ortho_frame(ns)
+        tan, bit = shading_frame(info, ns)
         wi_local = vm.to_local(tan, bit, ns, -s["d"])
         sp = ShadePoint(scene, info["bsdf"], info["uv"])
 

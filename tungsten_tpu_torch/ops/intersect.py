@@ -14,9 +14,14 @@ Two traversals compute the same hits:
     un-permutes the results.
 The choice follows the device of the tensors; there is no switch and
 no fallback.  Analytic spheres, disks and cylinders are tested densely
-first (`_analytic_prims`), and the triangle traversal must beat them.
-A hit is the dict (t, tri, sph, dsk, cyl, u, v, hit); a channel is -1
-where that primitive type did not win.
+first (`_analytic_prims`), and the triangle traversal must beat them;
+then the curve pieces are walked (`curve_walk`: on the CPU the plain
+`curve_walk_plain`, the JAX package's `_curve_traverse` step for step;
+on CUDA the hand-written kernel of ops/curve_trace.py) with the best t
+so far as the far limit, and a curve hit wins over all of them.
+A hit is the dict (t, tri, sph, dsk, cyl, crv, u, v, hit); a channel is
+-1 where that primitive type did not win; for a curve hit u is the
+spline parameter and v the azimuthal coordinate.
 """
 from __future__ import annotations
 
@@ -91,14 +96,16 @@ def _argmin_winner(ts, best_t):
     return k.to(torch.int32), tk, tk < best_t
 
 
-def _analytic_prims(scene, o, d, t_min, t_max):
+def _analytic_prims(scene, o, d, t_min, t_max, neg=None):
     """Dense tests against every analytic primitive (spheres, disks,
     cylinders — counts are tiny).  Returns (best_t, sph, dsk, cyl)
     winner channels, each -1 where that type did not win; best_t is the
-    far limit the triangle traversal then gets."""
+    far limit the triangle traversal then gets.  `neg`: an (R,) int32
+    tensor of -1 to start the channels from (read, never written)."""
     R = o.shape[0]
     best_t = t_max
-    neg = torch.full((R,), -1, dtype=torch.int32, device=o.device)
+    if neg is None:
+        neg = torch.full((R,), -1, dtype=torch.int32, device=o.device)
     best_sph, best_dsk, best_cyl = neg, neg, neg
 
     if scene.sph_radius.shape[0] > 0:
@@ -242,6 +249,185 @@ def bvh_walk(scene, o, d, t_min, t_max, any_hit: bool = False):
     return t_best, tri_best, u_best, v_best
 
 
+def ray_frame(d):
+    """The curve walk's ray-aligned frame (lx, ly, lz = d) of each ray
+    (ref Curves.cpp:433-442); rays along +-y (dxz == 0) take lx =
+    (1, 0, 0), ly = (0, 0, -d_y)."""
+    R = d.shape[0]
+    dxz = torch.sqrt(d[:, 0] ** 2 + d[:, 2] ** 2)
+    deg = (dxz == 0.0)[:, None]
+    sdxz = torch.clamp(dxz, min=1e-20)
+    zero = torch.zeros((R,), dtype=d.dtype, device=d.device)
+    lx = torch.where(deg, torch.tensor([1.0, 0.0, 0.0], device=d.device),
+                     torch.stack([d[:, 2] / sdxz, zero, -d[:, 0] / sdxz],
+                                 dim=-1))
+    ly = torch.where(deg, torch.stack([zero, zero, -d[:, 1]], dim=-1),
+                     torch.stack([lx[:, 2] * d[:, 1], dxz,
+                                  -d[:, 1] * lx[:, 0]], dim=-1))
+    return lx, ly
+
+
+def curve_piece_test(scene, pid, o, d, lx, ly, t_min, best):
+    """Test piece pid (R,) (in range) for each ray; best = (t, seg, u, v,
+    hit) -> the updated best.  The half-cylinder chord test
+    (Curves.cpp:51-94) and the ribbon test (Curves.cpp:96-133) both run;
+    the segment's mode selects one."""
+    from tungsten_tpu_torch.scene.flatten import CURVE_MODE_RIBBON
+
+    def proj(p):  # world point (R,3) -> ray frame
+        q = p - o
+        return torch.stack([torch.sum(q * lx, -1), torch.sum(q * ly, -1),
+                            torch.sum(q * d, -1)], dim=-1)
+
+    q0w = scene.crv_pc_q0[pid]
+    q1w = scene.crv_pc_q1[pid]
+    e0 = proj(q0w[:, :3])
+    e1 = proj(q1w[:, :3])
+    w0, w1 = q0w[:, 3], q1w[:, 3]
+    pt0 = scene.crv_pc_t0[pid]
+    pt1 = scene.crv_pc_t1[pid]
+    seg = scene.crv_pc_seg[pid]
+    mode = scene.crv_seg_mode[seg.long()]
+    bt, bseg, bu, bv, bhit = best
+
+    # ---- half-cylinder chord test ----
+    vxy = e1[:, :2] - e0[:, :2]
+    lsq = torch.sum(vxy * vxy, -1)
+    inv_lsq = 1.0 / torch.clamp(lsq, min=1e-30)
+    seg_t = -torch.sum(e0[:, :2] * vxy, -1) * inv_lsq
+    signed = e0[:, 0] * vxy[:, 1] - e0[:, 1] * vxy[:, 0]
+    dist = torch.abs(signed) * torch.sqrt(inv_lsq)
+    width = w0 * (1.0 - seg_t) + w1 * seg_t
+    depth = e0[:, 2] * (1.0 - seg_t) + e1[:, 2] * seg_t
+    dz = e1[:, 2] - e0[:, 2]
+    y_sq = width * width - dist * dist
+    l_sq = y_sq * (1.0 + dz * dz * inv_lsq)
+    delta = torch.sqrt(torch.clamp(l_sq, min=0.0))
+    t0 = depth - delta
+    v3 = e0 - e1
+    lsq3 = torch.clamp(torch.sum(v3 * v3, -1), min=1e-30)
+    e0z = torch.stack([e0[:, 0], e0[:, 1], e0[:, 2] - t0], dim=-1)
+    seg_t2 = torch.sum(e0z * v3, -1) / lsq3
+    new_t = seg_t2 * (pt1 - pt0) + pt0
+    ok_cyl = (dist <= width) & (seg_t2 >= 0.0) & (t0 < bt) & \
+        (t0 > t_min) & (new_t >= 0.0) & (new_t <= 1.0)
+    v_cyl = 0.5 + 0.5 * dist / torch.clamp(width, min=1e-30)
+
+    # ---- ribbon test ----
+    nm = proj(scene.crv_pc_nmid[pid] + o)  # a vector: the rotation only
+    v3d = e1 - e0
+    lsq_r = torch.sum(v3d * v3d, -1)
+    inv_r = 1.0 / torch.clamp(lsq_r, min=1e-30)
+    nr = v3d * (torch.sum(v3d * nm, -1) * inv_r)[:, None] - nm
+    t0r = torch.sum(nr * e0, -1) / torch.where(
+        torch.abs(nr[:, 2]) < 1e-20, 1e-20, nr[:, 2])
+    local_p = torch.stack([-e0[:, 0], -e0[:, 1], t0r - e0[:, 2]], dim=-1)
+    seg_tr = torch.sum(local_p * v3d, -1) * inv_r
+    width_r = w0 * (1.0 - seg_tr) + w1 * seg_tr
+    dvec = local_p - v3d * seg_tr[:, None]
+    dist_sq = torch.sum(dvec * dvec, -1)
+    new_tr = seg_tr * (pt1 - pt0) + pt0
+    ok_rib = (t0r >= t_min) & (t0r < bt) & (seg_tr >= 0.0) & \
+        (seg_tr <= 1.0) & (dist_sq <= width_r * width_r) & \
+        (new_tr >= 0.0) & (new_tr <= 1.0)
+    is_rib = mode == CURVE_MODE_RIBBON
+    ok = torch.where(is_rib, ok_rib, ok_cyl)
+    t_hit = torch.where(is_rib, t0r, t0)
+    u_hit = torch.where(is_rib, new_tr, new_t)
+    v_hit = torch.where(is_rib, 0.0, v_cyl)
+    return (torch.where(ok, t_hit, bt), torch.where(ok, seg, bseg),
+            torch.where(ok, u_hit, bu), torch.where(ok, v_hit, bv),
+            bhit | ok)
+
+
+def curve_walk_plain(scene, o, d, t_min, t_max, any_hit: bool = False):
+    """Skip-pointer walk over the curve-piece BVH, the JAX package's
+    `_curve_traverse` step for step (its plain version on every device):
+    a box hit descends, a miss jumps `cbvh_skip`, a leaf tests its up to
+    MAX_LEAF pieces in order against the ray's best t.  A ray whose far
+    limit is not above t_min cannot hit and never walks; a finished ray
+    (cursor past the last node) leaves the working set, where the JAX
+    walk goes on re-testing the clamped last node, which changes nothing
+    for a closest hit (the tests are strict).  Returns (t, seg, u, v,
+    hit); t = t_max and seg = -1 on a miss."""
+    R = o.shape[0]
+    t_min = torch.broadcast_to(_f32(t_min, o), (R,))
+    t_best = torch.broadcast_to(_f32(t_max, o), (R,)).clone()
+    seg_best = torch.full((R,), -1, dtype=torch.int32, device=o.device)
+    u_best = torch.zeros((R,), dtype=torch.float32, device=o.device)
+    v_best = torch.zeros_like(u_best)
+    hit_best = torch.zeros((R,), dtype=torch.bool, device=o.device)
+    n_pieces = scene.crv_pc_q0.shape[0]
+    num_nodes = scene.cbvh_meta.shape[0]
+    if n_pieces == 0 or R == 0:
+        return t_best, seg_best, u_best, v_best, hit_best
+    inv_d = 1.0 / _safe_d(d)
+    lx, ly = ray_frame(d)
+
+    act = torch.nonzero(t_best > t_min)[:, 0]
+    cols = [o, d, inv_d, lx, ly, t_min]
+    ao, ad, ainv, alx, aly, atmin = (c[act] for c in cols)
+    best = (t_best[act], seg_best[act], u_best[act], v_best[act],
+            hit_best[act])
+    node = torch.zeros(act.shape, dtype=torch.int64, device=o.device)
+    while act.shape[0] > 0:
+        for _ in range(WALK_UNROLL):
+            nc = torch.clamp(node, max=num_nodes - 1)
+            meta = scene.cbvh_meta[nc]
+            box_hit, _ = ray_box(ao, ainv, scene.cbvh_min[nc],
+                                 scene.cbvh_max[nc], best[0])
+            is_leaf = meta[:, 1] > 0
+            # the piece tests run on the rays at a leaf only (the same
+            # arithmetic lane by lane as testing every ray and masking)
+            li = torch.nonzero(box_hit & is_leaf)[:, 0]
+            if li.shape[0] > 0:
+                lmeta = meta[li]
+                sub = tuple(b[li] for b in best)
+                lray = [c[li] for c in (ao, ad, alx, aly, atmin)]
+                for k in range(min(MAX_LEAF, int(lmeta[:, 1].max()))):
+                    valid = k < lmeta[:, 1]
+                    pid = torch.clamp(lmeta[:, 0] + k, 0,
+                                      n_pieces - 1).long()
+                    nb = curve_piece_test(scene, pid, *lray[:4], lray[4],
+                                          sub)
+                    sub = tuple(torch.where(valid, n, b)
+                                for n, b in zip(nb, sub))
+                best = tuple(b.index_put((li,), v)
+                             for b, v in zip(best, sub))
+            nxt = torch.where(box_hit & ~is_leaf, node + 1,
+                              scene.cbvh_skip[nc].long())
+            if any_hit:
+                nxt = torch.where(best[4], num_nodes, nxt)
+            node = nxt
+        fin = node >= num_nodes
+        if bool(fin.any()):
+            idx = act[fin]
+            for out, b in zip((t_best, seg_best, u_best, v_best, hit_best),
+                              best):
+                out[idx] = b[fin]
+            keep = ~fin
+            act, node = act[keep], node[keep]
+            ao, ad, ainv, alx, aly, atmin = (
+                c[keep] for c in (ao, ad, ainv, alx, aly, atmin))
+            best = tuple(b[keep] for b in best)
+    return t_best, seg_best, u_best, v_best, hit_best
+
+
+def curve_walk(scene, o, d, t_min, t_max, any_hit: bool = False):
+    """The curve-piece walk of rays (o, d) over (t_min, t_max), scalars
+    or (R,): on the CPU `curve_walk_plain`, on CUDA the kernel C1
+    (ops/curve_trace.py), which raises rather than fall back.  Returns
+    (t, seg, u, v, hit); for any hit only `hit` is the closest walk's."""
+    if o.is_cuda:
+        from tungsten_tpu_torch.ops.curve_trace import curve_kernel
+        R = o.shape[0]
+        return curve_kernel(scene.crv_rows, scene.cbvh_rows, o, d,
+                            torch.broadcast_to(_f32(t_min, o), (R,)),
+                            torch.broadcast_to(_f32(t_max, o), (R,)),
+                            any_hit)
+    return curve_walk_plain(scene, o, d, t_min, t_max, any_hit)
+
+
 def geo_clip(scene, o, d, t_max):
     """(R,) far limits clipped at each ray's exit from the scene-wide
     occluder box: no geometry exists past it, so INF rays (env shadow
@@ -257,27 +443,52 @@ def geo_clip(scene, o, d, t_max):
 
 def bvh_intersect(scene, o, d, t_min, t_max, any_hit: bool = False,
                   presorted: bool = False):
-    """Closest-hit (or any-hit) traversal of the scene's triangles and
-    analytic primitives (curves are not ported: a scene carrying them
-    raises in flat_scene_from_numpy).  A scene without triangles returns
-    straight after the analytic test: no kernel launches on empty
-    tables.
+    """Closest-hit (or any-hit) traversal of the scene's triangles,
+    analytic primitives and curves.  A scene without triangles skips the
+    triangle traversal (no kernel launches on empty tables), one without
+    curve pieces the curve walk.
 
     o, d (R,3); t_min/t_max scalars or (R,).  `presorted`: the caller
     guarantees rays already arrive in ray_sort_key order (the path
     tracer's body-start sort), so the CUDA dispatch skips its sort.
-    Returns dict(t, tri, sph, dsk, cyl, u, v, hit); a channel is -1
+    Returns dict(t, tri, sph, dsk, cyl, crv, u, v, hit); a channel is -1
     where that primitive type did not win.  For any_hit t is the far
-    limit, not a hit distance."""
+    limit, not a hit distance, and only `hit` carries meaning."""
     R = o.shape[0]
     t_min = torch.broadcast_to(_f32(t_min, o), (R,))
-    best_t, sph, dsk, cyl = _analytic_prims(
-        scene, o, d, t_min, geo_clip(scene, o, d, t_max))
+    t_clip = geo_clip(scene, o, d, t_max)
+    res = _tri_analytic(scene, o, d, t_min, t_clip, any_hit, presorted)
+    if scene.crv_pc_q0.shape[0] > 0:
+        # the far limit: the best t of the triangles and analytic prims
+        # where they hit, else the clipped t_max; an any-hit ray they
+        # already occlude leaves the walk (far = t_min: no hit can pass)
+        far = torch.where(res["hit"], t_min if any_hit else res["t"],
+                          t_clip)
+        ct, cseg, cu, cv, chit = curve_walk(scene, o, d, t_min, far,
+                                            any_hit)
+        res["t"] = torch.where(chit, ct, res["t"])
+        for ch in ("tri", "sph", "dsk", "cyl"):
+            res[ch] = torch.where(chit, -1, res[ch])
+        res["u"] = torch.where(chit, cu, res["u"])
+        res["v"] = torch.where(chit, cv, res["v"])
+        res["hit"] = res["hit"] | chit
+        res["crv"] = torch.where(chit, cseg, res["crv"])
+    return res
+
+
+def _tri_analytic(scene, o, d, t_min, t_max, any_hit, presorted):
+    """The analytic prims, then the triangle traversal under their best
+    t (t_max already geo-clipped).  Returns dict(t, tri, sph, dsk, cyl,
+    crv, u, v, hit) with crv all -1 (bvh_intersect merges the curves).
+    The channels that start at -1 share one tensor, which no one
+    writes."""
+    R = o.shape[0]
+    neg = torch.full((R,), -1, dtype=torch.int32, device=o.device)
+    best_t, sph, dsk, cyl = _analytic_prims(scene, o, d, t_min, t_max, neg)
     if scene.tri_v0.shape[0] == 0:
         z = torch.zeros((R,), dtype=torch.float32, device=o.device)
-        return dict(t=best_t, tri=torch.full_like(sph, -1), sph=sph,
-                    dsk=dsk, cyl=cyl, u=z, v=z,
-                    hit=(sph >= 0) | (dsk >= 0) | (cyl >= 0))
+        return dict(t=best_t, tri=neg, sph=sph, dsk=dsk, cyl=cyl, crv=neg,
+                    u=z, v=z, hit=(sph >= 0) | (dsk >= 0) | (cyl >= 0))
     if o.is_cuda:
         t, tri, u, v = _wave_dispatch(scene, o, d, t_min, best_t, any_hit,
                                       presorted)
@@ -291,7 +502,7 @@ def bvh_intersect(scene, o, d, t_min, t_max, any_hit: bool = False,
     if any_hit:
         t = best_t
     return dict(t=torch.where(got_tri, t, best_t), tri=tri, sph=sph,
-                dsk=dsk, cyl=cyl, u=u, v=v, hit=hit)
+                dsk=dsk, cyl=cyl, crv=neg, u=u, v=v, hit=hit)
 
 
 def _spread5(x):

@@ -16,11 +16,15 @@ own, so present_bsdf_types lists them), every light those make,
 homogeneous, exponential, atmosphere and voxel media (dense `.npy`,
 inline data or `.vdb` grids) bound to primitives and the camera, the
 pinhole, thinlens (disk or bitmap aperture, cat eye, focus pivot),
-equirectangular and cubemap cameras, the path_tracer integrator.
-Anything else (curves, instances, the fiber BSDFs) raises
-NotImplementedError naming it.  The numbers are the JAX package's: the
-same host numpy code builds every table, so every field is equal to the
-JAX build (bf16 fields included).
+equirectangular and cubemap cameras, `curves` in all four modes (split
+into linear pieces under a piece BVH) with the hair azimuthal tables of
+the fiber BCSDFs, `instances` (expanded into their masters), the
+path_tracer integrator.  Anything else (minecraft maps, which the JAX
+package refuses too, the other integrators) raises NotImplementedError
+naming it.  The numbers are the JAX package's: the same host numpy code
+builds every table, so every field is equal to the JAX build (bf16
+fields included).  Beside the JAX-named curve tables the port keeps the
+curve walk's packed rows (`crv_rows`, `cbvh_rows`, pack_curve_rows).
 """
 from __future__ import annotations
 
@@ -49,7 +53,24 @@ LIGHT_SPHERE = 6
 
 PORTED_PRIMITIVES = ("quad", "cube", "mesh", "infinite_sphere", "disk",
                      "sphere", "cylinder", "infinite_sphere_cap", "point",
-                     "skydome")
+                     "skydome", "curves", "instances")
+
+# curve render modes (ref Curves.cpp:20-25)
+CURVE_MODE_CYLINDER = 0
+CURVE_MODE_HALF_CYLINDER = 1
+CURVE_MODE_BCSDF_CYLINDER = 2
+CURVE_MODE_RIBBON = 3
+CURVE_MODES = {"cylinder": CURVE_MODE_CYLINDER,
+               "half_cylinder": CURVE_MODE_HALF_CYLINDER,
+               "bcsdf_cylinder": CURVE_MODE_BCSDF_CYLINDER,
+               "ribbon": CURVE_MODE_RIBBON}
+CURVE_SUBDIV = 8  # linear pieces per quadratic segment (leaf test)
+# the curve walk's packed rows (pack_curve_rows): a piece is 16 words
+# [q0 xyzw | q1 xyzw | nmid xyz, t0 | t1, seg, mode, 0] and a node 8
+# words [min xyz, first_piece * 8 + count (0: interior) | max xyz,
+# skip], the integer words as int32 bits
+CRV_ROW = 16
+CBVH_ROW = 8
 PORTED_CAMERAS = ("pinhole", "thinlens", "equirectangular", "cubemap")
 
 
@@ -124,6 +145,36 @@ class FlatScene:
     cyl_hh: torch.Tensor
     cyl_capped: torch.Tensor
     cyl_prim: torch.Tensor
+    # --- curves (ref Curves.cpp): quadratic B-spline segments split into
+    # CURVE_SUBDIV linear pieces under a piece BVH (the JAX names), and
+    # the packed rows of the curve walk ---
+    crv_seg_p0: torch.Tensor    # (Cs,4) control points xyz+width (world)
+    crv_seg_p1: torch.Tensor
+    crv_seg_p2: torch.Tensor
+    crv_seg_n0: torch.Tensor    # (Cs,3) node normals (ribbon mode)
+    crv_seg_n1: torch.Tensor
+    crv_seg_n2: torch.Tensor
+    crv_seg_prim: torch.Tensor  # (Cs,) i32
+    crv_seg_mode: torch.Tensor  # (Cs,) i32 CURVE_MODE_*
+    crv_pc_q0: torch.Tensor     # (Cp,4) piece endpoints xyz+width
+    crv_pc_q1: torch.Tensor
+    crv_pc_nmid: torch.Tensor   # (Cp,3) spline normal at piece midpoint
+    crv_pc_seg: torch.Tensor    # (Cp,) i32 parent segment
+    crv_pc_t0: torch.Tensor     # (Cp,) segment-parameter range
+    crv_pc_t1: torch.Tensor
+    cbvh_min: torch.Tensor      # curve-piece BVH (same layout as bvh_*)
+    cbvh_max: torch.Tensor
+    cbvh_meta: torch.Tensor
+    cbvh_skip: torch.Tensor
+    crv_rows: torch.Tensor      # (Cp, CRV_ROW) f32 packed pieces
+    cbvh_rows: torch.Tensor     # (N, CBVH_ROW) f32 packed nodes
+    # --- hair BCSDF azimuthal tables (ref PrecomputedAzimuthalLobe),
+    # one set per hair-type BSDF ---
+    hair_values: torch.Tensor   # (H,3,AZ,AZ,3) N_R/N_TT/N_TRT
+    hair_pdf: torch.Tensor      # (H,3,AZ,AZ) row-normalized pdf
+    hair_cdf: torch.Tensor      # (H,3,AZ,AZ+1)
+    hair_sums: torch.Tensor     # (H,3,AZ) unnormalized row sums
+    hair_params: torch.Tensor   # (H,4) scale_angle_rad, vR, vTT, vTRT
     # --- primitives ---
     prim_bsdf: torch.Tensor
     prim_emission_tex: torch.Tensor
@@ -244,6 +295,8 @@ class RenderSettings:
     stratified_sampler: bool = False  # scrambled Sobol' vs pcg4d hash
     adaptive_sampling: bool = False
     has_env: bool = False
+    has_curves: bool = False
+    curve_modes: tuple = ()  # CURVE_MODE_* present
     num_lights: int = 0
     present_bsdf_types: tuple = ()
     has_media: bool = False
@@ -396,6 +449,182 @@ def _build_env_quad(img: np.ndarray) -> np.ndarray:
     return np.concatenate([img, np.roll(img, -1, axis=1), c01,
                            np.roll(c01, -1, axis=1)],
                           axis=-1).reshape(h * w, 12).astype(np.float32)
+
+
+def _flatten_curves(prim: dict, m: np.ndarray, resolve_path, prim_id: int):
+    """One `curves` primitive -> world-space quadratic segments
+    (ref Curves::loadCurves + prepareForRender, Curves.cpp:282-616)."""
+    from tungsten_tpu_torch.io import curves as curve_io
+    data = curve_io.load_curves(resolve_path(prim["file"]))
+    nodes = data.nodes.copy()
+    normals = data.normals
+
+    curve_ends = data.curve_ends.astype(np.int64)
+    starts = np.concatenate([[0], curve_ends[:-1]])
+    counts = curve_ends - starts
+
+    # thickness override / taper run before the transform
+    # (Curves::loadCurves, Curves.cpp:296-306)
+    if prim.get("curve_thickness") is not None:
+        nodes[:, 3] = float(prim["curve_thickness"])
+    if bool(prim.get("curve_taper", False)):
+        curve_of = np.repeat(np.arange(len(counts)), counts)
+        t_in = np.arange(len(nodes)) - starts[curve_of]
+        nodes[:, 3] *= 1.0 - (t_in - 0.5) / np.maximum(
+            counts[curve_of] - 1, 1)
+
+    # transform nodes; widths scale by the average axis scale
+    # (Curves::prepareForRender, Curves.cpp:577-585)
+    width_scale = float(np.mean(np.linalg.norm(m[:3, :3], axis=0)))
+    nodes[:, :3] = xform.transform_points(m, nodes[:, :3])
+    nodes[:, 3] *= width_scale
+    nrm = xform.transform_vectors(m, normals)
+    nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-20)
+
+    # subsample: drop whole curves with probability `subsample`
+    # (Curves.cpp:593-594)
+    subsample = float(prim.get("subsample", 0.0))
+    keep = np.ones(len(counts), bool)
+    if subsample > 0.0:
+        keep = np.random.default_rng(0xBA5EBA11).random(len(counts)) \
+            >= subsample
+
+    # segment index triples: curve i contributes nodes [s+2, e)
+    seg_last = []
+    for i in np.nonzero(keep & (counts >= 3))[0]:
+        seg_last.append(np.arange(starts[i] + 2, curve_ends[i]))
+    if not seg_last:
+        return None
+    t2 = np.concatenate(seg_last)
+    mode = CURVE_MODES.get(prim.get("mode", "half_cylinder"),
+                           CURVE_MODE_HALF_CYLINDER)
+    return dict(
+        p0=nodes[t2 - 2], p1=nodes[t2 - 1], p2=nodes[t2],
+        n0=nrm[t2 - 2].astype(np.float32),
+        n1=nrm[t2 - 1].astype(np.float32),
+        n2=nrm[t2].astype(np.float32),
+        prim=np.full(len(t2), prim_id, np.int32),
+        mode=np.full(len(t2), mode, np.int32),
+    )
+
+
+def _build_curve_tables(curve_segs: list):
+    """Concatenate per-prim segments, pre-subdivide into linear pieces,
+    and build the piece BVH.  Returns a dict of FlatScene crv_*/cbvh_*
+    arrays (numpy), equal to the JAX package's."""
+    from tungsten_tpu_torch.scene.bvh import build_bvh
+    curve_segs = [c for c in curve_segs if c is not None]
+    if not curve_segs:
+        z4 = np.zeros((0, 4), np.float32)
+        z3 = np.zeros((0, 3), np.float32)
+        zi = np.zeros((0,), np.int32)
+        zf = np.zeros((0,), np.float32)
+        bvh = build_bvh(np.zeros((0, 3)), np.zeros((0, 3)))
+        return dict(
+            crv_seg_p0=z4, crv_seg_p1=z4, crv_seg_p2=z4,
+            crv_seg_n0=z3, crv_seg_n1=z3, crv_seg_n2=z3,
+            crv_seg_prim=zi, crv_seg_mode=zi,
+            crv_pc_q0=z4, crv_pc_q1=z4, crv_pc_nmid=z3,
+            crv_pc_seg=zi, crv_pc_t0=zf, crv_pc_t1=zf,
+            cbvh_min=bvh.bounds_min, cbvh_max=bvh.bounds_max,
+            cbvh_meta=bvh.meta, cbvh_skip=bvh.skip)
+
+    p0 = np.concatenate([c["p0"] for c in curve_segs]).astype(np.float32)
+    p1 = np.concatenate([c["p1"] for c in curve_segs]).astype(np.float32)
+    p2 = np.concatenate([c["p2"] for c in curve_segs]).astype(np.float32)
+    n0 = np.concatenate([c["n0"] for c in curve_segs])
+    n1 = np.concatenate([c["n1"] for c in curve_segs])
+    n2 = np.concatenate([c["n2"] for c in curve_segs])
+    seg_prim = np.concatenate([c["prim"] for c in curve_segs])
+    seg_mode = np.concatenate([c["mode"] for c in curve_segs])
+    cs = p0.shape[0]
+    S = CURVE_SUBDIV
+
+    # B-spline coefficient form (precomputeBSplineCoefficients,
+    # Curves.cpp:135-144): q(t) = a t^2 + b t + c
+    a = 0.5 * p0 - p1 + 0.5 * p2
+    b = p1 - p0
+    c = 0.5 * (p0 + p1)
+    ts = np.linspace(0.0, 1.0, S + 1, dtype=np.float32)
+    vals = (a[:, None] * (ts ** 2)[None, :, None]
+            + b[:, None] * ts[None, :, None] + c[:, None])  # (Cs, S+1, 4)
+    q0 = vals[:, :-1].reshape(cs * S, 4)
+    q1 = vals[:, 1:].reshape(cs * S, 4)
+    tmid = 0.5 * (ts[:-1] + ts[1:])
+    an, bn, cn = 0.5 * n0 - n1 + 0.5 * n2, n1 - n0, 0.5 * (n0 + n1)
+    nmid = (an[:, None] * (tmid ** 2)[None, :, None]
+            + bn[:, None] * tmid[None, :, None]
+            + cn[:, None]).reshape(cs * S, 3).astype(np.float32)
+    pc_seg = np.repeat(np.arange(cs, dtype=np.int32), S)
+    pc_t0 = np.tile(ts[:-1], cs)
+    pc_t1 = np.tile(ts[1:], cs)
+
+    # piece AABBs: chord box + width + curvature bulge bound
+    # (max chord deviation of a quadratic over 1/S of its span)
+    bulge = np.linalg.norm(a[:, :3], axis=-1) / (4.0 * S * S)
+    pad = (np.maximum(q0[:, 3], q1[:, 3])
+           + np.repeat(bulge, S)).astype(np.float32)[:, None]
+    lo = np.minimum(q0[:, :3], q1[:, :3]) - pad
+    hi = np.maximum(q0[:, :3], q1[:, :3]) + pad
+    bvh = build_bvh(lo, hi)
+    order = bvh.order
+    return dict(
+        crv_seg_p0=p0, crv_seg_p1=p1, crv_seg_p2=p2,
+        crv_seg_n0=n0, crv_seg_n1=n1, crv_seg_n2=n2,
+        crv_seg_prim=seg_prim, crv_seg_mode=seg_mode,
+        crv_pc_q0=q0[order], crv_pc_q1=q1[order],
+        crv_pc_nmid=nmid[order], crv_pc_seg=pc_seg[order],
+        crv_pc_t0=pc_t0[order], crv_pc_t1=pc_t1[order],
+        cbvh_min=bvh.bounds_min, cbvh_max=bvh.bounds_max,
+        cbvh_meta=bvh.meta, cbvh_skip=bvh.skip)
+
+
+def _stack_hair_tables(fiber_tables: list) -> dict:
+    """Stack per-hair-bsdf azimuthal tables; a benign 1-entry placeholder
+    keeps gathers in range when no hair is present."""
+    from tungsten_tpu_torch.bsdf.fiber import AZ_RES
+    if not fiber_tables:
+        return dict(
+            hair_values=np.zeros((1, 3, AZ_RES, AZ_RES, 3), np.float32),
+            hair_pdf=np.full((1, 3, AZ_RES, AZ_RES), 1.0 / AZ_RES,
+                             np.float32),
+            hair_cdf=np.broadcast_to(
+                np.arange(AZ_RES + 1, dtype=np.float32) / AZ_RES,
+                (1, 3, AZ_RES, AZ_RES + 1)).copy(),
+            hair_sums=np.ones((1, 3, AZ_RES), np.float32),
+            hair_params=np.asarray([[0.0, 0.04, 0.01, 0.16]], np.float32))
+    return dict(
+        hair_values=np.stack([t["values"] for t in fiber_tables]),
+        hair_pdf=np.stack([t["pdf"] for t in fiber_tables]),
+        hair_cdf=np.stack([t["cdf"] for t in fiber_tables]),
+        hair_sums=np.stack([t["sums"] for t in fiber_tables]),
+        hair_params=np.stack([t["params"] for t in fiber_tables]))
+
+
+def pack_curve_rows(flds: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """The curve walk's packed rows from the JAX-named tensors of `flds`:
+    (crv_rows (Cp, CRV_ROW), cbvh_rows (N, CBVH_ROW)) f32 on their
+    device, so that one piece test is one 64-byte load and one node
+    visit one 32-byte load.  A leaf's first piece and count share a word
+    (first * 8 + count; MAX_LEAF = 4 < 8), an interior node's is 0."""
+    q0, q1 = flds["crv_pc_q0"], flds["crv_pc_q1"]
+    seg = flds["crv_pc_seg"].to(torch.int32)
+    cp = q0.shape[0]
+    mode = flds["crv_seg_mode"].to(torch.int32)
+    pmode = mode[seg.long()] if cp else seg
+    ints = torch.stack([seg, pmode, torch.zeros_like(seg)], dim=-1)
+    crv_rows = torch.cat([
+        q0, q1, flds["crv_pc_nmid"], flds["crv_pc_t0"][:, None],
+        flds["crv_pc_t1"][:, None], ints.view(torch.float32)], dim=1)
+    meta = flds["cbvh_meta"].to(torch.int64)
+    word = torch.where(meta[:, 1] > 0, meta[:, 0] * 8 + meta[:, 1], 0)
+    if bool((meta[:, 1] > 0).any()) and int(word.max()) >= 2 ** 31:
+        raise ValueError("curve piece count exceeds the packed node word")
+    word = word.to(torch.int32)[:, None].view(torch.float32)
+    skip = flds["cbvh_skip"].to(torch.int32)[:, None].view(torch.float32)
+    cbvh_rows = torch.cat([flds["cbvh_min"], word, flds["cbvh_max"], skip],
+                          dim=1)
+    return crv_rows.contiguous(), cbvh_rows.contiguous()
 
 
 def _to_tensor(x, device, dtype=None) -> torch.Tensor:
@@ -756,22 +985,16 @@ def flat_scene_from_numpy(flds: dict, device=None) -> FlatScene:
     """Build the port's FlatScene from a dict of numpy arrays keyed by
     FlatScene field name — e.g. the fields of a JAX FlatScene — so both
     packages render the very same scene, BSDF table, analytic primitives,
-    caps and aperture table included.  Extra keys are ignored, but a
-    scene with curves or fiber BSDFs (which the port does not handle
-    yet) raises NotImplementedError; `tri_fin` is packed from
-    tri_v0/e1/e2 when absent; `bitmaps` and the grid fields
-    (TUPLE_FIELDS) are sequences of arrays."""
+    caps, aperture table, curve tables and hair tables included.  Extra
+    keys are ignored; `tri_fin` and the curve walk's packed rows
+    (`crv_rows`, `cbvh_rows`) are packed from their JAX-named fields when
+    absent; `bitmaps` and the grid fields (TUPLE_FIELDS) are sequences
+    of arrays."""
     dev = resolve_device(device)
-    fiber = {bsdf_types.HAIR, bsdf_types.ROUGH_WIRE,
-             bsdf_types.LAMBERTIAN_FIBER}
-    if fiber & {int(t) for t in np.asarray(flds["bsdf_type"]).ravel()}:
-        raise _unsupported("fiber BSDFs")
-    for key in ("crv_seg_p0", "crv_pc_q0"):
-        if key in flds and np.asarray(flds[key]).shape[0] > 0:
-            raise _unsupported(f"curves ({key})")
+    packed = ("tri_fin", "crv_rows", "cbvh_rows")
     out = {}
     for f in fields(FlatScene):
-        if f.name == "tri_fin" and f.name not in flds:
+        if f.name in packed and f.name not in flds:
             continue
         if f.name in TUPLE_FIELDS:
             out[f.name] = tuple(_to_tensor(b, dev) for b in flds[f.name])
@@ -780,12 +1003,48 @@ def flat_scene_from_numpy(flds: dict, device=None) -> FlatScene:
     if "tri_fin" not in out:
         out["tri_fin"] = torch.cat([out["tri_v0"], out["tri_e1"],
                                     out["tri_e2"]], dim=1).contiguous()
+    if "crv_rows" not in out or "cbvh_rows" not in out:
+        out["crv_rows"], out["cbvh_rows"] = pack_curve_rows(out)
     return FlatScene(**out)
 
 
 def _unsupported(what: str):
     return NotImplementedError(f"tungsten_tpu_torch: {what} is not ported "
                                f"yet")
+
+
+def _expand_instances(primitives: list) -> list:
+    """The primitive list with each `instances` entry expanded (ref
+    Instance.cpp:16-93): every instance stamps one master primitive with
+    the instance's rotation + translation (scale comes from the master's
+    own transform, as in the reference), in the JAX package's order."""
+    expanded = []
+    for prim in primitives:
+        if prim.get("type") != "instances":
+            expanded.append(prim)
+            continue
+        masters = prim.get("masters", [])
+        for inst in prim.get("instances", []):
+            mid = int(inst.get("id", 0))
+            if not 0 <= mid < len(masters):
+                continue
+            master = dict(masters[mid])
+            mi = xform.parse_transform(master.get("transform"))
+            it = xform.parse_transform(inst.get("transform"))
+            # drop scale from the instance rotation (the reference keeps
+            # only position + quaternion)
+            R = it[:3, :3]
+            R = R / np.maximum(np.linalg.norm(R, axis=0, keepdims=True),
+                               1e-30)
+            comp = np.eye(4)
+            comp[:3, :3] = R @ mi[:3, :3]
+            comp[:3, 3] = R @ mi[:3, 3] + it[:3, 3]
+            master["transform"] = comp.reshape(-1).tolist()
+            if master.get("bsdf_index") is None and \
+                    prim.get("bsdf_index") is not None:
+                master["bsdf_index"] = prim["bsdf_index"]
+            expanded.append(master)
+    return expanded
 
 
 def flatten_scene(desc: SceneDesc, device=None
@@ -803,12 +1062,16 @@ def flatten_scene(desc: SceneDesc, device=None
     if cam.get("type", "pinhole") not in PORTED_CAMERAS:
         raise _unsupported(f"camera {cam.get('type')!r}")
 
-    bsdf_rows = [bsdf_types.parse_bsdf_row(b, textures) for b in desc.bsdfs]
+    fiber_tables: list = []
+    bsdf_rows = [bsdf_types.parse_bsdf_row(b, textures, fiber_tables)
+                 for b in desc.bsdfs]
     if not bsdf_rows:
-        bsdf_rows = [bsdf_types.parse_bsdf_row({"type": "lambert"}, textures)]
+        bsdf_rows = [bsdf_types.parse_bsdf_row({"type": "lambert"}, textures,
+                                               fiber_tables)]
 
     vec3 = _vec3
     geom = _GeomAccum()
+    curve_segs = []  # per-curves-prim dicts of segment arrays
     spheres_c, spheres_r, spheres_p = [], [], []
     disks = dict(c=[], n=[], r=[], cos=[], prim=[])
     cyls = dict(pos=[], rot=[], r=[], hh=[], capped=[], prim=[])
@@ -821,7 +1084,7 @@ def flatten_scene(desc: SceneDesc, device=None
     points = []
 
     prim_id = -1
-    for prim in desc.primitives:
+    for prim in _expand_instances(desc.primitives):
         ptype = prim.get("type", "mesh")
         if ptype not in PORTED_PRIMITIVES:
             raise _unsupported(f"primitive type {ptype!r}")
@@ -960,6 +1223,17 @@ def flatten_scene(desc: SceneDesc, device=None
             caps.append({"prim": prim_id, "dir": cap_d, "cos": cos_cap,
                          "emission": rad.astype(np.float32),
                          "samplable": samplable})
+            continue
+        elif ptype == "curves":
+            curve_segs.append(_flatten_curves(prim, m, desc.resolve_path,
+                                              prim_id))
+            # curves default to the hair BCSDF when no bsdf is given
+            # (ref Curves::Curves() ctor)
+            if prim.get("bsdf_index") is None:
+                prim_bsdf[-1] = len(bsdf_rows)
+                bsdf_rows.append(
+                    bsdf_types.parse_bsdf_row({"type": "hair"}, textures,
+                                              fiber_tables))
             continue
         elif ptype == "point":
             pos = xform.transform_point(m, [0, 0, 0])
@@ -1202,6 +1476,10 @@ def flatten_scene(desc: SceneDesc, device=None
         aperture_tex=aperture_tex,
         cat_eye=float(cam.get("cateye", cam.get("cat_eye", 0.0))),
         has_env=env_info is not None,
+        has_curves=any(c is not None for c in curve_segs),
+        curve_modes=tuple(sorted(set(
+            int(v) for c in curve_segs if c is not None
+            for v in np.unique(c["mode"])))),
         num_lights=int(L),
         present_bsdf_types=tuple(sorted({int(r[0]) for r in bsdf_rows})),
         num_caps=len(caps),
@@ -1228,7 +1506,8 @@ def flatten_scene(desc: SceneDesc, device=None
     tri_fin = np.concatenate([tri_v0, tri_e1, tri_e2], axis=1) \
         if len(tri_v0) else np.zeros((0, 9), np.float32)
 
-    # scene-wide occluder bounds: the triangles and the analytic prims
+    # scene-wide occluder bounds: the triangles, the analytic prims and
+    # the curve pieces padded by the widest piece
     los, his = [], []
     if len(tri_v0):
         los.append(p_min.min(0))
@@ -1249,6 +1528,14 @@ def flatten_scene(desc: SceneDesc, device=None
                      + np.asarray(cyls["hh"], np.float32) ** 2)[:, None]
         los.append((cp - cr).min(0))
         his.append((cp + cr).max(0))
+    curve_tables = _build_curve_tables(curve_segs)
+    if curve_tables["crv_pc_q0"].shape[0] > 0:
+        q = np.concatenate([curve_tables["crv_pc_q0"][:, :3],
+                            curve_tables["crv_pc_q1"][:, :3]])
+        w_c = np.concatenate([curve_tables["crv_pc_q0"][:, 3],
+                              curve_tables["crv_pc_q1"][:, 3]]).max()
+        los.append(q.min(0) - w_c)
+        his.append(q.max(0) + w_c)
     geo_lo = (np.min(los, axis=0) if los else np.zeros(3)).astype(np.float32)
     geo_hi = (np.max(his, axis=0) if his else np.zeros(3)).astype(np.float32)
     host = dict(
@@ -1274,6 +1561,8 @@ def flatten_scene(desc: SceneDesc, device=None
         cyl_hh=np.asarray(cyls["hh"], np.float32),
         cyl_capped=np.asarray(cyls["capped"], bool),
         cyl_prim=np.asarray(cyls["prim"], np.int32),
+        **curve_tables,
+        **_stack_hair_tables(fiber_tables),
         prim_bsdf=np.asarray(prim_bsdf, np.int32),
         prim_emission_tex=np.asarray(prim_emission_tex, np.int32),
         prim_light=prim_light,
