@@ -131,8 +131,31 @@ Phases (any failure exits non-zero):
      then continued to 16, against 11a's uninterrupted 16-spp image;
   13. the HTTP server on a free port rendering the smoke scene at 64x64
      in two rounds: /status, /render (PNG) and /log;
-  14. the kernels JSON line (ten rows: K1, K2, K3 closest and any hit,
-     the five leaf rows and C1), then the result line.
+  14. replay: path-replay gradients (trace_wave_replay) of the smoke
+     scene's mean radiance w.r.t. tex_const, light_emission and
+     bsdf_params: (a) one 1,048,576-ray wave (256x256, 16 spp),
+     max_bounces 64, forward and backward each timed from zero launch
+     counts (K1 and K2 launch in both), every gradient finite, the
+     backward's final re-traced emission equal to the forward's L
+     bitwise; (b) the peak device memory at max_bounces 8 and 64 within
+     1.25x of each other; then the replay once more with each pass under
+     torch.profiler (device busy share, launches, top kernels); (c) at 64x64, 4 spp, 16 bounces the card's
+     gradients against the plain path's on the CPU, on the smoke scene
+     and on a box with rough_conductor, rough_plastic and oren_nayar
+     walls, where every parameter's gradient must be nonzero; (d) central
+     differences of two card renders on the largest albedo entry and
+     the largest light emission entry, within 5e-2;
+  15. data-parallel (parallel/): (a) a one-rank NCCL group at 128x128,
+     2 spp: render_pass_sharded bitwise equal to the per-sample
+     trace_wave sum, render_pass_sharded_staged (rebalance_wave between
+     segments) within rtol 1e-5 / atol 1e-6 of it, train_step_sharded's
+     loss and gradients those of the replay on the same pixels; (b) two
+     spawned ranks sharing the card over gloo: the image bitwise equal
+     to (a)'s, the staged render and the gradients within the stated
+     tolerances;
+  16. the kernels JSON line (ten rows: K1, K2, K3 closest and any hit,
+     the five leaf rows and C1; K1's and K2's with their launches in the
+     replay's forward and backward), then the result line.
 """
 from __future__ import annotations
 
@@ -355,6 +378,51 @@ def write_zoo_scene(dirpath: str, res: int = RES, spp: int = SPP,
     path = os.path.join(dirpath, "zoo.json")
     with open(path, "w") as f:
         json.dump(scene_json(bsdfs, prims, res, spp), f, indent=1)
+    return path
+
+
+def write_replay_box(dirpath: str, res: int) -> str:
+    """Write phase 14(c)'s second scene, whose loss depends on every
+    replay parameter: a box of lambert walls, a back wall with an 8x8
+    bitmap albedo, a rough_conductor block, a rough_plastic wall and an
+    oren_nayar wall at roughness 1.0 (on its clip) under a quad light
+    (tests/test_torch_replay.py's box)."""
+    import numpy as np
+    from tungsten_tpu_torch.io import image
+    tex = np.full((8, 8, 3), 0.4, np.float32)
+    tex[2:6, 2:6] = [0.8, 0.3, 0.2]
+    image.save_hdr(os.path.join(dirpath, "box_wall.pfm"), tex)
+
+    def quad(bsdf, pos, scale, rot=(0, 0, 0), **kw):
+        return dict(type="quad", bsdf=bsdf, transform=dict(
+            position=list(pos), scale=scale, rotation=list(rot)), **kw)
+    bsdfs = [{"name": "white", "type": "lambert", "albedo": [0.7, 0.7, 0.7]},
+             {"name": "wall", "type": "lambert", "albedo": "box_wall.pfm"},
+             {"name": "copper", "type": "rough_conductor", "material": "Cu",
+              "roughness": 0.3, "distribution": "ggx"},
+             {"name": "plastic", "type": "rough_plastic",
+              "albedo": [0.7, 0.2, 0.2], "roughness": 0.2},
+             {"name": "oren", "type": "oren_nayar",
+              "albedo": [0.3, 0.6, 0.3], "roughness": 1.0}]
+    prims = [quad("white", (0, 0, 0), [4, 1, 4]),
+             quad("white", (0, 3, 0), [4, 1, 4], (0, 0, 180)),
+             quad("wall", (0, 1.5, -2), [4, 1, 3], (90, 0, 0)),
+             quad("plastic", (-2, 1.5, 0), [3, 1, 4], (0, 0, -90)),
+             quad("oren", (2, 1.5, 0), [3, 1, 4], (0, 0, 90)),
+             {"type": "cube", "bsdf": "copper",
+              "transform": {"position": [0.4, 0.5, -0.5],
+                            "scale": [0.8, 1.0, 0.8], "rotation": [0, 25, 0]}},
+             quad("white", (0, 2.98, 0), 1.0, (0, 0, 180),
+                  emission=[6.0, 6.0, 6.0])]
+    doc = {"bsdfs": bsdfs, "primitives": prims,
+           "camera": {"type": "pinhole", "resolution": [res, res], "fov": 60,
+                      "transform": {"position": [0, 1.5, 5.0],
+                                    "look_at": [0, 1.2, 0]}},
+           "integrator": {"type": "path_tracer", "max_bounces": 16},
+           "renderer": {"spp": 1}}
+    path = os.path.join(dirpath, "replay_box.json")
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)
     return path
 
 
@@ -1353,9 +1421,7 @@ def render_counted(scene, settings, twt):
     set to 0 just before and read just after: (image, stats, launches)."""
     from tungsten_tpu_torch.ops import curve_trace as tct
     from tungsten_tpu_torch.render import render
-    for counts in (twt.LAUNCHES, tct.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    zero_counts()
     img, stats = render(scene, settings, spp=SPP, seed=SEED, spp_chunk=SPP,
                         return_stats=True)
     return img, stats, dict(twt.LAUNCHES, **tct.LAUNCHES)
@@ -1768,6 +1834,384 @@ def server_run(path: str) -> None:
             and png[:4] == b"\x89PNG" and img.max() > 0 and
             logtxt.count("Completed") == 2 and st["rays_total"] > 0):
         raise AssertionError("server: endpoints report no finished render")
+
+
+# ----------------------------------------------------- replay, parallel
+
+REPLAY_PARAMS = ("tex_const", "light_emission", "bsdf_params")
+REPLAY_SMALL = (64, 4, 16)    # phase 14(c)-(d): resolution, spp, bounces
+DP_RES, DP_SPP = 128, 2       # phase 15: the data-parallel frame
+GRAD_TOL = ("rtol 1e-3 on entries above 1e-2 * max|g|, the rest within "
+            "1e-3 * max|g| (a lane may part where the kernel and the plain "
+            "walk round a grazing hit differently; the gathers' backward "
+            "adds with atomics on the card)")
+
+
+def zero_counts() -> None:
+    from tungsten_tpu_torch.ops import curve_trace as tct
+    from tungsten_tpu_torch.ops import wave_trace as twt
+    for counts in (twt.LAUNCHES, tct.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_counts() -> dict:
+    from tungsten_tpu_torch.ops import curve_trace as tct
+    from tungsten_tpu_torch.ops import wave_trace as twt
+    return {k: v for k, v in dict(twt.LAUNCHES, **tct.LAUNCHES).items() if v}
+
+
+def wave_ids(settings, spp: int, device, first_sample: int = 0):
+    """(pixel, sample) int32 ids of every pixel for `spp` samples,
+    sample-major (render.py's wave layout)."""
+    import torch
+    n = settings.width * settings.height
+    pixel = torch.arange(n, dtype=torch.int32, device=device).repeat(spp)
+    sample = torch.arange(first_sample, first_sample + spp,
+                          dtype=torch.int32,
+                          device=device).repeat_interleave(n)
+    return pixel, sample
+
+
+def replay_run(scene, settings, pixel, sample) -> dict:
+    """trace_wave_replay of the mean radiance w.r.t. REPLAY_PARAMS, the
+    forward and the backward each timed (ending in a synchronize) and
+    each from zero launch counts; the backward's final re-traced
+    emission from the replay's ReplayStats."""
+    import torch
+    from tungsten_tpu_torch.integrators import path_tracer as tpt
+    cuda = scene.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    leaves = {k: getattr(scene, k).detach().clone().requires_grad_()
+              for k in REPLAY_PARAMS}
+    sync()
+    zero_counts()
+    t0 = time.perf_counter()
+    L, stats = tpt.trace_wave_replay(scene.replace(**leaves), settings,
+                                     pixel, sample, SEED, with_stats=True)
+    loss = L.mean()
+    sync()
+    t1 = time.perf_counter()
+    fwd = read_counts()
+    zero_counts()
+    t2 = time.perf_counter()
+    loss.backward()
+    sync()
+    t3 = time.perf_counter()
+    bwd = read_counts()
+    return dict(L=L.detach(), loss=float(loss.detach()), rays=int(stats.rays),
+                grads={k: v.grad for k, v in leaves.items()},
+                forward_s=t1 - t0, backward_s=t3 - t2, forward_launches=fwd,
+                backward_launches=bwd, final=stats.emission,
+                bodies=stats.bodies)
+
+
+def grads_agree(name, got, want, big=1e-2, rtol=1e-3, atol=1e-3,
+                nonzero=False) -> float:
+    """Every field's gradient: rtol on entries above big * max|g|, the
+    rest within atol * max|g|; a field the loss does not depend on (the
+    smoke scene's bsdf_params: lambert albedo is a texture, a mirror has
+    no parameter) is zero in both, unless `nonzero` asks every field to
+    carry a gradient.  Returns the largest relative deviation on the
+    large entries."""
+    import numpy as np
+    worst = 0.0
+    for k in want:
+        a = got[k].detach().cpu().numpy()
+        b = want[k].detach().cpu().numpy()
+        m = np.abs(b).max()
+        sel = np.abs(b) > big * m
+        if not np.isfinite(a).all():
+            raise AssertionError(f"{name}: {k} gradient not finite")
+        if m == 0:
+            if nonzero:
+                raise AssertionError(f"{name}: {k} gradient vanished")
+            if np.abs(a).max() != 0:
+                raise AssertionError(f"{name}: {k} gradient zero in one")
+            log(f"  {name} {k}: zero in both")
+            continue
+        dev = np.abs(a - b)
+        rel = float((dev[sel] / np.abs(b[sel])).max())
+        ok = rel <= rtol and float(dev[~sel].max(initial=0.0)) <= atol * m
+        log(f"  {name} {k}: max|g| {m:.6g}, largest relative deviation "
+            f"{rel:.3e} on {int(sel.sum())} entries, largest absolute "
+            f"{float(dev.max()):.3e}")
+        if not ok:
+            raise AssertionError(f"{name}: {k} gradients disagree")
+        worst = max(worst, rel)
+    return worst
+
+
+def check_replay(path, card) -> dict:
+    """Phase 14: trace_wave_replay at full width, flat memory, the card
+    against the plain path, finite differences."""
+    import numpy as np
+    import torch
+    from tungsten_tpu_torch.integrators import path_tracer as tpt
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.parse import load_scene
+    scene, settings = flatten_scene(load_scene(path))
+    dev = scene.device
+    pixel, sample = wave_ids(settings, SPP, dev)
+    out = {}
+    # (b) at 8 bounces first (it also warms the replay's code paths up),
+    # then (a) at max_bounces 64, on the same 1,048,576-ray wave
+    for bounces in (8, settings.max_bounces):
+        s = replace(settings, max_bounces=bounces)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r = replay_run(scene, s, pixel, sample)
+        r["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        out[bounces] = r
+    a = out[settings.max_bounces]
+    for part in ("forward", "backward"):
+        c = a[f"{part}_launches"]
+        if not (c.get("closest", 0) > 0 and c.get("anyhit", 0) > 0):
+            raise AssertionError(f"replay {part}: K1/K2 did not launch {c}")
+    if not all(bool(torch.isfinite(g).all()) for g in a["grads"].values()):
+        raise AssertionError("replay: a gradient is not finite")
+    if not torch.equal(a["final"], a["L"]):
+        raise AssertionError("replay: the backward's final emission is not "
+                             "the forward's L")
+    wall = a["forward_s"] + a["backward_s"]
+    a["mrays_per_s"] = a["rays"] / wall / 1e6
+    log(f"  (a) {settings.width}x{settings.height} {SPP} spp "
+        f"({pixel.shape[0]} rays) max_bounces {settings.max_bounces}: "
+        f"forward {a['forward_s']:.3f} s, backward {a['backward_s']:.3f} s "
+        f"({a['backward_s'] / a['forward_s']:.2f}x), {a['bodies']} bodies, "
+        f"{a['rays']} rays, {a['mrays_per_s']:.3f} replay Mrays/s on {card}; "
+        f"launches forward {a['forward_launches']} backward "
+        f"{a['backward_launches']}; peak {a['peak_mib']:.1f} MiB; final "
+        f"emission == L bitwise; loss {a['loss']:.6f}")
+    b8 = out[8]
+    ratio = a["peak_mib"] / b8["peak_mib"]
+    log(f"  (b) peak memory {b8['peak_mib']:.1f} MiB at 8 bounces, "
+        f"{a['peak_mib']:.1f} MiB at {settings.max_bounces} ({ratio:.3f}x); "
+        f"8 bounces: forward {b8['forward_s']:.3f} s, backward "
+        f"{b8['backward_s']:.3f} s")
+    if not 1 / 1.25 <= ratio <= 1.25:
+        raise AssertionError("replay: memory grows with depth")
+    # (a') the same replay once more, each pass under torch.profiler
+    leaves = {k: getattr(scene, k).detach().clone().requires_grad_()
+              for k in REPLAY_PARAMS}
+    held, prof = {}, {"forward": {}, "backward": {}}
+
+    def forward():
+        held["L"] = tpt.trace_wave_replay(scene.replace(**leaves), settings,
+                                          pixel, sample, SEED)
+
+    for part, run in (("forward", forward),
+                      ("backward", lambda: held["L"].mean().backward())):
+        log(f"  (a) the replay's {part} profiled:")
+        profile_render(run, prof[part])
+    # (c) the card against the plain path on the CPU
+    res, spp, bounces = REPLAY_SMALL
+    small = replace(settings, width=res, height=res, max_bounces=bounces)
+    pix, smp = wave_ids(small, spp, dev)
+    t0 = time.time()
+    gpu = replay_run(scene, small, pix, smp)
+    cpu = replay_run(scene.to("cpu"), small, pix.cpu(), smp.cpu())
+    log(f"  (c) {res}x{res} {spp} spp max_bounces {bounces}: loss "
+        f"{gpu['loss']:.6f} (card) vs {cpu['loss']:.6f} (CPU), CPU "
+        f"forward + backward {cpu['forward_s'] + cpu['backward_s']:.1f} s")
+    if abs(gpu["loss"] / cpu["loss"] - 1.0) > 1e-4:
+        raise AssertionError("replay: card and CPU losses disagree")
+    worst = grads_agree("card vs CPU", gpu["grads"], cpu["grads"])
+    # (c') the same on a box whose loss depends on every parameter
+    # (rough_conductor, rough_plastic and oren_nayar roughness in
+    # bsdf_params), each field's gradient required nonzero
+    box, box_set = flatten_scene(load_scene(write_replay_box(
+        os.path.dirname(path), res)))
+    box_set = replace(box_set, max_bounces=bounces)
+    bpix, bsmp = wave_ids(box_set, spp, dev)
+    bgpu = replay_run(box, box_set, bpix, bsmp)
+    bcpu = replay_run(box.to("cpu"), box_set, bpix.cpu(), bsmp.cpu())
+    for part in ("forward", "backward"):
+        c = bgpu[f"{part}_launches"]
+        if not (c.get("closest", 0) > 0 and c.get("anyhit", 0) > 0):
+            raise AssertionError(f"replay box {part}: K1/K2 did not launch "
+                                 f"{c}")
+    log(f"  (c') the box, {res}x{res} {spp} spp max_bounces {bounces}: loss "
+        f"{bgpu['loss']:.6f} (card) vs {bcpu['loss']:.6f} (CPU), CPU "
+        f"forward + backward {bcpu['forward_s'] + bcpu['backward_s']:.1f} s")
+    if abs(bgpu["loss"] / bcpu["loss"] - 1.0) > 1e-4:
+        raise AssertionError("replay box: card and CPU losses disagree")
+    worst = max(worst, grads_agree("box card vs CPU", bgpu["grads"],
+                                   bcpu["grads"], nonzero=True))
+    log(f"  [(c): {time.time() - t0:.1f} s]")
+    # (d) central differences of two card renders
+    fd_rows = {}
+    for field, eps in (("tex_const", 1e-3), ("light_emission", 1e-2)):
+        g = gpu["grads"][field].cpu().numpy()
+        idx = np.unravel_index(int(np.argmax(np.abs(g))), g.shape)
+        vals = []
+        for sgn in (1.0, -1.0):
+            t = getattr(scene, field).clone()
+            t[idx] += sgn * eps
+            L, _ = tpt.replay_forward(scene.replace(**{field: t}), small,
+                                      pix, smp, SEED)
+            vals.append(float(L.double().mean()))
+        fd = (vals[0] - vals[1]) / (2 * eps)
+        rel = abs(fd - g[idx]) / max(abs(fd), 1e-6)
+        fd_rows[field] = dict(index=[int(i) for i in idx], ad=float(g[idx]),
+                              fd=fd, rel=rel)
+        log(f"  (d) {field}{list(idx)}: gradient {g[idx]:.6g}, central "
+            f"difference (eps {eps}) {fd:.6g}, relative {rel:.3e}")
+        if not rel < 5e-2:
+            raise AssertionError(f"replay: {field} gradient vs finite "
+                                 f"differences")
+    return dict(full=a, shallow=b8, peak_ratio=ratio, card_vs_cpu=worst,
+                fd=fd_rows, profile=prof)
+
+
+def per_sample_sum(scene, settings, spp: int):
+    """The per-sample trace_wave radiance of every pixel at full width,
+    non-finite samples dropped, summed over samples: what
+    render_pass_sharded gives."""
+    import torch
+    from tungsten_tpu_torch.integrators.path_tracer import trace_wave
+    n = settings.width * settings.height
+    pixel = torch.arange(n, dtype=torch.int32, device=scene.device)
+    acc = torch.zeros((n, 3), device=scene.device)
+    for s in range(spp):
+        rad = trace_wave(scene, settings, pixel, torch.full_like(pixel, s),
+                         SEED, min_wave=n + 1)
+        acc = acc + torch.where(torch.isfinite(rad), rad, 0.0)
+    return acc.reshape(settings.height, settings.width, 3)
+
+
+def dp_loss(n: int):
+    """The data-parallel loss: the mean radiance of the frame (padded ids
+    masked), each rank's part."""
+    import torch
+
+    def loss_fn(rad, pix):
+        return torch.sum(torch.where((pix < n)[:, None], rad, 0.0)) / (3 * n)
+    return loss_fn
+
+
+def dp_cases(scene, settings, mesh) -> dict:
+    """render_pass_sharded, the staged render with rebalance, and a train
+    step on `mesh`, each timed; their results on the CPU."""
+    import torch
+    from tungsten_tpu_torch.parallel import sharded as S
+    out = {}
+    t0 = time.perf_counter()
+    img, rays = S.render_pass_sharded(scene, settings, mesh,
+                                      spp_chunk=DP_SPP, seed=SEED)
+    t1 = time.perf_counter()
+    simg, srays = S.render_pass_sharded_staged(scene, settings, mesh,
+                                               spp_chunk=DP_SPP, seed=SEED)
+    t2 = time.perf_counter()
+    loss, grads = S.train_step_sharded(
+        scene, settings, mesh, lambda sc, p: sc.replace(**p),
+        dp_loss(settings.width * settings.height),
+        {k: getattr(scene, k) for k in REPLAY_PARAMS}, seed=SEED)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    out.update(image=img.cpu(), rays=rays, staged=simg.cpu(),
+               staged_rays=srays, loss=float(loss),
+               grads={k: v.cpu() for k, v in grads.items()},
+               render_s=t1 - t0, staged_s=t2 - t1, train_s=t3 - t2)
+    return out
+
+
+def dp_rank(rank: int, world: int, port: int, tmp: str, path: str) -> None:
+    """One spawned rank of phase 15(b): gloo on the shared card."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    from tungsten_tpu_torch.parallel import distributed as D
+    from tungsten_tpu_torch.parallel import sharded as S
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.parse import load_scene
+    D.init_distributed(backend="gloo", timeout_s=300)
+    try:
+        scene, settings = flatten_scene(load_scene(path))
+        mesh = S.make_mesh()
+        D.device_put_replicated(scene, mesh)
+        out = dp_cases(scene, settings, mesh)
+        if rank == 0:
+            torch.save(out, os.path.join(tmp, "dp_gloo.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def check_data_parallel(path, card) -> dict:
+    """Phase 15: (a) a one-rank NCCL group; (b) two spawned gloo ranks
+    sharing the card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from tungsten_tpu_torch.parallel import distributed as D
+    from tungsten_tpu_torch.parallel import sharded as S
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.parse import load_scene
+    dpath = scene_variant(path, "dp.json", res=DP_RES, spp=DP_SPP)
+    scene, settings = flatten_scene(load_scene(dpath))
+    n = settings.width * settings.height
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(D.free_port()),
+                      WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    if not D.init_distributed() or dist.get_backend() != "nccl":
+        raise AssertionError("data-parallel: no one-rank NCCL group")
+    try:
+        a = dp_cases(scene, settings, S.make_mesh())
+    finally:
+        dist.destroy_process_group()
+        for k in D.ENV + ("LOCAL_RANK",):
+            os.environ.pop(k, None)
+    ref = per_sample_sum(scene, settings, DP_SPP).cpu()
+    if not torch.equal(a["image"], ref):
+        raise AssertionError("data-parallel: the sharded image is not the "
+                             "per-sample trace_wave sum")
+    np.testing.assert_allclose(a["staged"].numpy(), a["image"].numpy(),
+                               rtol=1e-5, atol=1e-6)
+    pix, smp = wave_ids(settings, 1, scene.device)
+    single = replay_run(scene, settings, pix, smp)
+    if abs(a["loss"] / single["loss"] - 1.0) > 1e-6:
+        raise AssertionError("data-parallel: the train step's loss is not "
+                             "the replay's")
+    train_dev = grads_agree("one-rank train step vs replay", a["grads"],
+                            single["grads"], big=1e-3, rtol=1e-5, atol=1e-6)
+    log(f"  (a) one NCCL rank, {DP_RES}x{DP_RES} {DP_SPP} spp: "
+        f"render_pass_sharded {a['render_s']:.3f} s ({a['rays']} rays), "
+        f"bitwise the per-sample trace_wave sum; staged with rebalance "
+        f"{a['staged_s']:.3f} s, within rtol 1e-5 / atol 1e-6; train step "
+        f"{a['train_s']:.3f} s, loss {a['loss']:.6f}")
+    # (b) two ranks spawned over gloo, sharing the one card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        t0 = time.time()
+        mp.spawn(dp_rank, args=(2, D.free_port(), tmp, dpath), nprocs=2,
+                 join=True)
+        b = torch.load(os.path.join(tmp, "dp_gloo.pt"), weights_only=False)
+        spawn_s = time.time() - t0
+    if not torch.equal(b["image"], a["image"]) or b["rays"] != a["rays"]:
+        diff = (b["image"] - a["image"]).abs().max().item()
+        raise AssertionError(f"data-parallel: the 2-rank image is not the "
+                             f"1-rank image bitwise (max |diff| {diff})")
+    np.testing.assert_allclose(b["staged"].numpy(), a["image"].numpy(),
+                               rtol=1e-5, atol=1e-6)
+    if abs(b["loss"] / a["loss"] - 1.0) > 1e-6:
+        raise AssertionError("data-parallel: 2-rank loss differs")
+    gloo_dev = grads_agree("2 gloo ranks vs one NCCL rank", b["grads"],
+                           a["grads"], big=1e-3, rtol=1e-5, atol=1e-6)
+    log(f"  (b) two gloo ranks on the card: render_pass_sharded "
+        f"{b['render_s']:.3f} s, image bitwise the one rank's; staged "
+        f"{b['staged_s']:.3f} s; train step {b['train_s']:.3f} s; "
+        f"{spawn_s:.1f} s with the spawn")
+    return dict(nccl={k: a[k] for k in ("render_s", "staged_s", "train_s",
+                                        "rays", "loss")},
+                gloo={k: b[k] for k in ("render_s", "staged_s", "train_s")},
+                train_vs_replay=train_dev, gloo_vs_nccl=gloo_dev,
+                spawn_s=spawn_s)
 
 
 # -------------------------------------------------------------------- main
@@ -2218,7 +2662,17 @@ def main() -> int:
                                  spp_step=4))
         mark("server")
 
-    # 14. kernels line and result
+        # 14. path-replay gradients on the smoke scene
+        log("replay:")
+        rp = check_replay(path, card)
+        mark("replay")
+
+        # 15. the data-parallel render and train step
+        log("data-parallel:")
+        dpr = check_data_parallel(path, card)
+        mark("data-parallel")
+
+    # 16. kernels line and result
     closest_tol = ("vs plain walk: hit-set agreement > 0.998, same triangle "
                    "> 0.999, t within rtol 2e-3 on > 0.999 (the kernel's "
                    "own t and after the finalize), u/v atol 2e-3; "
@@ -2265,6 +2719,9 @@ def main() -> int:
     k1_row["outdoor_strategy"].update(
         {k: ostrat[k] for k in ("live", "bvh_intersect_ms")})
     for row, mode in ((k1_row, "closest"), (k2_row, "anyhit")):
+        for part in ("forward", "backward"):
+            row[f"replay_{part}_launches"] = \
+                rp["full"][f"{part}_launches"].get(mode, 0)
         row["hair_launches"] = hlaunches[mode]
         row["hair_render_ms"] = hprof[mode]["ms"] if hprof.get(mode) \
             else None
@@ -2331,7 +2788,16 @@ def main() -> int:
         f"{cli_buf['seconds']:.3f} cli_buffers_mrays_per_s "
         f"{cli_buf['mrays_per_s']:.3f} cli_adaptive_s "
         f"{cli_ad['seconds']:.3f} cli_adaptive_mrays_per_s "
-        f"{cli_ad['mrays_per_s']:.3f} total_s {time.time() - t_start:.1f}")
+        f"{cli_ad['mrays_per_s']:.3f} replay_forward_s "
+        f"{rp['full']['forward_s']:.3f} replay_backward_s "
+        f"{rp['full']['backward_s']:.3f} replay_forward_idle "
+        f"{rp['profile']['forward'].get('idle')} replay_backward_idle "
+        f"{rp['profile']['backward'].get('idle')} replay_mrays_per_s "
+        f"{rp['full']['mrays_per_s']:.3f} replay_peak_mib "
+        f"{rp['full']['peak_mib']:.1f} replay_peak_mib_8 "
+        f"{rp['shallow']['peak_mib']:.1f} dp_nccl_render_s "
+        f"{dpr['nccl']['render_s']:.3f} dp_gloo_render_s "
+        f"{dpr['gloo']['render_s']:.3f} total_s {time.time() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -37,7 +37,10 @@ The curve-piece walk C1 (csrc/curve_trace.cu) agrees with the plain
 curve walk on a scene of all four curve modes in closest and any hit,
 gives the live rays of a mostly dead wave their own results bitwise, and
 a small curve scene with the fiber BCSDFs renders through C1, K1 and K2
-as the plain path renders it.
+as the plain path renders it.  Path-replay gradients on the card launch
+K1 and K2 in the forward and in the backward, end on the forward's L
+bitwise and agree with the plain path's on the CPU; a train step on a
+one-rank NCCL group gives the replay's loss and gradients.
 """
 from types import SimpleNamespace
 
@@ -1241,3 +1244,128 @@ def test_cuda_curve_render_matches_plain_path(cuda_device, tmp_path):
     close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1)
     assert close.mean() >= 0.99, close.mean()
     assert abs(gpu.mean() / cpu.mean() - 1.0) <= 5e-3
+
+
+def _replay_desc(tmp_path):
+    """A small box for the replay: lambert walls, a bitmap wall, a
+    rough_conductor block and an oren_nayar wall on its roughness clip,
+    under a quad light (tests/test_torch_replay.py's box, 32x24, 8
+    bounces)."""
+    from tungsten_tpu_torch.io import image
+    from tungsten_tpu_torch.scene.parse import SceneDesc
+    tex = np.full((8, 8, 3), 0.4, np.float32)
+    tex[2:6, 2:6] = [0.8, 0.3, 0.2]
+    image.save_hdr(str(tmp_path / "wall.pfm"), tex)
+
+    def quad(b, pos, scale, rot=(0, 0, 0), **kw):
+        return dict(type="quad", bsdf_index=b, transform=dict(
+            position=list(pos), scale=scale, rotation=list(rot)), **kw)
+    return SceneDesc(
+        path=str(tmp_path / "scene.json"), json={},
+        bsdfs=[{"type": "lambert", "albedo": [0.7, 0.7, 0.7]},
+               {"type": "lambert", "albedo": "wall.pfm"},
+               {"type": "rough_conductor", "material": "Cu",
+                "roughness": 0.3, "distribution": "ggx"},
+               {"type": "oren_nayar", "albedo": [0.3, 0.6, 0.3],
+                "roughness": 1.0}],
+        primitives=[quad(0, (0, 0, 0), [4, 1, 4]),
+                    quad(0, (0, 3, 0), [4, 1, 4], (0, 0, 180)),
+                    quad(1, (0, 1.5, -2), [4, 1, 3], (90, 0, 0)),
+                    quad(3, (2, 1.5, 0), [3, 1, 4], (0, 0, 90)),
+                    {"type": "cube", "bsdf_index": 2,
+                     "transform": {"position": [0.4, 0.5, -0.5],
+                                   "scale": [0.8, 1.0, 0.8],
+                                   "rotation": [0, 25, 0]}},
+                    quad(0, (0, 2.98, 0), 1.0, (0, 0, 180),
+                         emission=[6.0, 6.0, 6.0])],
+        media=[], camera={"type": "pinhole", "resolution": [32, 24],
+                          "fov": 60,
+                          "transform": {"position": [0, 1.5, 5.0],
+                                        "look_at": [0, 1.2, 0]}},
+        integrator={"max_bounces": 8}, renderer={"spp": 1})
+
+
+REPLAY_PARAMS = ("tex_const", "light_emission", "bsdf_params")
+
+
+def _replay_grads(scene, settings, seed=7):
+    """(L, loss, {field: gradient}, the replay's ReplayStats) of the
+    mean radiance, one sample a pixel."""
+    from tungsten_tpu_torch.integrators import path_tracer as tpt
+    n = settings.width * settings.height
+    dev = scene.device
+    leaves = {k: getattr(scene, k).detach().clone().requires_grad_()
+              for k in REPLAY_PARAMS}
+    L, stats = tpt.trace_wave_replay(
+        scene.replace(**leaves), settings,
+        torch.arange(n, dtype=torch.int32, device=dev),
+        torch.zeros(n, dtype=torch.int32, device=dev), seed,
+        with_stats=True)
+    loss = L.mean()
+    fwd = dict(twt.LAUNCHES)
+    loss.backward()
+    return (L.detach(), float(loss.detach()),
+            {k: v.grad for k, v in leaves.items()}, stats, fwd)
+
+
+@pytest.mark.cuda
+def test_cuda_replay_matches_plain_path(cuda_device, tmp_path):
+    """trace_wave_replay on the card: K1 and K2 launch in the forward and
+    again in the backward (never the plain walk), the backward ends on
+    the forward's L bit for bit, and the gradients agree with the plain
+    path's on the CPU (a lane may part where the kernel and the plain
+    walk round a grazing hit differently, and the gathers' backward adds
+    with atomics: rtol 1e-3 on entries above 1e-2 * max|g|, the rest
+    within 1e-3 * max|g|)."""
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    scene, settings = flatten_scene(_replay_desc(tmp_path))
+    before = dict(twt.LAUNCHES)
+    L, loss, grads, stats, fwd = _replay_grads(scene, settings)
+    for k in ("closest", "anyhit"):
+        assert fwd[k] > before[k] and twt.LAUNCHES[k] > fwd[k], k
+    assert torch.equal(stats.emission, L)
+    cL, closs, cgrads, _, _ = _replay_grads(scene.to("cpu"), settings)
+    assert loss == pytest.approx(closs, rel=1e-4)
+    for k in REPLAY_PARAMS:
+        got, want = grads[k].cpu().numpy(), cgrads[k].numpy()
+        m = np.abs(want).max()
+        assert m > 0 and np.isfinite(got).all(), k
+        big = np.abs(want) > 1e-2 * m
+        np.testing.assert_allclose(got[big], want[big], rtol=1e-3,
+                                   err_msg=k)
+        np.testing.assert_allclose(got[~big], want[~big], atol=1e-3 * m,
+                                   err_msg=k)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_on_one_nccl_rank(cuda_device, tmp_path,
+                                          monkeypatch):
+    """train_step_sharded on a one-rank NCCL group (init_distributed from
+    the launcher's variables): the loss and gradients of the replay on
+    the whole frame (the gathers' backward adds with atomics on the
+    card: rtol 1e-5, atol 1e-7 * max|g|)."""
+    import torch.distributed as dist
+    from tungsten_tpu_torch.parallel import distributed as D
+    from tungsten_tpu_torch.parallel import sharded as S
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    for k, v in (("MASTER_ADDR", "localhost"),
+                 ("MASTER_PORT", str(D.free_port())), ("WORLD_SIZE", "1"),
+                 ("RANK", "0"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    scene, settings = flatten_scene(_replay_desc(tmp_path))
+    _, want_loss, want, _, _ = _replay_grads(scene, settings)
+    assert D.init_distributed(timeout_s=120)
+    try:
+        assert dist.get_backend() == "nccl"
+        n = settings.width * settings.height
+        loss, grads = S.train_step_sharded(
+            scene, settings, S.make_mesh(), lambda sc, p: sc.replace(**p),
+            lambda rad, pix: torch.sum(rad) / (3 * n),
+            {k: getattr(scene, k) for k in REPLAY_PARAMS}, seed=7)
+    finally:
+        dist.destroy_process_group()
+    assert float(loss) == pytest.approx(want_loss, rel=1e-6)
+    for k in REPLAY_PARAMS:
+        got, ref = grads[k].cpu().numpy(), want[k].cpu().numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-5,
+                                   atol=1e-7 * np.abs(ref).max(), err_msg=k)

@@ -173,3 +173,18 @@ def test_fiber_m_stable_branch():
                                               for a in sargs)))
     assert (np.abs(s) <= 1.0 + 1e-6).all()
     np.testing.assert_allclose(s, want_s, rtol=1e-5, atol=1e-5)
+
+
+def test_wire_roughness_floor_derivative_is_jax():
+    """rough_wire's roughness floor, jnp.maximum(roughness, 1e-3): at the
+    floor JAX's derivative is half of the slope (a tie splits evenly),
+    and the port's _wire_v gives the same gradient there and away from
+    it."""
+    from types import SimpleNamespace
+    x = np.array([1e-3, 0.5, 1e-4, 0.02], np.float32)
+    want = np.asarray(jax.grad(lambda r: jnp.sum(jfib._wire_v(
+        SimpleNamespace(roughness=r))))(jnp.asarray(x)))
+    t = torch.from_numpy(x).requires_grad_()
+    tfib._wire_v(SimpleNamespace(roughness=t)).sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), want, rtol=1e-6)
+    assert want[2] == 0.0 and 0.0 < want[0] < want[3]

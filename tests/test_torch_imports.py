@@ -49,7 +49,8 @@ def test_every_port_module_imports_without_jax():
               "utils.debug", "media.phase", "media.transmittance",
               "media.grid", "io.vdb", "scene.sky", "scene.hosek_data",
               "cameras.camera", "integrators.lights", "io.curves",
-              "bsdf.fiber", "ops.curve_trace", "ops.intersect"):
+              "bsdf.fiber", "ops.curve_trace", "ops.intersect",
+              "parallel.sharded", "parallel.distributed"):
         assert "tungsten_tpu_torch." + m in mods
     # the sky bake reads the port's own copy of the Hosek-Wilkie data
     code = ("import sys\n"
@@ -147,6 +148,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     img3 = np.zeros((4, 4, 3), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         denoiser.nfor_denoise(img3, img3, img3, None, None, None)
+    from tungsten_tpu_torch.parallel.distributed import init_distributed
+    for k, v in (("MASTER_ADDR", "localhost"), ("MASTER_PORT", "29500"),
+                 ("WORLD_SIZE", "1"), ("RANK", "0")):
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_distributed()
     args = cli.build_parser().parse_args(["scene.json"])
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -28,7 +28,8 @@ from tungsten_tpu_torch.bsdf import microfacet as mf
 from tungsten_tpu_torch.bsdf import types as bt
 from tungsten_tpu_torch.bsdf.types import AUX, P
 from tungsten_tpu_torch.scene.textures import eval_texture
-from tungsten_tpu_torch.utils.vecmath import INV_PI, ortho_frame, to_global
+from tungsten_tpu_torch.utils.vecmath import (INV_PI, clip, ortho_frame,
+                                              take, to_global)
 
 FLAG_SPECULAR = 1
 FLAG_VALID = 2
@@ -86,7 +87,7 @@ class ShadePoint:
         self.idx = bsdf_idx
         self.uv = uv
         self.type = scene.bsdf_type[bsdf_idx]
-        self.params = scene.bsdf_params[bsdf_idx]
+        self.params = take(scene.bsdf_params, bsdf_idx)
         self.aux = scene.bsdf_aux[bsdf_idx]
         self.albedo = self._tex(scene.bsdf_albedo_tex[bsdf_idx])
         # textured roughness: params[ROUGHNESS] < 0 marks a texture ref
@@ -205,7 +206,11 @@ def _rough_conductor_pdf(sp, wi, wo, ctx):
 def _rough_conductor_sample(sp, wi, U, ctx):
     """ref RoughConductorBsdf::sample"""
     alpha = mf.roughness_to_alpha(sp.dist, sp.roughness)
-    m = mf.sample(sp.dist, alpha, U["u1"], U["u2"])
+    # detached microfacet sampling, as the JAX package: the sampled
+    # half-vector carries no parameter gradient (the warp's derivative
+    # is singular at the domain edges and NaNs the replay backward); the
+    # weight D·G/pdf keeps its roughness dependence at the detached m
+    m = mf.sample(sp.dist, alpha, U["u1"], U["u2"]).detach()
     wi_dot_m = torch.sum(wi * m, dim=-1)
     wo = 2.0 * wi_dot_m[..., None] * m - wi
     ok = (wi[..., 2] > 0) & (wi_dot_m > 0) & (wo[..., 2] > 0)
@@ -320,7 +325,7 @@ def _rough_dielectric_sample(sp, wi, U, ctx):
     eta_n = torch.where(wi_n < 0.0, ior, 1.0 / ior)
     alpha = mf.roughness_to_alpha(sp.dist, sp.roughness)
     s_alpha = _sampling_alpha(sp, wi)
-    m = mf.sample(sp.dist, s_alpha, U["u1"], U["u2"])
+    m = mf.sample(sp.dist, s_alpha, U["u1"], U["u2"]).detach()  # detached
     pm = mf.pdf(sp.dist, s_alpha, m)
     wi_dot_m = torch.sum(wi * m, dim=-1)
     F, cos_t = fr.dielectric_reflectance(1.0 / ior, wi_dot_m)
@@ -458,7 +463,8 @@ def _rough_plastic_sample(sp, wi, U, ctx):
     spec_prob = _rough_plastic_probs(sp, wi)
     take_spec = U["lobe2"] < spec_prob
     # glossy branch: rough-dielectric reflection sample (T off)
-    m = mf.sample(sp.dist, _sampling_alpha(sp, wi), U["u1"], U["u2"])
+    m = mf.sample(sp.dist, _sampling_alpha(sp, wi), U["u1"],
+                  U["u2"]).detach()  # detached sampling
     wi_dot_m = torch.sum(wi * m, dim=-1)
     wo_g = 2.0 * wi_dot_m[..., None] * m - wi
     wo_d = _cosine_hemisphere(U["u1"], U["u2"])
@@ -509,7 +515,7 @@ def _oren_nayar_eval(sp, wi, wo, ctx):
 
 def _oren_nayar_pdf(sp, wi, wo, ctx):
     ok = (wi[..., 2] > 0) & (wo[..., 2] > 0)
-    ratio = torch.clamp(sp.roughness, 0.01, 1.0)
+    ratio = clip(sp.roughness, 0.01, 1.0)
     p = (0.5 * INV_PI) * ratio + _cosine_pdf(wo) * (1.0 - ratio)
     return torch.where(ok, p, 0.0)
 
@@ -526,7 +532,7 @@ def _mis_sample(sp, wi, wo, eval_fn, pdf_fn, ctx):
 
 
 def _oren_nayar_sample(sp, wi, U, ctx):
-    ratio = torch.clamp(sp.roughness, 0.01, 1.0)
+    ratio = clip(sp.roughness, 0.01, 1.0)
     uni = _uniform_hemisphere(U["u1"], U["u2"])
     cos = _cosine_hemisphere(U["u1"], U["u2"])
     wo = torch.where((U["lobe2"] < ratio)[..., None], uni, cos)

@@ -32,6 +32,7 @@ import torch
 
 from tungsten_tpu_torch.bsdf import fresnel as fr
 from tungsten_tpu_torch.bsdf.types import AUX, P
+from tungsten_tpu_torch.utils.vecmath import clip
 
 HAIR_ETA = 1.55          # ref HairBcsdf.hpp:19
 AZ_RES = 64              # ref PrecomputedAzimuthalLobe::AzimuthalResolution
@@ -198,7 +199,7 @@ def _log_i0(x):
     return torch.where(
         x > 12.0,
         x + 0.5 * (torch.log(1.0 / (TWO_PI * xs)) + 1.0 / (8.0 * xs)),
-        torch.log(torch.clamp(_bessel_i0(torch.clamp(x, max=12.0)),
+        torch.log(torch.clamp(_bessel_i0(clip(x, hi=12.0)),
                               min=1e-30)))
 
 
@@ -210,7 +211,7 @@ def fiber_m(v, sin_ti, sin_to, cos_ti, cos_to):
     stable = torch.exp(-b + _log_i0(a) - 1.0 / v + 0.6931
                        + torch.log(1.0 / (2.0 * v)))
     direct = torch.exp(-b) * _bessel_i0(a) / \
-        (2.0 * v * torch.sinh(torch.clamp(1.0 / v, max=30.0)))
+        (2.0 * v * torch.sinh(clip(1.0 / v, hi=30.0)))
     return torch.where(v < 0.1, stable, direct)
 
 
@@ -399,7 +400,7 @@ def hair_sample(sp, wi, U, ctx):
 # ------------------------------------------------------------ rough wire
 
 def _wire_v(sp):
-    return torch.square(torch.clamp(sp.roughness, min=1e-3) * (np.pi / 2))
+    return torch.square(clip(sp.roughness, 1e-3) * (np.pi / 2))
 
 
 def _wire_n(cos_phi):

@@ -12,13 +12,15 @@ import math
 
 import torch
 
+from tungsten_tpu_torch.utils.vecmath import clip
+
 from tungsten_tpu_torch.bsdf.types import DIST_BECKMANN, DIST_GGX, DIST_PHONG
 
 MIN_ALPHA = 1e-3
 
 
 def roughness_to_alpha(dist, roughness):
-    r = torch.clamp(roughness, min=MIN_ALPHA)
+    r = clip(roughness, MIN_ALPHA)
     phong = 2.0 / (r * r) - 2.0
     return torch.where(dist == DIST_PHONG, phong, r)
 

@@ -20,8 +20,8 @@ from tungsten_tpu_torch.scene.flatten import (
     LIGHT_AREA, LIGHT_CYLINDER, LIGHT_DISK, LIGHT_POINT, LIGHT_SPHERE)
 from tungsten_tpu_torch.scene.textures import sample_bitmap_quad
 from tungsten_tpu_torch.utils.vecmath import (INV_FOUR_PI, INV_PI,
-                                              INV_TWO_PI, ortho_frame,
-                                              to_global)
+                                              INV_TWO_PI, clip, ortho_frame,
+                                              take, to_global)
 
 INF = 3.0e38
 
@@ -134,8 +134,7 @@ def _choose_light_weights(scene, settings, p):
     r = scene.light_bsr[:nl, 3]
     dvec = c[None, :, :] - p[:, None, :]
     dsq = torch.sum(dvec * dvec, dim=-1)
-    sin2 = torch.clamp(r[None, :] ** 2 / torch.clamp(dsq, min=1e-12),
-                       0.0, 1.0)
+    sin2 = clip(r[None, :] ** 2 / torch.clamp(dsq, min=1e-12), 0.0, 1.0)
     sa = 2.0 * math.pi * (1.0 - torch.sqrt(1.0 - sin2))
     w_area = sa * scene.light_lum[None, :nl]
     area_like = (lt == LIGHT_AREA) | (lt == LIGHT_DISK) | \
@@ -197,7 +196,7 @@ def area_light_sample(scene, light_idx, p, u_tri, u1, u2):
     pdf = r_sq / torch.clamp(cos_theta * area, min=1e-20)
     valid = (cos_theta > 0.0) & (area > 0.0)
     return dict(d=d, dist=dist, pdf=pdf,
-                emission=scene.light_emission[light_idx], valid=valid)
+                emission=take(scene.light_emission, light_idx), valid=valid)
 
 
 def area_light_direct_pdf(scene, light_idx, hit_t, d, hit_normal, p=None,
@@ -252,7 +251,7 @@ def sphere_light_sample(scene, light_idx, p, u1, u2):
     pdf = INV_TWO_PI / torch.clamp(1.0 - cos_max, min=1e-9)
     valid = outside & (dist > 0.0)
     return dict(d=d, dist=dist, pdf=pdf,
-                emission=scene.light_emission[light_idx], valid=valid)
+                emission=take(scene.light_emission, light_idx), valid=valid)
 
 
 def sphere_light_direct_pdf(scene, light_idx, p):
@@ -296,7 +295,7 @@ def disk_light_sample(scene, light_idx, p, u1, u2):
     pdf = r_sq / torch.clamp(cos_theta * area, min=1e-20)
     valid = front & in_cone & (cos_theta > 0.0) & (area > 0.0)
     return dict(d=d, dist=dist, pdf=pdf,
-                emission=scene.light_emission[light_idx], valid=valid)
+                emission=take(scene.light_emission, light_idx), valid=valid)
 
 
 def _rot_apply(rot, v):
@@ -350,7 +349,7 @@ def cyl_light_sample(scene, light_idx, p, u1, u2, u3):
     pdf = r_sq / torch.clamp(cos_theta * area, min=1e-20)
     valid = (cos_theta > 0.0) & (area > 0.0)
     return dict(d=d, dist=dist, pdf=pdf,
-                emission=scene.light_emission[light_idx], valid=valid)
+                emission=take(scene.light_emission, light_idx), valid=valid)
 
 
 # ------------------------------------------------------------ cap / point
@@ -387,5 +386,5 @@ def eval_caps(scene, d):
 def power_heuristic(pdf0, pdf1):
     """pdf0^2 / (pdf0^2 + pdf1^2) in ratio form (no f32 overflow)."""
     ratio = pdf1 / torch.clamp(pdf0, min=1e-30)
-    ratio = torch.clamp(ratio, max=1e15)
+    ratio = clip(ratio, hi=1e15)
     return torch.where(pdf0 > 0.0, 1.0 / (1.0 + ratio * ratio), 0.0)

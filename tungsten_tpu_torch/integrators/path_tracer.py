@@ -40,8 +40,16 @@ On CUDA the body first reorders the whole wavefront state by the
 traversal sort key (one key sort + one packed row gather) so the
 closest-hit launch skips its own sort, as the JAX package does when its
 Pallas path is on; on the CPU lanes keep their order, as there.
+
+Gradients (trace_wave_replay, the JAX package's path replay): sampling
+decisions and traversals are detached, interior derivatives only.
+`bvh_intersect` returns no graph, the microfacet samplers detach their
+half-vector, and an autograd Function re-traces each bounce in its
+backward pass with flat memory in depth.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -110,7 +118,8 @@ def _medium_tr(scene, settings, media, med, o, d, seg_len, start_surf,
     along the segment (ref VoxelMedium/ExponentialMedium::transmittance);
     infinite segments through a homogeneous medium transmit 0."""
     m = torch.clamp(med, 0, media.n - 1).long()
-    sigma_t = scene.med_sigma_a[m] + scene.med_sigma_s[m]
+    sigma_t = vm.take(scene.med_sigma_a, m) + \
+        vm.take(scene.med_sigma_s, m)
     if media.het:
         ut = GR.unit_tau(scene, settings, m, o, d, seg_len, active=med >= 0)
     else:
@@ -258,7 +267,8 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
         d = vm.where3(is_cap, cd, d)
         dist = torch.where(is_cap, INF, dist)
         pdf = torch.where(is_cap, cpdf, pdf)
-        emis = torch.where(is_cap[..., None], scene.light_emission[li], emis)
+        emis = torch.where(is_cap[..., None],
+                           vm.take(scene.light_emission, li), emis)
         valid = valid | is_cap
     # point lights are Dirac: the light strategy alone, weight 1
     if settings.has_points:
@@ -269,7 +279,8 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
         d = vm.where3(is_pt, pvec / p_dist[..., None], d)
         dist = torch.where(is_pt, p_dist, dist)
         pdf = torch.where(is_pt, p_rsq, pdf)
-        emis = torch.where(is_pt[..., None], scene.light_emission[li], emis)
+        emis = torch.where(is_pt[..., None], vm.take(scene.light_emission, li),
+                           emis)
         valid = valid | is_pt
     for present, kind, sample in (
             (settings.has_disk_lights, LIGHT_DISK,
@@ -389,7 +400,7 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
     front = torch.sum(wd * nb, dim=-1) < 0.0
     got = surface_light & res_b["hit"] & \
         (hit_prim == scene.light_prim[li]) & front
-    e_b = scene.light_emission[li]
+    e_b = vm.take(scene.light_emission, li)
     if settings.has_env:
         is_env = ltype == LIGHT_INFINITE
         escape = is_env & ~res_b["hit"]
@@ -402,7 +413,8 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
         aux = scene.light_aux[li]
         in_cap = torch.sum(wd * aux[..., :3], dim=-1) >= aux[..., 3]
         got = torch.where(is_cap, ~res_b["hit"] & in_cap, got)
-        e_b = torch.where(is_cap[..., None], scene.light_emission[li], e_b)
+        e_b = torch.where(is_cap[..., None],
+                          vm.take(scene.light_emission, li), e_b)
         lpdf = torch.where(is_cap, L.cap_pdf_value(aux[..., 3]), lpdf)
     if settings.has_points:
         got = got & ~is_pt   # no bsdf strategy toward a Dirac light
@@ -719,8 +731,8 @@ def _sample_medium(scene, settings, media, s, res, seed, dim_base, sobol):
     laws = media.laws
     in_med = alive & (med >= 0)
     mi = torch.clamp(med, 0, media.n - 1).long()
-    sigma_s = scene.med_sigma_s[mi]
-    sigma_t = scene.med_sigma_a[mi] + sigma_s
+    sigma_s = vm.take(scene.med_sigma_s, mi)
+    sigma_t = vm.take(scene.med_sigma_a, mi) + sigma_s
     absorb_only = torch.amax(sigma_s, dim=-1) == 0.0
     tt = scene.med_trans_type[mi]
     tp = scene.med_trans_params[mi]
@@ -788,9 +800,12 @@ def _sample_medium(scene, settings, media, s, res, seed, dim_base, sobol):
             med_bounce)
 
 
-def _make_bounce_body(scene, settings, seed):
-    """The per-bounce wavefront step: state dict -> state dict."""
-    body_sort = scene.device.type == "cuda"
+def _make_bounce_body(scene, settings, seed, replay: bool = False):
+    """The per-bounce wavefront step: state dict -> state dict.  `replay`
+    (the path-replay gradient, trace_wave_replay) turns the body-start
+    sort off: the replay's suffix math needs every lane to keep its
+    identity, as in the JAX package's detach mode."""
+    body_sort = scene.device.type == "cuda" and not replay
     one_sample = _one_sample_mis(settings)
     fwd_types = _has_forward_types(settings)
     has_media = settings.has_media
@@ -909,7 +924,7 @@ def _make_bounce_body(scene, settings, seed):
         if has_media:
             mi = torch.clamp(s["medium"], 0, media.n - 1).long()
             phase_type = scene.med_phase[mi]
-            phase_g = scene.med_g[mi]
+            phase_g = vm.take(scene.med_g, mi)
             pw, _ = PH.phase_sample(phase_type, phase_g, s["d"], u1, u2)
             new_d = vm.where3(vol_scatter, pw, new_d)
             new_o = vm.where3(vol_scatter, med_point, new_o)
@@ -985,9 +1000,9 @@ def _make_bounce_body(scene, settings, seed):
         front = torch.sum(info["ng"] * s["d"], dim=-1) < 0.0
         li = torch.clamp(scene.prim_light[prim], 0,
                          max(scene.light_emission.shape[0] - 1, 0))
-        e_val = scene.light_emission[li.long()]
-        e_tex = scene.tex_const[torch.clamp(
-            etex, 0, scene.tex_const.shape[0] - 1).long()]
+        e_val = vm.take(scene.light_emission, li.long())
+        e_tex = vm.take(scene.tex_const, torch.clamp(
+            etex, 0, scene.tex_const.shape[0] - 1).long())
         e_hit = torch.where(samplable[..., None], e_val, e_tex)
         take_emit = shade & is_emissive & front & \
             (bounce >= settings.min_bounces)
@@ -1126,14 +1141,12 @@ def bank(state, n_total, key="pixel"):
     return out
 
 
-def _gather_rows(state, idx):
-    """Apply a row permutation/slice `idx` to every leading-R state field
-    with ONE packed row gather: the fields are packed into one (r, F)
-    f32 matrix (ints and bools bitcast through int32) and moved
-    together."""
+def pack_rows(state):
+    """Pack every leading-R state field into one (R, F) f32 matrix (ints
+    and bools bitcast through int32).  Returns (rows, specs, the fields
+    that pass through: scalars and host values)."""
     r = state["alive"].shape[0]
-    new_r = idx.shape[0]
-    cols, specs, out = [], [], {}
+    cols, specs, passthru = [], [], {}
     for k, v in state.items():
         if isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == r:
             flat = v.reshape(r, -1)
@@ -1143,8 +1156,14 @@ def _gather_rows(state, idx):
                 cols.append(flat.to(torch.int32).view(torch.float32))
             specs.append((k, v.shape[1:], v.dtype, flat.shape[1]))
         else:
-            out[k] = v
-    rows = torch.cat(cols, dim=1)[idx]                  # ONE gather
+            passthru[k] = v
+    return torch.cat(cols, dim=1), specs, passthru
+
+
+def unpack_rows(rows, specs, passthru):
+    """pack_rows' inverse on (possibly moved or sliced) rows."""
+    new_r = rows.shape[0]
+    out = dict(passthru)
     off = 0
     for k, tshape, dtype, w in specs:
         part = rows[:, off:off + w]
@@ -1155,6 +1174,13 @@ def _gather_rows(state, idx):
             part = part.view(torch.int32).to(dtype)
         out[k] = part.reshape((new_r,) + tuple(tshape))
     return out
+
+
+def _gather_rows(state, idx):
+    """Apply a row permutation/slice `idx` to every leading-R state field
+    with ONE packed row gather."""
+    rows, specs, passthru = pack_rows(state)
+    return unpack_rows(rows[idx], specs, passthru)
 
 
 def compact_wave(state, new_r: int):
@@ -1212,3 +1238,165 @@ def trace_wave_staged(scene, settings, pixel, sample_idx, seed,
     banks, rays = _staged(scene, settings, pixel, sample_idx, seed, n_total,
                           min_wave, step, key="pixel")
     return banks["emission"], rays
+
+
+def bank_emission(state, n_total: int):
+    """Scatter every ray's accumulated radiance into an (n_total, 3)
+    framebuffer by pixel id (rays with pixel >= n_total are dropped,
+    non-finite radiance too: ref PathTracer.cpp:119-122)."""
+    return bank(state, n_total, key="pixel")["emission"]
+
+
+# ------------------------------------------------------- path replay
+#
+# Path-replay backprop (Vicini et al. 2021, detached-sampling variant),
+# the JAX package's _replay_tracer.  The forward saves nothing per
+# bounce; the backward re-traces the same path (the (pixel, sample,
+# bounce, dim)-keyed RNG repeats every decision bit for bit) and adds up
+# one bounce's vector-Jacobian product at a time:
+#
+#     L = e_0 + w_0 (e_1 + w_1 (e_2 + ...)),  all decisions detached
+#     dL = sum_b T_b (de_b + dw_b . S_{b+1}),
+#     S_{b+1} = (L - prefix_{b+1}) / T_{b+1}   (suffix radiance)
+#
+# The bounce body maps a detached state to (emission', throughput') =
+# (prefix + T_b e_b(theta), T_b w_b(theta)), so the cotangents
+# (g, g * S_{b+1}) on one body's outputs give both summands.
+
+
+@dataclass
+class ReplayStats:
+    """What one replay reports (trace_wave_replay(with_stats=True)): the
+    rays its forward traced and, once its backward has run, that pass's
+    final re-traced emission (the forward's L, bit for bit) and the
+    bounce bodies it ran."""
+    rays: torch.Tensor | None = None
+    emission: torch.Tensor | None = None
+    bodies: int = 0
+
+
+def _scene_params(scene):
+    """The FlatScene float tensors that require grad: (slots, tensors),
+    a slot being (field, None) or, for a tuple field, (field, index)."""
+    from dataclasses import fields
+    from tungsten_tpu_torch.scene.flatten import TUPLE_FIELDS
+    slots, params = [], []
+    for f in fields(scene):
+        v = getattr(scene, f.name)
+        items = enumerate(v) if f.name in TUPLE_FIELDS else [(None, v)]
+        for i, x in items:
+            if isinstance(x, torch.Tensor) and x.requires_grad:
+                slots.append((f.name, i))
+                params.append(x)
+    return tuple(slots), params
+
+
+def _with_params(scene, slots, params):
+    """`scene` with the tensors at `slots` replaced by `params`."""
+    changes = {}
+    for (name, i), x in zip(slots, params):
+        if i is None:
+            changes[name] = x
+        else:
+            t = list(changes.get(name, getattr(scene, name)))
+            t[i] = x
+            changes[name] = tuple(t)
+    return scene.replace(**changes)
+
+
+def _replay_loop(settings, state):
+    return state["bounce"] < settings.max_bounces and \
+        bool(state["alive"].any())
+
+
+def replay_forward(scene, settings, pixel, sample_idx, seed):
+    """The replay's forward without a graph: the bounce body at full
+    width, no compaction and no body-start sort, until max_bounces or
+    until no lane is alive.  Returns (L (R,3), rays as a 0-d int64
+    tensor)."""
+    with torch.no_grad():
+        state = _init_state(scene, settings, pixel, sample_idx, seed)
+        body = _make_bounce_body(scene, settings, seed, replay=True)
+        while _replay_loop(settings, state):
+            state = body(state)
+    return state["emission"], state["rays"]
+
+
+def replay_backward(scene, settings, pixel, sample_idx, seed, L, g, slots,
+                    params):
+    """d<g, L>/d params by path replay: each bounce body re-runs on the
+    detached state under autograd, and its (emission, throughput) take
+    the cotangents (g, g * suffix).  Memory stays that of one body.
+    Returns (gradients, one per param; the final re-traced emission;
+    the bodies run)."""
+    leaves = [p.detach().requires_grad_() for p in params]
+    sc = _with_params(scene, slots, leaves)
+    with torch.no_grad():
+        state = _init_state(sc, settings, pixel, sample_idx, seed)
+    body = _make_bounce_body(sc, settings, seed, replay=True)
+    grads = [torch.zeros_like(p) for p in params]
+    bodies = 0
+    while _replay_loop(settings, state):
+        with torch.enable_grad():
+            out = body(state)
+        thr = out["throughput"].detach()
+        live = torch.abs(thr) > 1e-12
+        suffix = torch.where(
+            live, (L - out["emission"].detach()) /
+            torch.where(live, thr, 1.0), 0.0)
+        pairs = [(x, c) for x, c in ((out["emission"], g),
+                                     (out["throughput"], g * suffix))
+                 if x.requires_grad]
+        if pairs and leaves:
+            gs = torch.autograd.grad([x for x, _ in pairs], leaves,
+                                     [c for _, c in pairs],
+                                     allow_unused=True)
+            grads = [a if b is None else a + b for a, b in zip(grads, gs)]
+        state = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                 for k, v in out.items()}
+        bodies += 1
+    return grads, state["emission"], bodies
+
+
+class _Replay(torch.autograd.Function):
+    """L = trace(scene; pixel, sample, seed) with the scene's tensors
+    that require grad as explicit inputs (autograd sees only those);
+    pixel, sample and seed take no gradient.  `stats` (a ReplayStats)
+    takes the forward's rays and the backward's final emission."""
+
+    @staticmethod
+    def forward(ctx, scene, settings, pixel, sample_idx, seed, slots, stats,
+                *params):
+        L, stats.rays = replay_forward(scene, settings, pixel, sample_idx,
+                                       seed)
+        ctx.replay = (scene, settings, seed, slots, stats)
+        ctx.save_for_backward(pixel, sample_idx, L, *params)
+        return L
+
+    @staticmethod
+    def backward(ctx, g):
+        scene, settings, seed, slots, stats = ctx.replay
+        pixel, sample_idx, L, *params = ctx.saved_tensors
+        grads, stats.emission, stats.bodies = replay_backward(
+            scene, settings, pixel, sample_idx, seed, L, g, slots, params)
+        return (None,) * 7 + tuple(grads)
+
+
+def trace_wave_replay(scene, settings, pixel, sample_idx, seed,
+                      with_stats: bool = False):
+    """Differentiable radiance estimate by path-replay backprop: flat
+    memory in bounce count, full `max_bounces` depth.  Gradients flow to
+    every FlatScene tensor that requires grad (set one with
+    `scene.replace(field=t.requires_grad_())`) through the shading
+    chain (albedo, emission, roughness, ior, textures, media); sampling
+    decisions and intersections are detached (interior derivatives
+    only).  Returns radiance (R,3), with stats also a ReplayStats."""
+    slots, params = _scene_params(scene)
+    stats = ReplayStats()
+    L = _Replay.apply(scene, settings, pixel, sample_idx, seed, slots, stats,
+                      *params)
+    return (L, stats) if with_stats else L
+
+
+# The JAX package's name for the same estimator.
+trace_wave_diff = trace_wave_replay

@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from tungsten_tpu_torch.utils import rng
+from tungsten_tpu_torch.utils.vecmath import clip
 
 MED_HOMOGENEOUS = 0
 MED_EXPONENTIAL = 1
@@ -201,7 +202,7 @@ def _atmo_inverse(s, r, t0, h_sq, tau):
         torch.exp(s * s * (h_sq - r * r)) * s * tau
     return torch.where(
         inner >= 1.0, INF,
-        torch.special.erfinv(torch.clamp(inner, -1.0 + 1e-7, 1.0 - 1e-7)) /
+        torch.special.erfinv(clip(inner, -1.0 + 1e-7, 1.0 - 1e-7)) /
         torch.clamp(s, min=1e-20))
 
 
@@ -400,8 +401,8 @@ def _dda_grid(scene, g, o, d, t_max, tau_c=None, nearest=False):
         if tau_c is not None:
             crosses = ~done & (integral + delta >= tau_c) & (delta > 0.0)
             if nearest:
-                x1 = torch.clamp((tau_c - integral) /
-                                 torch.clamp(delta, min=1e-30), 0.0, 1.0)
+                x1 = clip((tau_c - integral) / torch.clamp(delta, min=1e-30),
+                          0.0, 1.0)
                 rho_x = v
             else:
                 # solve a/2 x^2 + b x + c = 0 for the in-segment crossing
@@ -413,8 +414,8 @@ def _dda_grid(scene, g, o, d, t_max, tau_c=None, nearest=False):
                 mant = torch.clamp(b * b - 2.0 * a * c, min=0.0)
                 quad = (-b + torch.sqrt(mant)) / \
                     torch.where(torch.abs(a) < 1e-6, 1e-6, a)
-                x1 = torch.clamp(torch.where(torch.abs(a) < 1e-6, lin, quad),
-                                 0.0, 1.0)
+                x1 = clip(torch.where(torch.abs(a) < 1e-6, lin, quad), 0.0,
+                          1.0)
                 rho_x = fa + (fb - fa) * x1
             t_hit = torch.where(crosses, ta + (tb - ta) * x1, t_hit)
             rho_hit = torch.where(crosses, rho_x, rho_hit)
@@ -466,7 +467,7 @@ def _march_inverse(scene, settings, g, o, d, t_max, tau_c):
     before = torch.gather(cum - step, 1, i[:, None])[:, 0]
     rho_i = torch.gather(rho, 1, i[:, None])[:, 0]
     frac = (tau_c - before) / torch.clamp(rho_i * dt, min=1e-30)
-    t_c = t0 + i.to(torch.float32) * dt + torch.clamp(frac, 0.0, 1.0) * dt
+    t_c = t0 + i.to(torch.float32) * dt + clip(frac, 0.0, 1.0) * dt
     return (torch.where(found, t_c, INF), torch.where(found, rho_i, 0.0),
             cum[:, -1])
 

@@ -32,6 +32,8 @@ from __future__ import annotations
 
 import torch
 
+from tungsten_tpu_torch.utils.vecmath import clip
+
 T_EXPONENTIAL = 0
 T_DOUBLE_EXPONENTIAL = 1
 T_LINEAR = 2
@@ -114,10 +116,10 @@ def _surface_surface_base(ttype, tau, p, laws):
         return 0.5 * (torch.exp(-sa * tau) + torch.exp(-sb * tau))
 
     def lin(tau, p):
-        return 1.0 - torch.clamp(tau / p[..., 0:1], max=1.0)
+        return 1.0 - clip(tau / p[..., 0:1], hi=1.0)
 
     def quad(tau, p):
-        t = torch.clamp(tau / p[..., 0:1], max=1.0)
+        t = clip(tau / p[..., 0:1], hi=1.0)
         return 1.0 - 2.0 * t + t * t
 
     def erl(tau, p):
@@ -181,7 +183,7 @@ def _surface_medium_base(ttype, tau, p, laws):
 
     def quad(tau, p):
         mt = p[..., 0:1]
-        return (2.0 / mt) * (1.0 - torch.clamp(tau / mt, max=1.0))
+        return (2.0 / mt) * (1.0 - clip(tau / mt, hi=1.0))
 
     def erl(tau, p):
         lam = p[..., 0:1]
@@ -214,7 +216,7 @@ def _medium_surface_base(ttype, tau, p, laws):
         return torch.where(tau > p[..., 0:1], 0.0, 1.0)
 
     def quad(tau, p):
-        return 1.0 - torch.clamp(tau / p[..., 0:1], max=1.0)
+        return 1.0 - clip(tau / p[..., 0:1], hi=1.0)
 
     def erl(tau, p):
         lam = p[..., 0:1]
@@ -436,7 +438,7 @@ def _sample_distance_base(ttype, p, start_on_surface, u1, u2, laws):
         # pulse surfaces: unrolled inverse-CDF over MAX_PULSES trapezoid
         # cells
         a_, b_ = p[..., 0], p[..., 1]
-        n_ = torch.clamp(p[..., 2], min=1.0)
+        n_ = clip(p[..., 2], 1.0)
         xi = u1 * n_ * 0.5
         delta = 1.0 / n_
         pulse_surf = torch.zeros_like(u1)

@@ -49,6 +49,9 @@ def load_kernel() -> ctypes.CDLL:
 
 
 def _cuda_f32(x, name, shape):
+    if x.requires_grad:
+        raise ValueError(f"{name} requires grad: the kernel takes raw "
+                         f"pointers, so traversal inputs are detached")
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
     if x.dtype != torch.float32:

@@ -418,6 +418,7 @@ def curve_walk(scene, o, d, t_min, t_max, any_hit: bool = False):
     or (R,): on the CPU `curve_walk_plain`, on CUDA the kernel C1
     (ops/curve_trace.py), which raises rather than fall back.  Returns
     (t, seg, u, v, hit); for any hit only `hit` is the closest walk's."""
+    o, d, t_min, t_max = (_detached(x) for x in (o, d, t_min, t_max))
     if o.is_cuda:
         from tungsten_tpu_torch.ops.curve_trace import curve_kernel
         R = o.shape[0]
@@ -453,7 +454,22 @@ def bvh_intersect(scene, o, d, t_min, t_max, any_hit: bool = False,
     tracer's body-start sort), so the CUDA dispatch skips its sort.
     Returns dict(t, tri, sph, dsk, cyl, crv, u, v, hit); a channel is -1
     where that primitive type did not win.  For any_hit t is the far
-    limit, not a hit distance, and only `hit` carries meaning."""
+    limit, not a hit distance, and only `hit` carries meaning.
+
+    Traversal carries no graph (detached sampling, interior derivatives
+    only, as the JAX package cuts its tape at the kernel inputs): the
+    rays are detached and the results come back without one."""
+    with torch.no_grad():
+        return _intersect(scene, _detached(o), _detached(d),
+                          _detached(t_min), _detached(t_max), any_hit,
+                          presorted)
+
+
+def _detached(x):
+    return x.detach() if isinstance(x, torch.Tensor) else x
+
+
+def _intersect(scene, o, d, t_min, t_max, any_hit, presorted):
     R = o.shape[0]
     t_min = torch.broadcast_to(_f32(t_min, o), (R,))
     t_clip = geo_clip(scene, o, d, t_max)

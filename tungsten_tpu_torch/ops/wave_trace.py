@@ -420,6 +420,9 @@ def load_kernels() -> ctypes.CDLL:
 
 
 def _check(x, name, dtype, shape):
+    if x.requires_grad:
+        raise ValueError(f"{name} requires grad: the kernels take raw "
+                         f"pointers, so traversal inputs are detached")
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
     if x.dtype != dtype:

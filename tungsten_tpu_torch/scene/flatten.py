@@ -28,7 +28,7 @@ curve walk's packed rows (`crv_rows`, `cbvh_rows`, pack_curve_rows).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace as _replace
 
 import numpy as np
 import torch
@@ -256,6 +256,11 @@ class FlatScene:
     @property
     def device(self) -> torch.device:
         return self.tri_v0.device
+
+    def replace(self, **changes) -> "FlatScene":
+        """The same scene with the given fields replaced (the flax
+        dataclass's `replace`)."""
+        return _replace(self, **changes)
 
     def to(self, device) -> "FlatScene":
         """The same scene with every tensor on `device`."""

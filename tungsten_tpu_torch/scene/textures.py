@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tungsten_tpu_torch.utils.vecmath import take
+
 TEX_CONST = 0
 TEX_CHECKER = 1
 TEX_BITMAP = 2
@@ -98,8 +100,8 @@ def eval_texture(tex_type, tex_const, tex_params, tex_bitmap_id, bitmaps,
                  tex_idx, uv):
     """Evaluate textures for a batch: tex_idx (R,), uv (R,2) -> (R,3)."""
     t = tex_type[tex_idx]
-    const = tex_const[tex_idx]
-    p = tex_params[tex_idx]
+    const = take(tex_const, tex_idx)
+    p = take(tex_params, tex_idx)
     ui = torch.floor(uv[..., 0] * p[..., 3]).to(torch.int32)
     vi = torch.floor(uv[..., 1] * p[..., 4]).to(torch.int32)
     on = ((ui ^ vi) & 1) == 1
@@ -153,8 +155,8 @@ def sample_bitmap(img, uv):
     flat = img.reshape(h * w, -1)
     r0 = iv0 * w
     r1 = iv1 * w
-    c00 = flat[(r0 + iu0).long()].to(torch.float32)
-    c10 = flat[(r0 + iu1).long()].to(torch.float32)
-    c01 = flat[(r1 + iu0).long()].to(torch.float32)
-    c11 = flat[(r1 + iu1).long()].to(torch.float32)
+    c00 = take(flat, (r0 + iu0).long()).to(torch.float32)
+    c10 = take(flat, (r0 + iu1).long()).to(torch.float32)
+    c01 = take(flat, (r1 + iu0).long()).to(torch.float32)
+    c11 = take(flat, (r1 + iu1).long()).to(torch.float32)
     return _bilinear(c00, c10, c01, c11, fu, fv)

@@ -90,3 +90,40 @@ def max_component(a):
 def where3(mask, a, b):
     """Select whole 3-vectors with a (...,)-shaped bool mask."""
     return torch.where(mask[..., None], a, b)
+
+
+def clip(x, lo=None, hi=None):
+    """torch.clamp(x, lo, hi) with jnp.clip's derivative at a tie.
+
+    jnp.clip is minimum(maximum(x, lo), hi), and jnp.maximum /
+    jnp.minimum split the derivative evenly between equal operands, so
+    at x == lo or x == hi the JAX package's derivative is 0.5 where
+    torch.clamp's is 1.  Where x carries a graph this takes the same
+    minimum/maximum route (torch.maximum/minimum split ties the same
+    way); without one it is torch.clamp, which gives the same values."""
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return torch.clamp(x, lo, hi)
+
+    def bound(v):
+        if isinstance(v, torch.Tensor):
+            return v
+        return torch.full((), v, dtype=x.dtype, device=x.device)
+
+    if lo is not None:
+        x = torch.maximum(x, bound(lo))
+    if hi is not None:
+        x = torch.minimum(x, bound(hi))
+    return x
+
+
+def take(table, idx):
+    """table[idx] along dim 0, through F.embedding: its forward is the
+    same one gather, and where the table carries a graph (a parameter
+    the replay differentiates) its backward sums each row's cotangents
+    with a sort and a segmented reduction; advanced indexing's backward
+    on CUDA (indexing_backward_kernel_small_stride) walks each row's
+    duplicates one after another, which a wave of a million lanes
+    gathering from a table of a few rows turns into a serial chain."""
+    rows = torch.nn.functional.embedding(
+        idx, table.reshape(table.shape[0], -1))
+    return rows.reshape(idx.shape + table.shape[1:])
