@@ -107,13 +107,20 @@ Phases (any failure exits non-zero):
      mesh 64 times, a lambert floor, an area light and an
      infinite_sphere_cap sun (the simple two-strategy NEE); its strand,
      segment, piece and node counts, the curve tables' MiB on the card
-     and the host flatten seconds; (b) the curve-piece walk C1
+     and the host flatten seconds; the wide piece BVH's node count, MiB,
+     the seconds its collapse adds to the flatten and the most stack
+     entries its walk could hold;
+     (b) the curve-piece walk C1
      (ops/curve_trace.py) against the plain curve walk on the first
      65,536 rays of the camera rays (far limits from K1 and the analytic
      test, as bvh_intersect forms them), body 1's shadow segments (any
      hit) and body 2's continuation rays: hit set and segment equal on
-     >= 0.9999, t within rtol 1e-5 / atol 1e-6; node visits, piece tests, the
-     distinct rows read and the bound; times at full width and on 1,024
+     >= 0.9999, t within rtol 1e-5 / atol 1e-6; 1, 2 and 4 lanes a ray
+     and a 16-entry stack (restarts forced) bitwise equal to the
+     launcher's choice on each whole set and on 1,024 of its rays; node
+     visits (total; mean, p99 and max a live ray), child boxes and pieces
+     tested, stack spills and restarts, the distinct rows read and the
+     bound; times at full width and on 1,024
      and 65,536 rays, the plain walk's, bvh_intersect's; (c) the
      full-width render (256x256, 16 spp, max_bounces 64) from zero
      launch counts, C1 (both modes), K1 and K2 all launching, then one
@@ -185,6 +192,7 @@ HAIR_RIBBONS, HAIR_HALF, HAIR_SPHERES = 2048, 1024, 64
 HAIR_CROSS = (256, 32, 16)
 HAIR_CROSS_BOUNCES = 16
 C1_CHECK = 65536      # rays of each set held against the plain curve walk
+C1_NARROW = 4096      # where the 1,024-ray slice of the lanes check starts
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside the
 # tensor cores
 PEAK_BYTES = 3.35e12
@@ -1266,21 +1274,51 @@ def curve_inputs(scene, o, d, t_min, t_max, any_hit: bool):
     return tmin, far.contiguous()
 
 
-def curve_bound_ms(scene, R: int, visits: int, tests: int, nodes: int,
+def curve_bound_ms(scene, R: int, boxes: int, tests: int, nodes: int,
                    pieces: int) -> tuple[float, str]:
     """Least time for a C1 launch: the bytes it must move (the distinct
     node and piece rows this run's rays read, each once, the rays in and
-    the results out) over the HBM rate vs its f32 operations (a slab
-    test a node visit, a half-cylinder test a piece test) over the f32
-    rate.  A ray reads o, d, t_min and t_max (32 B) and writes t, seg, u,
-    v and hit (17 B); the walk's counts are statistics that a render does
-    not store."""
+    the results out) over the HBM rate vs its f32 operations (a slab test
+    for each child box tested, the occupied slots of the nodes visited,
+    and a half-cylinder test a piece test) over the f32 rate.  A ray reads o, d, t_min and t_max (32 B) and writes t,
+    seg, u, v and hit (17 B); the walk's counts are statistics that a
+    render does not store."""
     from tungsten_tpu_torch.ops import curve_trace as tct
-    nbytes = nodes * 32 + pieces * 64 + R * (32 + 17)
+    from tungsten_tpu_torch.scene.flatten import CRV_ROW, CWBVH_ROW
+    nbytes = nodes * CWBVH_ROW * 4 + pieces * CRV_ROW * 4 + R * (32 + 17)
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = (visits * tct.FLOPS_PER_NODE + tests * tct.FLOPS_PER_PIECE) \
+    t_ops = (boxes * tct.FLOPS_PER_BOX + tests * tct.FLOPS_PER_PIECE) \
         / PEAK_F32 * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def lanes_equal(scene, name, o, d, tmin, far, any_hit: bool) -> dict:
+    """C1 with 1, 2 and 4 lanes a ray against the launcher's choice on the
+    same rays: t, seg, u, v, hit and the statistics bitwise equal; and
+    with a stack of 2 * SHORT entries, so that deep rays drop entries and
+    restart: t, seg, u, v, hit bitwise equal in closest hit, hit in any
+    hit (a restart changes which hit an any-hit ray meets first).  Else
+    AssertionError.
+    Returns {"launcher": lanes, "forced": [...], "stack": entries,
+    "restarts": restarts with that stack}."""
+    import torch
+    from tungsten_tpu_torch.ops import curve_trace as tct
+    args = (scene.crv_rows, scene.cwbvh_rows, o, d, tmin, far, any_hit)
+    ref = tct.curve_kernel(*args, stats=True)[:6]
+    for g in tct.LANES:
+        got = tct.curve_kernel(*args, stats=True, lanes=g)[:6]
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"{name}: C1 with {g} lanes a ray differs "
+                                 f"from the launcher's choice")
+    small = 2 * tct.SHORT
+    got = tct.curve_kernel(*args, stats=True, stack=small)[:6]
+    keep = slice(4, 5) if any_hit else slice(0, 5)
+    if not all(torch.equal(a, b) for a, b in zip(got[keep], ref[keep])):
+        raise AssertionError(f"{name}: C1 with a {small}-entry stack differs "
+                             f"from the full stack")
+    return {"launcher": tct.curve_lanes(o.shape[0], o.device, any_hit),
+            "forced": list(tct.LANES), "stack": small,
+            "restarts": int(got[5][4].sum())}
 
 
 def check_curves(scene, name, o, d, t_min, t_max, any_hit: bool) -> dict:
@@ -1290,7 +1328,11 @@ def check_curves(scene, name, o, d, t_min, t_max, any_hit: bool) -> dict:
     near limit); in closest hit the segment on >= 0.9999 of the rays
     both hit, t within rtol 1e-5 / atol 1e-6 where the segments agree;
     dead rays visit no node.  In any hit the hit set also equals C1's closest
-    hit's on the same inputs.
+    hit's on the same inputs.  Every forced lanes a ray bitwise equal to
+    the launcher's choice on the whole set and on its 1,024 rays from
+    C1_NARROW, and a 16-entry stack equal to the full one (lanes_equal).
+    Node visits a live ray (mean, p99, max), the child boxes tested, the
+    stack spills and restarts.
     Times with CUDA events (median of 5 after a warm-up) at full width
     and on the first 1,024 and 65,536 rays, the plain walk's checking
     run (once), and bvh_intersect on the whole set."""
@@ -1301,7 +1343,7 @@ def check_curves(scene, name, o, d, t_min, t_max, any_hit: bool) -> dict:
     tmin, far = curve_inputs(scene, o, d, t_min, t_max, any_hit)
     live = far > tmin
     t, seg, u, v, hit, counts, nmark, pmark = tct.curve_kernel(
-        scene.crv_rows, scene.cbvh_rows, o, d, tmin, far, any_hit,
+        scene.crv_rows, scene.cwbvh_rows, o, d, tmin, far, any_hit,
         stats=True)
     n = min(C1_CHECK, R)
     plain = []
@@ -1332,37 +1374,53 @@ def check_curves(scene, name, o, d, t_min, t_max, any_hit: bool) -> dict:
                 f"{int(s.sum())} rays: t {t[:n][bad][:8].tolist()} vs "
                 f"{pt[bad][:8].tolist()}")
     else:
-        ch = tct.curve_kernel(scene.crv_rows, scene.cbvh_rows, o, d, tmin,
+        ch = tct.curve_kernel(scene.crv_rows, scene.cwbvh_rows, o, d, tmin,
                               far, False)[4]
         if not torch.equal(ch, hit):
             raise AssertionError(f"{name}: any-hit set differs from C1's "
                                  f"closest hit set")
     if bool((counts[0][~live] != 0).any()):
         raise AssertionError(f"{name}: a dead ray visited nodes")
-    visits, tests = int(counts[0].sum()), int(counts[1].sum())
+    stat = dict(zip(tct.COUNTS, (int(c) for c in counts.sum(dim=1))))
+    visits, tests = stat["visits"], stat["piece_tests"]
+    spills, boxes = stat["spills"], stat["box_tests"]
+    lv_visits = counts[0][live].float()
+    v_mean = lv_visits.mean().item() if bool(live.any()) else 0.0
+    v_p99 = lv_visits.quantile(0.99).item() if bool(live.any()) else 0.0
+    v_max = int(counts[0].max())
     nodes, pieces = int(nmark.sum()), int(pmark.sum())
     log(f"  {name}: {R} rays ({int(live.sum())} live, hit share "
         f"{hit.float().mean().item():.4f}); vs plain on {n}: hit set "
         f"{agree:.6f}, segment {seg_eq:.6f}, max |dt| {err:.3g} "
-        f"(beyond rtol 1e-5: {abs_err:.3g}); node "
-        f"visits {visits} ({visits / max(int(live.sum()), 1):.1f} a live "
-        f"ray), piece tests {tests}; distinct rows read: {nodes} nodes, "
+        f"(beyond rtol 1e-5: {abs_err:.3g}); node visits {visits} (a live "
+        f"ray: mean {v_mean:.2f}, p99 {v_p99:.0f}, max {v_max}), child "
+        f"boxes tested {boxes}, piece tests {tests}, stack spills {spills}, "
+        f"restarts {stat['restarts']}; distinct rows read: {nodes} nodes, "
         f"{pieces} pieces")
     # an any-hit walk stops at its first hit, the plain walk after its
     # leaf: only the hit set is theirs to share
     if not (agree >= 0.9999 and (any_hit or seg_eq >= 0.9999)):
         raise AssertionError(f"{name}: C1 vs the plain curve walk: hit set "
                              f"{agree}, segment {seg_eq}")
+    k = min(1024, R - C1_NARROW)
+    nar = slice(C1_NARROW, C1_NARROW + k)
+    lanes = {"full": lanes_equal(scene, name, o, d, tmin, far, any_hit),
+             str(k): lanes_equal(scene, name, o[nar], d[nar], tmin[nar],
+                                 far[nar], any_hit)}
+    log(f"  {name}: lanes a ray {lanes['full']['launcher']} at full width, "
+        f"{lanes[str(k)]['launcher']} on {k} rays; 1, 2 and 4 bitwise "
+        f"equal to them; a {lanes['full']['stack']}-entry stack equal too "
+        f"({lanes['full']['restarts']} restarts on the whole set)")
 
     def run(k):
-        return tct.curve_kernel(scene.crv_rows, scene.cbvh_rows, o[:k],
+        return tct.curve_kernel(scene.crv_rows, scene.cwbvh_rows, o[:k],
                                 d[:k], tmin[:k], far[:k], any_hit)
     ms = cuda_ms(lambda: run(R))
     widths = {str(k): cuda_ms(lambda k=k: run(k)) for k in (1024, 65536)
               if k < R}
     wrap_ms = cuda_ms(lambda: tis.bvh_intersect(scene, o, d, t_min, t_max,
                                                 any_hit=any_hit))
-    b, by = curve_bound_ms(scene, R, visits, tests, nodes, pieces)
+    b, by = curve_bound_ms(scene, R, boxes, tests, nodes, pieces)
     log(f"  {name}: C1 {ms:.3f} ms at full width ("
         + ", ".join(f"{k} rays {x:.3f} ms" for k, x in widths.items())
         + f"), plain walk {plain_ms:.1f} ms on {n} rays, bound {b:.4f} ms "
@@ -1370,10 +1428,13 @@ def check_curves(scene, name, o, d, t_min, t_max, any_hit: bool) -> dict:
     return dict(ms=ms, plain_ms=plain_ms, plain_rays=n, bound_ms=b,
                 bound_by=by, max_abs_err=err, t_abs_err=abs_err,
                 rays=R, live=int(live.sum()),
-                node_visits=visits, piece_tests=tests, distinct_nodes=nodes,
+                node_visits=visits, box_tests=boxes, piece_tests=tests,
+                restarts=stat["restarts"], distinct_nodes=nodes,
                 distinct_pieces=pieces, by_width=widths,
                 bvh_intersect_ms=wrap_ms, hit_agreement=agree,
-                segment_agreement=seg_eq)
+                segment_agreement=seg_eq, visits_mean=v_mean,
+                visits_p99=v_p99, visits_max=v_max, stack_spills=spills,
+                lanes=lanes)
 
 
 def check_hair_kernels(scene, settings) -> tuple[dict, dict, dict]:
@@ -1551,7 +1612,7 @@ def profile_render(render_once, summary: dict | None = None) -> dict:
         return {}
     tally: dict[str, dict] = {}
     for (s, e, _), (route, rays, splits) in zip(
-            trav + ctrav, launched + [(r, n, 1) for r, n in curve_launched]):
+            trav + ctrav, launched + curve_launched):
         r = tally.setdefault(route, {"launches": 0, "ms": 0.0,
                                      "by_width": {}})
         w = r["by_width"].setdefault(str(rays), {"launches": 0,
@@ -1562,7 +1623,8 @@ def profile_render(render_once, summary: dict | None = None) -> dict:
             x["ms"] += (e - s) / 1e3
     for route, r in tally.items():
         log(f"  {route}: {r['launches']} launches, {r['ms']:.3f} ms device "
-            f"time; by rays a launch (launches, CTAs a block, ms): " +
+            f"time; by rays a launch (launches, CTAs a block or C1's lanes "
+            f"a ray, ms): " +
             ", ".join(f"{w}: {x['launches']}x{x['splits']} "
                       f"{x['ms']:.3f}" for w, x in sorted(
                           r["by_width"].items(), key=lambda i: -int(i[0]))))
@@ -2548,11 +2610,36 @@ def main() -> int:
         h_tri = hscene.tri_v0.shape[0]
         crv_mb = sum(getattr(hscene, f).numel() * getattr(hscene, f)
                      .element_size() for f in vars(hscene)
-                     if f.startswith(("crv_", "cbvh_"))) / 2**20
+                     if f.startswith(("crv_", "cbvh_", "cwbvh_"))) / 2**20
         hair_mb = sum(getattr(hscene, f).numel() * 4 for f in vars(hscene)
                       if f.startswith("hair_")) / 2**20
         n_seg = hscene.crv_seg_p0.shape[0]
         n_pc = hscene.crv_pc_q0.shape[0]
+        # the wide rows C1 walks: packed again on the host to time the
+        # collapse (part of the flatten above)
+        from tungsten_tpu_torch.ops import curve_trace as tct
+        from tungsten_tpu_torch.scene.bvh import collapse_wide
+        from tungsten_tpu_torch.scene.flatten import wide_curve_rows
+        bin_np = [getattr(hscene, f).cpu().numpy()
+                  for f in ("cbvh_meta", "cbvh_min", "cbvh_max")]
+        t0 = time.time()
+        wide_np = wide_curve_rows(*bin_np)
+        t_wide = time.time() - t0
+        wide_stack = collapse_wide(*bin_np)[2]
+        if not np.array_equal(wide_np, hscene.cwbvh_rows.cpu().numpy()):
+            raise AssertionError("hair scene: the wide rows do not repack "
+                                 "equal")
+        del bin_np, wide_np
+        wide_info = dict(nodes=int(hscene.cwbvh_rows.shape[0]),
+                         mib=hscene.cwbvh_rows.numel() * 4 / 2**20,
+                         binary_nodes=int(hscene.cbvh_meta.shape[0]),
+                         collapse_s=t_wide, stack=wide_stack)
+        log(f"  (a) the wide piece BVH C1 walks: {wide_info['nodes']} "
+            f"nodes of 4 children ({wide_info['mib']:.1f} MiB, 128 B a "
+            f"node) from {wide_info['binary_nodes']} binary nodes; the "
+            f"collapse and packing take {t_wide:.2f} s of the flatten; its "
+            f"walk holds at most {wide_stack} stack entries (a ray restarts "
+            f"past {tct.STACK})")
         log(f"  (a) {sum((HAIR_STRANDS, HAIR_RIBBONS, HAIR_HALF))} strands "
             f"of {HAIR_NODES} nodes ({HAIR_STRANDS} groom bcsdf_cylinder "
             f"hair, {HAIR_RIBBONS} ribbon rough_wire, {HAIR_HALF} "
@@ -2739,8 +2826,9 @@ def main() -> int:
               "max_abs_err the camera rays' max |dt|")
     c1_keys = ("ms", "plain_ms", "plain_rays", "bound_ms", "bound_by",
                "max_abs_err", "t_abs_err", "rays", "live", "node_visits",
-               "piece_tests", "distinct_nodes", "distinct_pieces", "by_width",
-               "bvh_intersect_ms", "hit_agreement", "segment_agreement")
+               "box_tests", "restarts", "piece_tests", "distinct_nodes", "distinct_pieces", "by_width",
+               "bvh_intersect_ms", "hit_agreement", "segment_agreement",
+               "visits_mean", "visits_p99", "visits_max", "stack_spills")
     c1_row = {
         "name": "curve_trace", "route": "cuda",
         "source": "tungsten_tpu_torch/csrc/curve_trace.cu",
@@ -2761,7 +2849,12 @@ def main() -> int:
                          if hprof.get(r)) if hprof else None,
         "render_by_width": {r: hprof[r]["by_width"] for r in (
             "curve_closest", "curve_anyhit") if hprof.get(r)} or None,
-        "hair_render_curve_share": hsum.get("curve_share")}
+        "hair_render_curve_share": hsum.get("curve_share"),
+        "lanes": {"camera": hcam["lanes"],
+                  "continuation": hcont["lanes"],
+                  "shadow": hshadow["lanes"]},
+        "visits_p99": hcam["visits_p99"],
+        "wide_bvh": wide_info}
     rows = [
         k1_row,
         k2_row,

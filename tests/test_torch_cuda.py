@@ -35,7 +35,12 @@ scene of analytic prims with cap, point and skydome lights under a
 thinlens camera renders through K1 and K2 as the plain path renders it.
 The curve-piece walk C1 (csrc/curve_trace.cu) agrees with the plain
 curve walk on a scene of all four curve modes in closest and any hit,
-gives the live rays of a mostly dead wave their own results bitwise, and
+gives the live rays of a mostly dead wave their own results bitwise, both
+with 1, 2 and 4 lanes a ray, gives a 1,024-ray slice the same results
+bitwise at every group size and inside a full-width launch, refuses a bad
+group size or stack, keeps the lower piece of coincident strands as the
+plain walk does, restarts on a piece BVH deeper than its stack with the
+same results at every group size and stack, and
 a small curve scene with the fiber BCSDFs renders through C1, K1 and K2
 as the plain path renders it.  Path-replay gradients on the card launch
 K1 and K2 in the forward and in the backward, end on the forward's L
@@ -1067,12 +1072,13 @@ def test_cuda_analytic_render_matches_plain_path(cuda_device, tmp_path):
     assert abs(gpu.mean() / cpu.mean() - 1.0) <= 5e-3
 
 
-def _curve_desc(tmp_path, cap: bool):
+def _curve_desc(tmp_path, cap: bool, twins: bool = False):
     """A small curve scene written with the port's curve IO: strands in
     all four modes with the three fiber BCSDFs and lambert, an instanced
     cube, a floor and an area light, and with `cap` an
     infinite_sphere_cap sun (the simple two-strategy NEE) instead of
-    one-sample MIS."""
+    one-sample MIS.  With `twins` the half-cylinder prim a second time,
+    last: coincident strands, whose pieces a ray meets at equal t."""
     from tungsten_tpu_torch.io import curves
     from tungsten_tpu_torch.scene.parse import SceneDesc
     r = np.random.default_rng(5)
@@ -1105,6 +1111,8 @@ def _curve_desc(tmp_path, cap: bool):
         {"type": "quad", "bsdf_index": 3, "emission": [5, 5, 5],
          "transform": {"position": [0, 2.0, -0.5], "scale": 1.0,
                        "rotation": [180, 0, 0]}}]
+    if twins:
+        prims.append(dict(prims[1]))
     if cap:
         prims.append({"type": "infinite_sphere_cap", "cap_angle": 5.0,
                       "power": [4, 4, 3],
@@ -1141,15 +1149,16 @@ def _curve_rays(R, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2, 4])
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_cuda_curve_kernel_matches_plain_walk(cuda_device, tmp_path,
-                                              any_hit):
-    """C1 against the plain curve walk on the same device and inputs, on a
-    scene of all four curve modes with far limits cut by triangles (the
-    floor, instanced cubes): the hit set and the segment equal on >=
-    0.9999 of the rays, t within rtol 1e-5 where the segments agree;
-    any hit's set equals C1's closest hit's; each launch counted once;
-    dead rays visit no node."""
+                                              any_hit, lanes):
+    """C1 at each forced group size (lanes a ray) against the plain curve
+    walk on the same device and inputs, on a scene of all four curve
+    modes with far limits cut by triangles (the floor, instanced cubes):
+    the hit set and the segment equal on >= 0.9999 of the rays, t within
+    rtol 1e-5 where the segments agree; any hit's set equals C1's closest
+    hit's; each launch counted once; dead rays visit no node."""
     from tungsten_tpu_torch.ops import curve_trace as tct
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     scene, _ = flatten_scene(_curve_desc(tmp_path, cap=False))
@@ -1164,8 +1173,8 @@ def test_cuda_curve_kernel_matches_plain_walk(cuda_device, tmp_path,
     route = "curve_anyhit" if any_hit else "curve_closest"
     before = dict(tct.LAUNCHES)
     t, seg, u, v, hit, counts, _, _ = tct.curve_kernel(
-        scene.crv_rows, scene.cbvh_rows, o, d, tmin, far, any_hit,
-        stats=True)
+        scene.crv_rows, scene.cwbvh_rows, o, d, tmin, far, any_hit,
+        stats=True, lanes=lanes)
     assert tct.LAUNCHES[route] == before[route] + 1
     pt, pseg, pu, pv, phit = tis.curve_walk_plain(scene, o, d, tmin, far,
                                                   any_hit)
@@ -1176,8 +1185,8 @@ def test_cuda_curve_kernel_matches_plain_walk(cuda_device, tmp_path,
     assert not bool(hit[~live].any()) and not bool(counts[:, ~live].any())
     assert bool((counts[0][live] > 0).all())
     if any_hit:
-        closest = tct.curve_kernel(scene.crv_rows, scene.cbvh_rows, o, d,
-                                   tmin, far, False)[4]
+        closest = tct.curve_kernel(scene.crv_rows, scene.cwbvh_rows, o, d,
+                                   tmin, far, False, lanes=lanes)[4]
         assert torch.equal(closest, hit)
         return
     both = hit & phit
@@ -1191,10 +1200,11 @@ def test_cuda_curve_kernel_matches_plain_walk(cuda_device, tmp_path,
 
 
 @pytest.mark.cuda
-def test_cuda_curve_kernel_few_live_rays(cuda_device, tmp_path):
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_cuda_curve_kernel_few_live_rays(cuda_device, tmp_path, lanes):
     """A wave of 65,536 rays with one in 256 live gives each live ray the
     result it gets launched alone with its neighbours, bitwise, and the
-    dead ones a miss with no node visited."""
+    dead ones a miss with no node visited, at each forced group size."""
     from tungsten_tpu_torch.ops import curve_trace as tct
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     scene, _ = flatten_scene(_curve_desc(tmp_path, cap=False))
@@ -1205,17 +1215,156 @@ def test_cuda_curve_kernel_few_live_rays(cuda_device, tmp_path):
     idx = torch.arange(0, R, 256, device=cuda_device)
     far[idx] = 3.0e38
     for any_hit in (False, True):
-        wide = tct.curve_kernel(scene.crv_rows, scene.cbvh_rows, o, d, tmin,
-                                far, any_hit, stats=True)[:6]
-        alone = tct.curve_kernel(scene.crv_rows, scene.cbvh_rows, o[idx],
+        wide = tct.curve_kernel(scene.crv_rows, scene.cwbvh_rows, o, d, tmin,
+                                far, any_hit, stats=True, lanes=lanes)[:6]
+        alone = tct.curve_kernel(scene.crv_rows, scene.cwbvh_rows, o[idx],
                                  d[idx], tmin[idx], far[idx], any_hit,
-                                 stats=True)[:6]
+                                 stats=True, lanes=lanes)[:6]
         for a, b in zip(wide, alone):
             assert torch.equal(a[..., idx], b)
         dead = far == 0
         assert not bool(wide[4][dead].any())
         assert not bool(wide[5][:, dead].any())
         assert int(wide[4].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_curve_lanes_are_bitwise_equal(cuda_device, tmp_path):
+    """A 1,024-ray slice (the width of a render's late bounces) gives the
+    same t, seg, u, v, hit and statistics bitwise with 1, 2 and 4 lanes a
+    ray and with the launcher's choice, in closest and any hit, and the
+    same as these rays inside a full-width launch of 65,536."""
+    from tungsten_tpu_torch.ops import curve_trace as tct
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    scene, _ = flatten_scene(_curve_desc(tmp_path, cap=False))
+    R, k = 65536, 1024
+    o, d, tmin = (torch.from_numpy(x).to(cuda_device)
+                  for x in _curve_rays(R, 13))
+    front = tis._tri_analytic(scene, o, d, tmin,
+                              tis.geo_clip(scene, o, d, 3.0e38), False, False)
+    far = torch.where(front["hit"], front["t"], 3.0e38)
+    sl = slice(4096, 4096 + k)
+    assert tct.curve_lanes(k, cuda_device) == 4
+    for any_hit in (False, True):
+        full = tct.curve_kernel(scene.crv_rows, scene.cwbvh_rows, o, d, tmin,
+                                far, any_hit, stats=True)[:6]
+        runs = [tct.curve_kernel(scene.crv_rows, scene.cwbvh_rows, o[sl],
+                                 d[sl], tmin[sl], far[sl], any_hit,
+                                 stats=True, lanes=g)[:6]
+                for g in (None, 1, 2, 4)]
+        assert int(runs[0][4].sum()) > 50
+        for run in runs[1:] + [[x[..., sl] for x in full]]:
+            for a, b in zip(run, runs[0]):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_curve_kernel_refuses_bad_lanes(cuda_device, tmp_path):
+    """lanes other than 1, 2, 4 or None raise before any launch."""
+    from tungsten_tpu_torch.ops import curve_trace as tct
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    scene, _ = flatten_scene(_curve_desc(tmp_path, cap=False))
+    o, d, tmin = (torch.from_numpy(x).to(cuda_device)
+                  for x in _curve_rays(256, 14))
+    far = torch.full((256,), 3.0e38, device=cuda_device)
+    before = dict(tct.LAUNCHES)
+    for bad in (0, 3, 8, -1, 2.0, True):
+        with pytest.raises(ValueError, match="lanes"):
+            tct.curve_kernel(scene.crv_rows, scene.cwbvh_rows, o, d, tmin,
+                             far, False, lanes=bad)
+    assert tct.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_cuda_curve_kernel_refuses_bad_stack(cuda_device, tmp_path):
+    """A stack that is not a multiple of SHORT in (SHORT, STACK] raises
+    before any launch."""
+    from tungsten_tpu_torch.ops import curve_trace as tct
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    scene, _ = flatten_scene(_curve_desc(tmp_path, cap=False))
+    o, d, tmin = (torch.from_numpy(x).to(cuda_device)
+                  for x in _curve_rays(256, 15))
+    far = torch.full((256,), 3.0e38, device=cuda_device)
+    before = dict(tct.LAUNCHES)
+    for bad in (0, 8, 12, 72, 128, 16.0, True):
+        with pytest.raises(ValueError, match="stack"):
+            tct.curve_kernel(scene.crv_rows, scene.cwbvh_rows, o, d, tmin,
+                             far, False, stack=bad)
+    assert tct.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_cuda_curve_ties_to_the_lower_piece(cuda_device, tmp_path, lanes):
+    """With the half-cylinder strands twice (coincident pieces, met at
+    equal t), C1 keeps the lower piece index of the two, as the serial
+    walk does: on the rays where C1's hit and the plain walk's both lie on
+    either copy, the segment, and so the copy, is the plain walk's, at
+    each forced group size.  A rule that kept the higher piece would give
+    the other copy on about all of them, one that ignored the index on
+    about half.  Not exactly all: where the cylinders of two pieces of a
+    segment meet a ray at t within an ulp, fused multiply-adds decide
+    which piece wins, and the lower copy of the one may not be the lower
+    copy of the other (rare: well under 1 % of these rays); so
+    >= 0.99."""
+    from tungsten_tpu_torch.ops import curve_trace as tct
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    scene, _ = flatten_scene(_curve_desc(tmp_path, cap=False, twins=True))
+    R = 8192
+    o, d, tmin = (torch.from_numpy(x).to(cuda_device)
+                  for x in _curve_rays(R, 16))
+    far = tis.geo_clip(scene, o, d, 3.0e38)
+    t, seg, _, _, hit = tct.curve_kernel(scene.crv_rows, scene.cwbvh_rows,
+                                         o, d, tmin, far, False, lanes=lanes)
+    _, pseg, _, _, phit = tis.curve_walk_plain(scene, o, d, tmin, far,
+                                               False)
+    prim = scene.crv_seg_prim
+    copies = torch.unique(prim[scene.crv_seg_mode == 1])
+    assert copies.numel() == 2
+    on = hit & phit & torch.isin(prim[pseg.clamp(min=0).long()], copies) \
+        & torch.isin(prim[seg.clamp(min=0).long()], copies)
+    assert int(on.sum()) >= 500
+    assert (seg[on] == pseg[on]).float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_curve_kernel_restarts_on_a_deep_tree(cuda_device, tmp_path):
+    """On a piece BVH as deep as its pieces (tests/torch_curve_cases.py:
+    its walk could hold 192 stack entries), the rays up the column drop
+    stack entries and restart; t, seg, u, v and hit are the same bitwise
+    with every forced lanes, in closest and any hit, and with a stack of
+    2 * SHORT (closest hit; any hit: hit, as a restart changes which hit
+    an any-hit ray meets first), and agree with the plain walk on the
+    same device (hit set and segment on >= 0.9999 of the rays, t within
+    rtol 1e-5)."""
+    from torch_curve_cases import column_rays, deep_curve_scene
+    from tungsten_tpu_torch.ops import curve_trace as tct
+    scene = deep_curve_scene(tmp_path, cuda_device)
+    R = 4096
+    o, d, tmin = (torch.from_numpy(x).to(cuda_device)
+                  for x in column_rays(R, 17))
+    far = torch.full((R,), 3.0e38, device=cuda_device)
+    args = (scene.crv_rows, scene.cwbvh_rows, o, d, tmin, far)
+    for any_hit in (False, True):
+        ref = tct.curve_kernel(*args, any_hit, stats=True)
+        assert int((ref[5][4] > 0).sum()) >= R // 8
+        for kw in ({"lanes": 1}, {"lanes": 2}, {"lanes": 4},
+                   {"stack": 2 * tct.SHORT},
+                   {"stack": 2 * tct.SHORT, "lanes": 1}):
+            got = tct.curve_kernel(*args, any_hit, **kw)
+            same = (4,) if any_hit and "stack" in kw else range(5)
+            for j in same:
+                assert torch.equal(got[j], ref[j]), kw
+        pt, pseg, _, _, phit = tis.curve_walk_plain(scene, o, d, tmin, far,
+                                                    any_hit)
+        t, seg, _, _, hit = ref[:5]
+        assert int(hit.sum()) > R // 4
+        assert (hit == phit).float().mean().item() >= 0.9999
+        if not any_hit:
+            both = hit & phit
+            assert (seg == pseg)[both].float().mean().item() >= 0.9999
+            s = both & (seg == pseg)
+            assert torch.allclose(t[s], pt[s], rtol=1e-5, atol=0.0)
 
 
 @pytest.mark.cuda

@@ -253,7 +253,10 @@ def mixed(tmp_path_factory):
     """The four-mode scene with a quad and a sphere, both packages' scene
     and one JAX closest-hit bvh_intersect over the seeded rays."""
     tmp = str(tmp_path_factory.mktemp("mixed"))
-    prims = mixed_prims(tmp) + [
+    prims = mixed_prims(tmp)
+    prims = prims + [
+        # coincident strands: the half-cylinder prim again, last
+        dict(prims[1]),
         {"type": "quad", "bsdf_index": 3,
          "transform": {"position": [-0.6, 0.3, -0.3], "scale": 0.5,
                        "rotation": [-90, 0, 0]}},
@@ -389,40 +392,86 @@ def test_scene_of_curves_without_triangles(tmp_path):
     assert np.isfinite(img).all() and img.shape == (16, 16, 3)
 
 
-def _packed_walk(crv_rows, cbvh_rows, o, d, t_min, t_max):
-    """One ray through the packed rows as csrc/curve_trace.cu reads them
-    (a node row: min xyz, first * 8 + count | max xyz, skip; a piece
-    row: q0 | q1 | nmid, t0 | t1, seg, mode), in float64: (hit, seg)."""
-    nodes = cbvh_rows.view(-1, 2, 4)
-    words = cbvh_rows.view(torch.int32).view(-1, 2, 4)
+def _packed_walk(crv_rows, cwbvh_rows, o, d, t_min, t_max, cap=None,
+                 short=8):
+    """One ray's closest hit through the packed rows as csrc/curve_trace.cu
+    walks them, in float64: a node row holds its four children's boxes
+    [min xyz, word | max xyz, end] (word: first * 8 + count for a leaf,
+    node * 8 for an interior child, 0 empty; end: one past the child's
+    last piece), a piece row q0 | q1 | nmid, t0 | t1, seg, mode.  A visit
+    slab-tests the children against the best t and pushes those hit,
+    leaves too, so that they pop in slot (depth-first) order; a popped
+    entry is tested again against the best t as it stands, then a leaf's
+    pieces are tested keeping the least (t, piece index) and a node is
+    visited.  With `cap`, the stack holds at most cap entries as the
+    kernel's does: the first push onto a full stack abandons the walk,
+    which starts again at the root keeping pos, one past the last piece
+    of what it has finished since; from then on a push onto a full stack
+    drops its deepest cap - short entries, and when the stack runs empty
+    the walk starts again at the root, not pushing a child whose pieces
+    all lie below pos.  Returns (hit, seg, piece, t, the most stack
+    entries held, restarts)."""
+    nodes = cwbvh_rows.double().numpy().reshape(-1, 4, 8)
+    ints = cwbvh_rows.view(torch.int32).numpy().reshape(-1, 4, 8)
+    words, ends = ints[..., 3], ints[..., 7]
     pieces = crv_rows.view(-1, 4, 4)
     pints = crv_rows.view(torch.int32).view(-1, 4, 4)
     inv = 1.0 / np.where(np.abs(d) < 1e-20, np.where(d >= 0, 1e-20, -1e-20),
                          d)
-    best_t, best_seg, node = float(t_max), -1, 0
-    while node < nodes.shape[0]:
-        lo, hi = nodes[node, 0, :3].double().numpy(), \
-            nodes[node, 1, :3].double().numpy()
-        meta, skip = int(words[node, 0, 3]), int(words[node, 1, 3])
-        ta, tb = (lo - o) * inv, (hi - o) * inv
-        near = max(np.minimum(ta, tb).max(), 0.0)
-        far = min(np.maximum(ta, tb).min(), best_t)
-        box = near <= far * 1.00000024
-        count = meta & 7
-        if box and count:
-            for p in range((meta >> 3), (meta >> 3) + count):
-                r = pieces[p].double().numpy()
-                seg, mode = int(pints[p, 3, 1]), int(pints[p, 3, 2])
-                q = _packed_piece(r, seg, mode, o, d, t_min, best_t)
-                if q is not None:
-                    best_t, best_seg = q, seg
-        node = node + 1 if box and not count else skip
-    return best_seg >= 0, best_seg
+    best_t, best_seg, best_piece = float(t_max), -1, -1
+    stack, deepest, node = [], 0, 0
+    pos, track, again, restarts = 0, False, False, 0
+    while True:
+        if node is not None:
+            ta = (nodes[node, :, 0:3] - o) * inv
+            tb = (nodes[node, :, 4:7] - o) * inv
+            near = np.maximum(np.minimum(ta, tb).max(1), 0.0)
+            far = np.minimum(np.maximum(ta, tb).min(1), best_t)
+            kids = [(near[c], int(words[node, c]), int(ends[node, c]))
+                    for c in (3, 2, 1, 0)
+                    if words[node, c] > 0
+                    and near[c] <= far[c] * 1.00000024
+                    and (not track or ends[node, c] > pos)]
+            if track and not kids:
+                pos = int(ends[node].max())
+            node = None
+            for k in kids:
+                if cap is not None and len(stack) == cap:
+                    if not track:     # walk again, from the root
+                        stack, track, node = [], True, 0
+                        restarts += 1
+                        break
+                    del stack[:cap - short]
+                    again = True
+                stack.append(k)
+            deepest = max(deepest, len(stack))
+            if node is not None:
+                continue
+        if not stack:
+            if not again:
+                break
+            again, node, restarts = False, 0, restarts + 1
+            continue
+        tn, w, end = stack.pop()
+        if tn > best_t * 1.00000024:
+            pos = end if track else pos
+            continue
+        if not w & 7:
+            node = w >> 3
+            continue
+        for p in range(w >> 3, (w >> 3) + (w & 7)):
+            seg, mode = int(pints[p, 3, 1]), int(pints[p, 3, 2])
+            t = _packed_piece(pieces[p].double().numpy(), mode, o, d, t_min)
+            if t is not None and (t < best_t or (t == best_t
+                                                 and p < best_piece)):
+                best_t, best_seg, best_piece = t, seg, p
+        pos = end if track else pos
+    return best_piece >= 0, best_seg, best_piece, best_t, deepest, restarts
 
 
-def _packed_piece(r, seg, mode, o, d, t_min, best_t):
+def _packed_piece(r, mode, o, d, t_min):
     """The kernel's piece test on one packed row in float64 (the plain
-    walk's formulas); the hit t or None."""
+    walk's formulas) but for the best-t compare: the hit t or None."""
     dxz = np.hypot(d[0], d[2])
     lx = np.array([1.0, 0, 0]) if dxz == 0 else \
         np.array([d[2] / dxz, 0.0, -d[0] / dxz])
@@ -445,8 +494,7 @@ def _packed_piece(r, seg, mode, o, d, t_min, best_t):
         st2 = (np.array([e0[0], e0[1], e0[2] - t0]) @ v3) / max(v3 @ v3,
                                                                 1e-30)
         nt = st2 * (pt1 - pt0) + pt0
-        ok = dist <= width and st2 >= 0 and t_min < t0 < best_t and \
-            0 <= nt <= 1
+        ok = dist <= width and st2 >= 0 and t_min < t0 and 0 <= nt <= 1
         return t0 if ok else None
     nm = frame @ r[2, :3]
     v3 = e1 - e0
@@ -458,28 +506,213 @@ def _packed_piece(r, seg, mode, o, d, t_min, best_t):
     wr = w0 * (1 - st) + w1 * st
     dv = lp - v3 * st
     nt = st * (pt1 - pt0) + pt0
-    ok = t_min <= t0 < best_t and 0 <= st <= 1 and dv @ dv <= wr * wr and \
+    ok = t_min <= t0 and 0 <= st <= 1 and dv @ dv <= wr * wr and \
         0 <= nt <= 1
     return t0 if ok else None
 
 
-def test_packed_rows_walk_as_the_plain_walk(mixed):
-    """The packed node and piece rows, read as the kernel C1 reads them
-    (a float64 walk in Python), give the plain walk's hit and segment on
-    200 of the seeded rays (the vertical ones among them), all modes."""
+@pytest.fixture(scope="module")
+def packed(mixed):
+    """The packed-row walk (_packed_walk, the kernel's stack) on 200 of
+    the mixed scene's seeded rays (the vertical ones among them), with
+    their far limits clipped at the geometry box: (idx, o, d, t_min,
+    t_clip, results)."""
     m = mixed
     ts = m["ts"]
     idx = np.r_[0:40, 64:104, 2048 - 120:2048]
     o, d, t_min = m["o"][idx], m["d"][idx], m["t_min"][idx]
     t_clip = tis.geo_clip(ts, _t(o), _t(d), _t(m["t_max"][idx]))
+    got = [_packed_walk(ts.crv_rows, ts.cwbvh_rows, o[i].astype(np.float64),
+                        d[i].astype(np.float64), float(t_min[i]),
+                        float(t_clip[i]), cap=64) for i in range(len(idx))]
+    return idx, o, d, t_min, t_clip, got
+
+
+def test_packed_rows_walk_as_the_plain_walk(mixed, packed):
+    """The packed wide node rows and piece rows, walked as the kernel C1
+    walks a closest hit (a stack popped in depth-first order, each entry
+    tested again when popped, the least (t, piece index); a float64 walk
+    in Python), give the plain walk's hit and segment on 200 of the
+    seeded rays (the vertical ones among them), all modes, and never hold
+    more stack entries than the packing allows for."""
+    from tungsten_tpu_torch.scene.bvh import collapse_wide
+    ts = mixed["ts"]
+    idx, o, d, t_min, t_clip, got = packed
     _, seg, _, _, hit = (x.numpy() for x in tis.curve_walk(
         ts, _t(o), _t(d), _t(t_min), t_clip))
-    got = [_packed_walk(ts.crv_rows, ts.cbvh_rows, o[i].astype(np.float64),
-                        d[i].astype(np.float64), float(t_min[i]),
-                        float(t_clip[i])) for i in range(len(idx))]
     ghit = np.array([g[0] for g in got])
     gseg = np.array([g[1] for g in got])
     assert hit.sum() > 20
     assert (ghit == hit).mean() >= 0.99
     both = ghit & hit
     assert (gseg[both] == seg[both]).mean() >= 0.99
+    stack = collapse_wide(ts.cbvh_meta.numpy(), ts.cbvh_min.numpy(),
+                          ts.cbvh_max.numpy())[2]
+    assert 0 < max(g[4] for g in got) <= stack
+
+
+def _soup_scene(tmp):
+    """Vertical strands (no jitter along x and z), half of them with every
+    node three times (three equal nodes make a segment of zero-length
+    pieces), in two modes: the port's scene."""
+    r = np.random.default_rng(31)
+    prims = []
+    for i, mode in enumerate(("half_cylinder", "ribbon")):
+        n, k = 16, 9
+        base = np.stack([r.uniform(-0.5, 0.5, n), np.zeros(n),
+                         r.uniform(-0.5, 0.5, n)], 1)
+        pts = base[:, None] + np.arange(k)[None, :, None] * [0.0, 0.1, 0.0]
+        pts[: n // 2] = np.repeat(pts[: n // 2, ::3], 3, axis=1)
+        nodes = np.concatenate([pts, np.full((n, k, 1), 0.01)],
+                               -1).reshape(-1, 4).astype(np.float32)
+        ends = (np.arange(1, n + 1) * k).astype(np.uint32)
+        data = tcio.CurveData(ends, nodes, tcio.init_normals(ends, nodes))
+        prims.append({"type": "curves", "mode": mode, "bsdf_index": 0,
+                      "file": write_strands(tmp, f"soup{i}.fiber", data)})
+    return flatten_scene(desc_of(tmp, copy.deepcopy(FIBERS), prims),
+                         device="cpu")[0]
+
+
+@pytest.mark.parametrize("case", ["mixed", "soup"])
+def test_wide_rows_cover_every_piece_once(request, tmp_path, case):
+    """From the wide root every piece is reachable exactly once, through
+    the leaf words of the packed rows, every child's end word is one past
+    the last piece below it, and every child box holds the boxes
+    of all pieces below it (the build's own piece boxes: chord box, width
+    and curvature bulge; exact, as the boxes are the binary BVH's); on the
+    mixed scene and on a soup of zero-length and vertical pieces."""
+    from tungsten_tpu_torch.scene.flatten import CURVE_SUBDIV
+    ts = request.getfixturevalue("mixed")["ts"] if case == "mixed" else \
+        _soup_scene(str(tmp_path))
+    rows = ts.cwbvh_rows.numpy().reshape(-1, 4, 8)
+    ints = ts.cwbvh_rows.view(torch.int32).numpy().reshape(-1, 4, 8)
+    words, ends = ints[..., 3], ints[..., 7]
+    q0, q1 = ts.crv_pc_q0.numpy(), ts.crv_pc_q1.numpy()
+    p0, p1, p2 = (getattr(ts, f"crv_seg_p{i}").numpy() for i in range(3))
+    a = 0.5 * p0 - p1 + 0.5 * p2
+    bulge = np.linalg.norm(a[:, :3], axis=-1) / (
+        4.0 * CURVE_SUBDIV * CURVE_SUBDIV)
+    pad = (np.maximum(q0[:, 3], q1[:, 3])
+           + bulge[ts.crv_pc_seg.numpy()]).astype(np.float32)[:, None]
+    lo = np.minimum(q0[:, :3], q1[:, :3]) - pad
+    hi = np.maximum(q0[:, :3], q1[:, :3]) + pad
+    if case == "soup":
+        chord = np.linalg.norm(q1[:, :3] - q0[:, :3], axis=1)
+        assert (chord == 0).sum() >= 2 * 8 * 3 * 8
+        assert (q0[:, [0, 2]] == q1[:, [0, 2]]).all(1).sum() > 100
+
+    def below(node):
+        """The pieces under a wide node, checking its children's boxes."""
+        out = []
+        for c in range(4):
+            w = int(words[node, c])
+            if w == 0:
+                continue
+            ps = list(range(w >> 3, (w >> 3) + (w & 7))) if w & 7 else \
+                below(w >> 3)
+            assert ps and ends[node, c] == max(ps) + 1
+            assert (rows[node, c, 0:3] <= lo[ps].min(0)).all()
+            assert (rows[node, c, 4:7] >= hi[ps].max(0)).all()
+            out += ps
+        return out
+    seen = np.bincount(below(0), minlength=q0.shape[0])
+    assert seen.shape[0] == q0.shape[0] > 0 and (seen == 1).all()
+
+
+def test_coincident_strands_tie_to_the_lower_piece(mixed):
+    """The mixed scene holds the half-cylinder strands twice, in two prims
+    with equal rows: a ray that meets them meets two pieces at the same t.
+    The packed-row walk keeps the lower piece index of the two, as the
+    serial walk does, and so the segment of JAX's merged _curve_traverse
+    result on every such ray."""
+    m = mixed
+    ts = m["ts"]
+    jcrv = m["jres"]["crv"]
+    seg_prim = ts.crv_seg_prim.numpy()
+    # prim 1: the half-cylinder strands; prim 4: their copy
+    on_twin = np.nonzero((jcrv >= 0) & np.isin(
+        seg_prim[np.maximum(jcrv, 0)], (1, 4)))[0]
+    assert on_twin.size >= 20
+    key = ts.crv_rows.numpy()[:, np.r_[0:13, 14]]    # all but the segment
+    o, d, t_min = m["o"], m["d"], m["t_min"]
+    t_clip = tis.geo_clip(ts, _t(o), _t(d), _t(m["t_max"])).numpy()
+    for i in on_twin[:60]:
+        hit, seg, piece = _packed_walk(
+            ts.crv_rows, ts.cwbvh_rows, o[i].astype(np.float64),
+            d[i].astype(np.float64), float(t_min[i]), float(t_clip[i]),
+            cap=64)[:3]
+        assert hit and seg == jcrv[i], i
+        same = np.nonzero((key == key[piece]).all(1))[0]
+        assert same.size == 2 and piece == same.min(), i
+
+
+def test_deep_tree_walks_past_its_stack(tmp_path):
+    """A piece BVH as deep as its pieces (tests/torch_curve_cases.py: a
+    caterpillar over 192 pieces stacked in one column) packs, though its
+    walk could hold 192 stack entries, far past the kernel's STACK; the
+    packed-row walk with the kernel's stack (STACK entries, then it drops
+    and restarts) and with 2 * SHORT gives the hit, segment, piece and t
+    of the walk with an unbounded stack on every ray, restarting on the
+    rays up the column, and the plain walk's hit and segment."""
+    from torch_curve_cases import column_rays, deep_curve_scene
+    from tungsten_tpu_torch.ops.curve_trace import SHORT, STACK
+    from tungsten_tpu_torch.scene.bvh import collapse_wide
+    ts = deep_curve_scene(tmp_path, "cpu")
+    assert collapse_wide(ts.cbvh_meta.numpy(), ts.cbvh_min.numpy(),
+                         ts.cbvh_max.numpy())[2] > STACK
+    o, d, t_min = column_rays(48, 5)
+    t_max = np.full(48, 3.0e38, np.float32)
+    _, seg, _, _, hit = (x.numpy() for x in tis.curve_walk(
+        ts, _t(o), _t(d), _t(t_min), _t(t_max)))
+    deepest, restarts, ghit, gseg = [], [], [], []
+    for i in range(48):
+        args = (ts.crv_rows, ts.cwbvh_rows, o[i].astype(np.float64),
+                d[i].astype(np.float64), float(t_min[i]), float(t_max[i]))
+        free = _packed_walk(*args)
+        for cap in (STACK, 2 * SHORT):
+            got = _packed_walk(*args, cap=cap, short=SHORT)
+            assert got[:4] == free[:4], (i, cap)
+            assert got[4] <= cap
+            if cap == STACK:
+                restarts.append(got[5])
+        deepest.append(free[4])
+        ghit.append(free[0])
+        gseg.append(free[1])
+    assert max(deepest) > STACK and sum(r > 0 for r in restarts) >= 5
+    ghit, gseg = np.array(ghit), np.array(gseg)
+    assert hit.sum() >= 10 and np.array_equal(ghit, hit)
+    assert np.array_equal(gseg[hit], seg[hit])
+
+
+def test_accepted_hits_can_lie_outside_their_box(mixed, packed):
+    """Why C1's closest hit keeps the serial depth-first order and does not
+    pop nearest first: the cylinder test accepts a hit outside the box
+    that bounds its piece (it extends the chord past the piece's far end
+    up to the segment's, and its t is the cylinder's), so which hits a
+    walk meets depends on what its best t has culled before it gets
+    there, and another order may cull the box of the serial walk's
+    winner.  Among the packed-row walk's winners on 200 of the mixed
+    scene's rays are hits whose t lies outside the slab interval of their
+    leaf's box in the wide rows."""
+    ts = mixed["ts"]
+    idx, o, d, t_min, t_clip, got = packed
+    ints = ts.cwbvh_rows.view(torch.int32).numpy().reshape(-1, 4, 8)
+    boxes = ts.cwbvh_rows.double().numpy().reshape(-1, 4, 8)
+    leaf = {}
+    for n, c in zip(*np.nonzero(ints[..., 3] & 7)):
+        w = int(ints[n, c, 3])
+        for p in range(w >> 3, (w >> 3) + (w & 7)):
+            leaf[p] = (n, c)
+    outside = 0
+    for i, g in enumerate(got):
+        if not g[0]:
+            continue
+        n, c = leaf[g[2]]
+        oi, di = o[i].astype(np.float64), d[i].astype(np.float64)
+        inv = 1.0 / np.where(np.abs(di) < 1e-20,
+                             np.where(di >= 0, 1e-20, -1e-20), di)
+        ta = (boxes[n, c, 0:3] - oi) * inv
+        tb = (boxes[n, c, 4:7] - oi) * inv
+        near, far = np.minimum(ta, tb).max(), np.maximum(ta, tb).min()
+        outside += not (near * (1 - 1e-6) <= g[3] <= far * (1 + 1e-6))
+    assert outside >= 1

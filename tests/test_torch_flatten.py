@@ -52,7 +52,7 @@ def _numpy_bits(x):
 
 
 # the port's packed fields, which the JAX FlatScene does not carry
-PACKED = ("tri_fin", "crv_rows", "cbvh_rows")
+PACKED = ("tri_fin", "crv_rows", "cwbvh_rows")
 
 
 def jax_fields(js):
@@ -67,7 +67,7 @@ def jax_fields(js):
 
 
 def _assert_same_scene(ts, ref):
-    rows = dict(zip(("crv_rows", "cbvh_rows"), pack_curve_rows(
+    rows = dict(zip(("crv_rows", "cwbvh_rows"), pack_curve_rows(
         {k: torch.from_numpy(np.array(ref[k])) for k in (
             "crv_pc_q0", "crv_pc_q1", "crv_pc_nmid", "crv_pc_t0",
             "crv_pc_t1", "crv_pc_seg", "crv_seg_mode", "cbvh_min",
@@ -165,7 +165,8 @@ def test_carry_across_curve_and_fiber_tables(curve_scene, key):
         assert np.array_equal(getattr(ts, name).numpy(), ref[name]), name
     if key == "crv_pc_q0":
         assert ts.crv_rows.shape == (ref[key].shape[0], 16)
-        assert ts.cbvh_rows.shape == (ref["cbvh_meta"].shape[0], 8)
+        assert ts.cwbvh_rows.shape[1] == 32
+        assert 0 < ts.cwbvh_rows.shape[0] < ref["cbvh_meta"].shape[0]
         assert np.array_equal(ts.crv_rows[:, :4].numpy(), ref[key])
     if key == "bsdf_type":
         types = set(ref[key].tolist())

@@ -422,7 +422,7 @@ def curve_walk(scene, o, d, t_min, t_max, any_hit: bool = False):
     if o.is_cuda:
         from tungsten_tpu_torch.ops.curve_trace import curve_kernel
         R = o.shape[0]
-        return curve_kernel(scene.crv_rows, scene.cbvh_rows, o, d,
+        return curve_kernel(scene.crv_rows, scene.cwbvh_rows, o, d,
                             torch.broadcast_to(_f32(t_min, o), (R,)),
                             torch.broadcast_to(_f32(t_max, o), (R,)),
                             any_hit)

@@ -156,3 +156,97 @@ def build_bvh(prim_min: np.ndarray, prim_max: np.ndarray, max_leaf_size: int = 4
 
     return BvhArrays(bounds_min=bounds_min, bounds_max=bounds_max,
                      meta=meta_arr, skip=skip, order=order)
+
+
+WIDE = 4  # children a node of the wide BVH (collapse_wide)
+
+
+def collapse_wide(meta: np.ndarray, bounds_min: np.ndarray,
+                  bounds_max: np.ndarray):
+    """Collapse a binary BVH of this module's layout into a WIDE-ary one,
+    level by level in numpy: a wide node takes its binary node's two
+    children and then, twice, opens the interior child of largest
+    surface area in place (its left and right child take its slot), so
+    its children stay in depth-first order and a leaf keeps its
+    contiguous primitive range.  The root's wide node is the binary
+    root's (a binary root that is a leaf becomes the wide root's one
+    child; an empty BVH, one interior node without children, a wide root
+    without children).
+
+    Returns (child, wide, stack): child (M, WIDE) int64, the binary node
+    in each child slot of each wide node (-1: empty slot); wide (M,
+    WIDE) int64, the wide node of an interior child (-1 for a leaf or an
+    empty slot); stack, the most entries a walk can hold that pushes
+    every child of a node it visits and pops one at a time."""
+    meta = np.asarray(meta)
+    n = meta.shape[0]
+    leaf = meta[:, 1] > 0
+    interior = ~leaf & (np.arange(n) + 1 < n)
+    left = np.arange(n, dtype=np.int64) + 1
+    right = meta[:, 0].astype(np.int64)
+    ext = np.maximum(np.asarray(bounds_max, np.float64)
+                     - np.asarray(bounds_min, np.float64), 0.0)
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] \
+        + ext[:, 2] * ext[:, 0]
+    slot = np.arange(WIDE)[None]
+    if n == 0 or not interior[0]:
+        child = np.full((1, WIDE), -1, np.int64)
+        if n and leaf[0]:
+            child[0, 0] = 0
+        return child, np.full((1, WIDE), -1, np.int64), int(child[0, 0] == 0)
+    children, wides = [], []
+    front = np.zeros(1, np.int64)          # binary nodes of this level
+    acc = np.zeros(1, np.int64)            # stack entries above them
+    base, stack = 1, 0
+    while front.size:
+        m = front.size
+        c = np.full((m, WIDE), -1, np.int64)
+        c[:, 0], c[:, 1] = left[front], right[front]
+        for k in range(2, WIDE):
+            valid = c[:, :k] >= 0
+            score = np.where(valid & interior[np.maximum(c[:, :k], 0)],
+                             area[np.maximum(c[:, :k], 0)], -np.inf)
+            j = np.argmax(score, axis=1)
+            rows = np.nonzero(np.isfinite(score[np.arange(m), j]))[0]
+            if not rows.size:
+                break
+            j, cj = j[rows, None], c[rows, j[rows]][:, None]
+            opened = np.take_along_axis(
+                c[rows], np.clip(np.where(slot <= j, slot, slot - 1), 0,
+                                 WIDE - 1), axis=1)
+            opened = np.where(slot == j, left[cj], opened)
+            opened = np.where(slot == j + 1, right[cj], opened)
+            c[rows] = np.where(slot <= k, opened, -1)
+        inner = (c >= 0) & interior[np.maximum(c, 0)]
+        w = np.full((m, WIDE), -1, np.int64)
+        w[inner] = base + np.arange(int(inner.sum()))
+        n_in = inner.sum(axis=1)
+        n_c = (c >= 0).sum(axis=1)
+        stack = max(stack, int((acc + n_c).max()))
+        children.append(c)
+        wides.append(w)
+        # a child popped first has its siblings below it
+        acc = np.repeat(acc + n_c - 1, n_in)
+        front = c[inner]
+        base += front.size
+    return np.concatenate(children), np.concatenate(wides), stack
+
+
+def subtree_end(meta: np.ndarray) -> np.ndarray:
+    """(N,) int64: one past the last primitive under each node of a
+    binary BVH of this module's layout (primitives lie in depth-first
+    order, so a subtree ends where its rightmost leaf does; 0 for an
+    interior node of an empty BVH).  Pointer jumping down the right
+    spines: a few passes over the nodes, not one a level."""
+    meta = np.asarray(meta).astype(np.int64)
+    n = meta.shape[0]
+    leaf = meta[:, 1] > 0
+    idx = np.arange(n, dtype=np.int64)
+    nxt = np.where(leaf | (meta[:, 0] <= idx) | (meta[:, 0] >= n), idx,
+                   meta[:, 0])
+    while True:
+        jump = nxt[nxt]
+        if np.array_equal(jump, nxt):
+            break
+        nxt = jump
+    return np.where(leaf[nxt], meta[nxt, 0] + meta[nxt, 1], 0)

@@ -24,7 +24,7 @@ package refuses too, the other integrators) raises NotImplementedError
 naming it.  The numbers are the JAX package's: the same host numpy code
 builds every table, so every field is equal to the JAX build (bf16
 fields included).  Beside the JAX-named curve tables the port keeps the
-curve walk's packed rows (`crv_rows`, `cbvh_rows`, pack_curve_rows).
+curve walk's packed rows (`crv_rows`, `cwbvh_rows`, pack_curve_rows).
 """
 from __future__ import annotations
 
@@ -66,11 +66,14 @@ CURVE_MODES = {"cylinder": CURVE_MODE_CYLINDER,
                "ribbon": CURVE_MODE_RIBBON}
 CURVE_SUBDIV = 8  # linear pieces per quadratic segment (leaf test)
 # the curve walk's packed rows (pack_curve_rows): a piece is 16 words
-# [q0 xyzw | q1 xyzw | nmid xyz, t0 | t1, seg, mode, 0] and a node 8
-# words [min xyz, first_piece * 8 + count (0: interior) | max xyz,
-# skip], the integer words as int32 bits
+# [q0 xyzw | q1 xyzw | nmid xyz, t0 | t1, seg, mode, 0]; a node of the
+# 4-wide piece BVH is 32 words, 8 a child [min xyz, word | max xyz, end]
+# with word first_piece * 8 + count for a leaf, node * 8 for an interior
+# child and 0 for an empty slot (node 0, the root, is no one's child),
+# and end one past the last piece under the child (0 for an empty slot);
+# the integer words as int32 bits
 CRV_ROW = 16
-CBVH_ROW = 8
+CWBVH_ROW = 32
 PORTED_CAMERAS = ("pinhole", "thinlens", "equirectangular", "cubemap")
 
 
@@ -167,7 +170,7 @@ class FlatScene:
     cbvh_meta: torch.Tensor
     cbvh_skip: torch.Tensor
     crv_rows: torch.Tensor      # (Cp, CRV_ROW) f32 packed pieces
-    cbvh_rows: torch.Tensor     # (N, CBVH_ROW) f32 packed nodes
+    cwbvh_rows: torch.Tensor    # (M, CWBVH_ROW) f32 packed wide nodes
     # --- hair BCSDF azimuthal tables (ref PrecomputedAzimuthalLobe),
     # one set per hair-type BSDF ---
     hair_values: torch.Tensor   # (H,3,AZ,AZ,3) N_R/N_TT/N_TRT
@@ -606,12 +609,36 @@ def _stack_hair_tables(fiber_tables: list) -> dict:
         hair_params=np.stack([t["params"] for t in fiber_tables]))
 
 
+def wide_curve_rows(meta, bounds_min, bounds_max) -> np.ndarray:
+    """The curve walk's wide node rows (M, CWBVH_ROW) f32 from the binary
+    piece BVH (cbvh_meta / _min / _max, numpy): bvh.collapse_wide's
+    4-wide tree, each child's box, word and piece-range end in its
+    parent's row.  Any depth packs (the walk restarts where its stack
+    overflows); raises only where a word would overflow."""
+    from tungsten_tpu_torch.scene.bvh import collapse_wide, subtree_end
+    meta = np.asarray(meta).astype(np.int64)
+    child, wide, _ = collapse_wide(meta, bounds_min, bounds_max)
+    b = np.maximum(child, 0)
+    word = np.where(wide >= 0, wide * 8, meta[b, 0] * 8 + meta[b, 1])
+    word = np.where(child >= 0, word, 0)
+    end = np.where(child >= 0, subtree_end(meta)[b], 0)
+    if word.size and int(word.max()) >= 2 ** 31:
+        raise ValueError("curve piece or node count exceeds the packed word")
+    rows = np.zeros(child.shape + (8,), np.float32)
+    full = child >= 0
+    rows[..., 0:3] = np.where(full[..., None], bounds_min[b], 0.0)
+    rows[..., 4:7] = np.where(full[..., None], bounds_max[b], 0.0)
+    rows.view(np.int32)[..., 3] = word
+    rows.view(np.int32)[..., 7] = end
+    return rows.reshape(-1, CWBVH_ROW)
+
+
 def pack_curve_rows(flds: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """The curve walk's packed rows from the JAX-named tensors of `flds`:
-    (crv_rows (Cp, CRV_ROW), cbvh_rows (N, CBVH_ROW)) f32 on their
+    (crv_rows (Cp, CRV_ROW), cwbvh_rows (M, CWBVH_ROW)) f32 on their
     device, so that one piece test is one 64-byte load and one node
-    visit one 32-byte load.  A leaf's first piece and count share a word
-    (first * 8 + count; MAX_LEAF = 4 < 8), an interior node's is 0."""
+    visit one 128-byte load of its four children's boxes
+    (wide_curve_rows)."""
     q0, q1 = flds["crv_pc_q0"], flds["crv_pc_q1"]
     seg = flds["crv_pc_seg"].to(torch.int32)
     cp = q0.shape[0]
@@ -621,15 +648,9 @@ def pack_curve_rows(flds: dict) -> tuple[torch.Tensor, torch.Tensor]:
     crv_rows = torch.cat([
         q0, q1, flds["crv_pc_nmid"], flds["crv_pc_t0"][:, None],
         flds["crv_pc_t1"][:, None], ints.view(torch.float32)], dim=1)
-    meta = flds["cbvh_meta"].to(torch.int64)
-    word = torch.where(meta[:, 1] > 0, meta[:, 0] * 8 + meta[:, 1], 0)
-    if bool((meta[:, 1] > 0).any()) and int(word.max()) >= 2 ** 31:
-        raise ValueError("curve piece count exceeds the packed node word")
-    word = word.to(torch.int32)[:, None].view(torch.float32)
-    skip = flds["cbvh_skip"].to(torch.int32)[:, None].view(torch.float32)
-    cbvh_rows = torch.cat([flds["cbvh_min"], word, flds["cbvh_max"], skip],
-                          dim=1)
-    return crv_rows.contiguous(), cbvh_rows.contiguous()
+    wide = wide_curve_rows(*(flds[k].cpu().numpy() for k in (
+        "cbvh_meta", "cbvh_min", "cbvh_max")))
+    return crv_rows.contiguous(), torch.from_numpy(wide).to(q0.device)
 
 
 def _to_tensor(x, device, dtype=None) -> torch.Tensor:
@@ -992,11 +1013,11 @@ def flat_scene_from_numpy(flds: dict, device=None) -> FlatScene:
     packages render the very same scene, BSDF table, analytic primitives,
     caps, aperture table, curve tables and hair tables included.  Extra
     keys are ignored; `tri_fin` and the curve walk's packed rows
-    (`crv_rows`, `cbvh_rows`) are packed from their JAX-named fields when
+    (`crv_rows`, `cwbvh_rows`) are packed from their JAX-named fields when
     absent; `bitmaps` and the grid fields (TUPLE_FIELDS) are sequences
     of arrays."""
     dev = resolve_device(device)
-    packed = ("tri_fin", "crv_rows", "cbvh_rows")
+    packed = ("tri_fin", "crv_rows", "cwbvh_rows")
     out = {}
     for f in fields(FlatScene):
         if f.name in packed and f.name not in flds:
@@ -1008,8 +1029,8 @@ def flat_scene_from_numpy(flds: dict, device=None) -> FlatScene:
     if "tri_fin" not in out:
         out["tri_fin"] = torch.cat([out["tri_v0"], out["tri_e1"],
                                     out["tri_e2"]], dim=1).contiguous()
-    if "crv_rows" not in out or "cbvh_rows" not in out:
-        out["crv_rows"], out["cbvh_rows"] = pack_curve_rows(out)
+    if "crv_rows" not in out or "cwbvh_rows" not in out:
+        out["crv_rows"], out["cwbvh_rows"] = pack_curve_rows(out)
     return FlatScene(**out)
 
 
