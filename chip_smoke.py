@@ -160,9 +160,24 @@ Phases (any failure exits non-zero):
      spawned ranks sharing the card over gloo: the image bitwise equal
      to (a)'s, the staged render and the gradients within the stated
      tolerances;
-  16. the kernels JSON line (ten rows: K1, K2, K3 closest and any hit,
+  16. bdpt and light tracer: (a) the smoke scene under
+     bidirectional_path_tracer, 256x256, 16 spp, max_bounces 64,
+     bdpt_vertices 8, in one 1,048,576-lane wave from zero launch counts
+     (K1 and K2 launching: walks and lens rays on K1, connections on
+     K2): rays, wall seconds, Mrays/s, peak device memory; then one more
+     render under torch.profiler (launches per render, device busy
+     share, K2's share of kernel time, top kernels); the image finite
+     and its mean within 5 % of phase 5's path-tracer image; (b) the
+     same under light_tracer, its splat sum > 0; (c) both at 64x64, 4
+     spp, max_bounces 8 against the plain path on the CPU with phase 6's
+     gates; (d) phase 8's media scene under BDPT likewise, K1 alone
+     launching; (e) cli.render_scene on the smoke scene under BDPT at
+     64x64, 16 spp with the output buffers: every file written loads,
+     the feature and color buffers are the 8-spp path-traced post-pass's;
+  17. the kernels JSON line (ten rows: K1, K2, K3 closest and any hit,
      the five leaf rows and C1; K1's and K2's with their launches in the
-     replay's forward and backward), then the result line.
+     replay's forward and backward and in the BDPT and light-tracer
+     renders), then the result line.
 """
 from __future__ import annotations
 
@@ -1584,9 +1599,12 @@ def profile_render(render_once, summary: dict | None = None) -> dict:
     wave = sum(v[0] for k, v in by_name.items() if "wave_trace" in k)
     curve = sum(v[0] for k, v in by_name.items() if "curve_trace" in k)
     if summary is not None:
+        anyhit = sum(v[0] for k, v in by_name.items()
+                     if "wave_trace_anyhit" in k)
         summary.update(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
                        launches=launches, idle=1.0 - busy / wall_us,
-                       curve_share=curve / total)
+                       curve_share=curve / total,
+                       anyhit_share=anyhit / total)
     log(f"profile: wall {wall_us / 1e3:.1f} ms under the profiler, device "
         f"busy {busy / 1e3:.1f} ms ({busy / wall_us * 100:.1f} %, idle "
         f"{100 - busy / wall_us * 100:.1f} %), {launches} kernel launches; "
@@ -1800,12 +1818,15 @@ BUFFER_SPECS = [{"type": "color", "hdr_output_file": "color.pfm",
 
 
 def scene_variant(path: str, name: str, res: int | None = None,
-                  **renderer) -> str:
+                  integrator: dict | None = None, **renderer) -> str:
     """The scene file at `path` with its renderer block replaced by
-    `renderer` (and its resolution by `res`), written beside it."""
+    `renderer` (and its resolution by `res`, its integrator block by
+    `integrator`), written beside it."""
     with open(path) as f:
         sj = json.load(f)
     sj["renderer"] = renderer
+    if integrator:
+        sj["integrator"] = integrator
     if res:
         sj["camera"]["resolution"] = [res, res]
     out = os.path.join(os.path.dirname(path), name)
@@ -2274,6 +2295,130 @@ def check_data_parallel(path, card) -> dict:
                 gloo={k: b[k] for k in ("render_s", "staged_s", "train_s")},
                 train_vs_replay=train_dev, gloo_vs_nccl=gloo_dev,
                 spawn_s=spawn_s)
+
+
+# ------------------------------------------------- BDPT, the light tracer
+
+BDPT_VERTICES = 8
+BDPT_SMALL = (64, 4, 8)      # phase 16(c)-(e): resolution, spp, bounces
+SPLATTING = ("bidirectional_path_tracer", "light_tracer")
+
+
+def splat_settings(settings, integrator: str):
+    return replace(settings, integrator_type=integrator,
+                   bdpt_vertices=BDPT_VERTICES)
+
+
+def splat_render(scene, settings, card, twt) -> dict:
+    """The full-width wave (256x256, 16 spp, one 1,048,576-lane wave) from
+    zero launch counts with the peak device memory, then one more render
+    under torch.profiler."""
+    import numpy as np
+    import torch
+    from tungsten_tpu_torch.render import render
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    img, stats, launches = render_counted(scene, settings, twt)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"  {settings.integrator_type} {settings.width}x{settings.height} "
+        f"{SPP} spp max_bounces {settings.max_bounces} bdpt_vertices "
+        f"{settings.bdpt_vertices}: {stats['time']:.3f} s, {stats['rays']} "
+        f"rays, {stats['mrays_per_s']:.3f} Mrays/s on {card}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; peak device memory "
+        f"{peak:.1f} MiB ({base_mib:.1f} MiB held before the render); image "
+        f"mean {img.mean():.6f}")
+    if not (np.isfinite(img).all() and img.mean() > 0):
+        raise AssertionError(f"{settings.integrator_type}: image not finite "
+                             f"or black")
+    if not (launches["closest"] > 0 and launches["anyhit"] > 0):
+        raise AssertionError(f"{settings.integrator_type}: K1 or K2 never "
+                             f"launched {launches}")
+    summ: dict = {}
+    prof = profile_render(lambda: render(scene, settings, spp=SPP, seed=SEED,
+                                         spp_chunk=SPP), summary=summ)
+    log(f"  {settings.integrator_type}: {summ.get('launches')} kernel "
+        f"launches a render, K2 {summ.get('anyhit_share', 0) * 100:.2f} % of "
+        f"kernel time, beside {stats['mrays_per_s']:.3f} Mrays/s")
+    return dict(img=img, stats=stats, launches=launches, peak_mib=peak,
+                prof=prof, summary=summ)
+
+
+def check_splat(path, mpath, pt_img, card, twt) -> dict:
+    """Phase 16: the bidirectional path tracer and the light tracer on the
+    smoke scene at full width (a, b), against the plain path on the CPU
+    (c), on the media scene (d), and through the CLI with output buffers
+    (e)."""
+    import numpy as np
+    from tungsten_tpu_torch.io import image as im
+    from tungsten_tpu_torch.render import render_with_aovs
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.parse import load_scene
+    out = {}
+    scene, settings = flatten_scene(load_scene(path))
+    log("  (a) bidirectional_path_tracer:")
+    bd = splat_render(scene, splat_settings(settings, SPLATTING[0]), card,
+                      twt)
+    rel = abs(bd["img"].mean() / pt_img.mean() - 1.0)
+    log(f"  image mean {bd['img'].mean():.6f} against the path tracer's "
+        f"{pt_img.mean():.6f} (phase 5): {rel * 100:.3f} % apart")
+    if rel > 0.05:
+        raise AssertionError("bdpt: image mean more than 5 % off the path "
+                             "tracer's")
+    bd["vs_path_tracer"] = rel
+    out["bdpt"] = bd
+    log("  (b) light_tracer:")
+    lt = splat_render(scene, splat_settings(settings, SPLATTING[1]), card,
+                      twt)
+    log(f"  light tracer splat sum {lt['img'].sum():.3f}, mean "
+        f"{lt['img'].mean():.6f} ({lt['img'].mean() / pt_img.mean():.4f} of "
+        f"the path tracer's: the env reaches the camera only through "
+        f"camera paths)")
+    out["light"] = lt
+    res, spp, bounces = BDPT_SMALL
+    log(f"  (c) {res}x{res} {spp} spp max_bounces {bounces} against the "
+        f"plain path on the CPU:")
+    for integ in SPLATTING:
+        cross_path(scene, splat_settings(settings, integ),
+                   max_bounces=bounces, res=(res, res))
+    del scene
+    log("  (d) the media scene under bidirectional_path_tracer:")
+    mscene, msettings = flatten_scene(load_scene(mpath))
+    zero_counts()
+    cross_path(mscene, splat_settings(msettings, SPLATTING[0]),
+               max_bounces=bounces, res=(res, res))
+    out["media_launches"] = read_counts()
+    log(f"  media scene launches (card side): {out['media_launches']}")
+    if not (out["media_launches"].get("closest", 0) > 0 and
+            set(out["media_launches"]) == {"closest"}):
+        raise AssertionError("bdpt media: not K1 alone")
+    del mscene
+    log(f"  (e) the CLI, {res}x{res} {SPP} spp with output buffers:")
+    bpath = scene_variant(path, "bdpt_buffers.json", res=res, spp=SPP,
+                          output_file="bdpt.png", hdr_output_file="bdpt.pfm",
+                          output_buffers=BUFFER_SPECS,
+                          integrator={"type": SPLATTING[0],
+                                      "max_bounces": MAX_BOUNCES})
+    bdir = os.path.join(os.path.dirname(path), "cli_bdpt")
+    cli = cli_run(bpath, bdir, twt, res)
+    names = sorted(os.path.basename(f) for f in cli["files"])
+    want = sorted(["bdpt.png", "bdpt.pfm", "color.pfm", "colorVariance.pfm",
+                   "colorA.pfm", "colorB.pfm", "depth.pfm", "normal.pfm",
+                   "albedo.pfm", "visibility.pfm"])
+    if names != want:
+        raise AssertionError(f"bdpt cli: wrote {names}")
+    cscene, csettings = flatten_scene(load_scene(bpath))
+    post, _ = render_with_aovs(
+        cscene, replace(csettings, integrator_type="path_tracer"),
+        spp=min(SPP, 8), seed=csettings.seed)
+    for name in ("normal", "albedo", "depth", "color"):
+        got = im.load_hdr(os.path.join(bdir, f"{name}.pfm"))
+        ref = post[name]
+        ref = np.repeat(ref[..., None], 3, -1) if ref.ndim == 2 else ref
+        images_agree(f"cli {name} buffer vs the 8-spp path-traced post-pass",
+                     got, ref, 1e-4, 1e-5, 0.999, 1e-4)
+    out["cli"] = cli
+    return out
 
 
 # -------------------------------------------------------------------- main
@@ -2759,7 +2904,12 @@ def main() -> int:
         dpr = check_data_parallel(path, card)
         mark("data-parallel")
 
-    # 16. kernels line and result
+        # 16. BDPT and the light tracer: the splat path on K1 and K2
+        log("bdpt and light tracer:")
+        sp = check_splat(path, mpath, img, card, twt)
+        mark("bdpt / light tracer")
+
+    # 17. kernels line and result
     closest_tol = ("vs plain walk: hit-set agreement > 0.998, same triangle "
                    "> 0.999, t within rtol 2e-3 on > 0.999 (the kernel's "
                    "own t and after the finalize), u/v atol 2e-3; "
@@ -2783,19 +2933,25 @@ def main() -> int:
                "two-strategy NEE) under the same gates, far limits cut at "
                "the analytic hits; outdoor_launches / outdoor_render_ms: "
                "its render's")
+    splat = ("; bdpt_* / light_*: launches and device ms in the full-width "
+             "bidirectional path tracer and light tracer renders (phase 16)")
     k1 = "tungsten_tpu/ops/wave_trace.py:300"
     k3 = "tungsten_tpu/ops/wave_trace.py:724"
     k1_row = kernel_row("wave_trace_closest", "closest", prim, launches, k1,
-                        closest_tol + split + media + outdoor,
+                        closest_tol + split + media + outdoor + splat,
                         {"continuation": cont, "media_hop": mhop,
                          "outdoor_camera": ocam,
                          "outdoor_strategy": ostrat}, prof)
     k2_row = kernel_row("wave_trace_anyhit", "anyhit", shadow, launches, k1,
-                        anyhit_tol + split + outdoor,
+                        anyhit_tol + split + outdoor + splat,
                         {"outdoor_shadow": oshadow}, prof)
     for row, mode in ((k1_row, "closest"), (k2_row, "anyhit")):
         for tag, lc, pr in (("media", mlaunches, mprof),
-                            ("outdoor", olaunches, oprof)):
+                            ("outdoor", olaunches, oprof),
+                            ("bdpt", sp["bdpt"]["launches"],
+                             sp["bdpt"]["prof"]),
+                            ("light", sp["light"]["launches"],
+                             sp["light"]["prof"])):
             if tag == "media" and mode == "anyhit":
                 continue
             row[f"{tag}_launches"] = lc[mode]
@@ -2890,7 +3046,16 @@ def main() -> int:
         f"{rp['full']['peak_mib']:.1f} replay_peak_mib_8 "
         f"{rp['shallow']['peak_mib']:.1f} dp_nccl_render_s "
         f"{dpr['nccl']['render_s']:.3f} dp_gloo_render_s "
-        f"{dpr['gloo']['render_s']:.3f} total_s {time.time() - t_start:.1f}")
+        f"{dpr['gloo']['render_s']:.3f} " + " ".join(
+            f"{tag}_render_s {r['stats']['time']:.3f} {tag}_mrays_per_s "
+            f"{r['stats']['mrays_per_s']:.3f} {tag}_rays {r['stats']['rays']} "
+            f"{tag}_launches_per_render {r['summary'].get('launches')} "
+            f"{tag}_idle {r['summary'].get('idle')} {tag}_k2_share "
+            f"{r['summary'].get('anyhit_share')} {tag}_peak_mib "
+            f"{r['peak_mib']:.1f}"
+            for tag, r in (("bdpt", sp["bdpt"]), ("light", sp["light"]))) +
+        f" bdpt_vs_pt {sp['bdpt']['vs_path_tracer']:.5f} cli_bdpt_s "
+        f"{sp['cli']['seconds']:.3f} total_s {time.time() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

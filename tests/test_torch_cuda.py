@@ -45,7 +45,11 @@ a small curve scene with the fiber BCSDFs renders through C1, K1 and K2
 as the plain path renders it.  Path-replay gradients on the card launch
 K1 and K2 in the forward and in the backward, end on the forward's L
 bitwise and agree with the plain path's on the CPU; a train step on a
-one-rank NCCL group gives the replay's loss and gradients.
+one-rank NCCL group gives the replay's loss and gradients.  A BDPT wave
+on the card (walks on K1, connections on K2) agrees with the plain path
+on the CPU lane for lane, and BDPT and light-tracer renders, and a BDPT
+render of fog, forward-lobe surfaces and a thinlens camera through K1
+alone, match the plain path's images.
 """
 from types import SimpleNamespace
 
@@ -1518,3 +1522,131 @@ def test_cuda_train_step_on_one_nccl_rank(cuda_device, tmp_path,
         got, ref = grads[k].cpu().numpy(), want[k].cpu().numpy()
         np.testing.assert_allclose(got, ref, rtol=1e-5,
                                    atol=1e-7 * np.abs(ref).max(), err_msg=k)
+
+
+# -------------------------------- BDPT and the light tracer (K1 and K2)
+
+def _bdpt_desc():
+    """The lambert + mirror scene of test_cuda_render_matches_plain_path
+    under the bidirectional path tracer, 32x24, max_bounces 4."""
+    from tungsten_tpu_torch.scene.parse import SceneDesc
+    return SceneDesc(
+        path="scene.json", json={},
+        bsdfs=[{"type": "lambert", "albedo": [0.6, 0.3, 0.2]},
+               {"type": "mirror", "albedo": 1.0}],
+        primitives=[
+            {"type": "quad", "bsdf_index": 0, "emission": [8.0, 8.0, 8.0],
+             "transform": {"position": [0, 2.4, 0], "rotation": [0, 0, 180]}},
+            {"type": "quad", "bsdf_index": 1,
+             "transform": {"position": [0, -1, 0], "scale": [10, 1, 10]}},
+            {"type": "cube", "bsdf_index": 0,
+             "transform": {"position": [0.3, -0.4, 0], "scale": 0.8}},
+            {"type": "quad", "bsdf_index": 0,
+             "transform": {"position": [0, 1, -3], "scale": [10, 1, 10],
+                           "rotation": [90, 0, 0]}}],
+        media=[], camera={"type": "pinhole", "resolution": [32, 24],
+                          "fov": 60,
+                          "transform": {"position": [0, 0.6, 4.0],
+                                        "look_at": [0, 0.0, 0]}},
+        integrator={"type": "bidirectional_path_tracer", "max_bounces": 4},
+        renderer={"spp": 2})
+
+
+def _share_close(a, b):
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    return np.isclose(a, b, rtol=1e-3, atol=1e-4).reshape(
+        a.shape[0], -1).all(-1).mean()
+
+
+@pytest.mark.cuda
+def test_cuda_bdpt_wave_matches_plain_path(cuda_device):
+    """One BDPT wave (32x24, 2 spp, 4 vertices a subpath, 4 edges) on the
+    card against the plain path on the CPU on the same lanes: radiance
+    per lane, splat pixels and splat values on >= 0.99 of entries within
+    rtol 1e-3 / atol 1e-4 (a lane parts where the kernel and the plain
+    walk round a grazing hit differently), rays within 1 %; the walks
+    launch K1 and the connections K2.  Then both integrators' render()
+    images against the CPU's with phase 6's gates (<= 1 % of pixels off,
+    means within 0.5 %)."""
+    from dataclasses import replace
+    from tungsten_tpu_torch.integrators.bdpt import trace_bdpt
+    from tungsten_tpu_torch.render import render
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    scene, settings = flatten_scene(_bdpt_desc())
+    cpu_scene = scene.to("cpu")
+    n = settings.width * settings.height
+    pixel = torch.arange(n, dtype=torch.int32).repeat(2)
+    sample = torch.arange(2, dtype=torch.int32).repeat_interleave(n)
+    before = dict(twt.LAUNCHES)
+    got = trace_bdpt(scene, settings, pixel.to(cuda_device),
+                     sample.to(cuda_device), 7, 4, 4)
+    assert twt.LAUNCHES["closest"] > before["closest"]
+    assert twt.LAUNCHES["anyhit"] > before["anyhit"]
+    want = trace_bdpt(cpu_scene, settings, pixel, sample, 7, 4, 4)
+    assert _share_close(got[0], want[0]) >= 0.99
+    assert (got[1].cpu() == want[1]).float().mean().item() >= 0.99
+    assert _share_close(got[2], want[2]) >= 0.99
+    assert float(got[0].sum()) > 0 and float(got[2].sum()) > 0
+    assert abs(int(got[3]) / int(want[3]) - 1.0) <= 0.01
+    for integrator in ("bidirectional_path_tracer", "light_tracer"):
+        s = replace(settings, integrator_type=integrator)
+        gpu = render(scene, s, spp=2, seed=7, spp_chunk=2)
+        cpu = render(cpu_scene, s, spp=2, seed=7, spp_chunk=2, device="cpu")
+        assert np.isfinite(gpu).all() and gpu.mean() > 0
+        close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1)
+        assert close.mean() >= 0.99, (integrator, close.mean())
+        assert abs(gpu.mean() / cpu.mean() - 1.0) <= 5e-3, integrator
+
+
+@pytest.mark.cuda
+def test_cuda_bdpt_media_render_matches_plain_path(cuda_device):
+    """BDPT on a fog-filled `forward` cube with a thinsheet sphere under a
+    thinlens camera (cat eye 0.3): the walks, the connection hops and the
+    lens connections all trace closest hits, so K1 alone launches; the
+    image is the plain path's on the CPU under phase 6's gates."""
+    from tungsten_tpu_torch.render import render
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.parse import SceneDesc
+    desc = SceneDesc(
+        path="scene.json", json={},
+        bsdfs=[{"type": "lambert", "albedo": [0.7, 0.6, 0.5]},
+               {"type": "forward"},
+               {"type": "thinsheet", "ior": 1.45, "sigma_a": [0.3, 0.6, 1.2],
+                "thickness": 0.4},
+               {"type": "mirror", "albedo": 0.9}],
+        media=[{"type": "homogeneous", "sigma_a": 0.05,
+                "sigma_s": [0.5, 0.6, 0.7],
+                "phase_function": {"type": "henyey_greenstein", "g": 0.3}}],
+        primitives=[
+            {"type": "quad", "bsdf_index": 0, "emission": [7.0, 7.0, 7.0],
+             "transform": {"position": [0, 2.4, 0], "scale": [1.2, 1, 1.2],
+                           "rotation": [0, 0, 180]}},
+            {"type": "quad", "bsdf_index": 0,
+             "transform": {"position": [0, -1, 0], "scale": [8, 1, 8]}},
+            {"type": "cube", "bsdf_index": 1, "int_medium_index": 0,
+             "transform": {"position": [0.2, -0.1, 0], "scale": 1.6}},
+            {"type": "sphere", "bsdf_index": 2,
+             "transform": {"position": [-0.9, -0.3, 0.9], "scale": 0.45}},
+            {"type": "quad", "bsdf_index": 3,
+             "transform": {"position": [0, 0.5, -2.0], "scale": [3, 1, 2],
+                           "rotation": [90, 0, 0]}}],
+        camera={"type": "thinlens", "resolution": [32, 24], "fov": 60,
+                "aperture_size": 0.3, "cateye": 0.3, "focus_distance": 3.4,
+                "transform": {"position": [0, 0.5, 3.4],
+                              "look_at": [0, 0, 0]}},
+        integrator={"type": "bidirectional_path_tracer", "max_bounces": 4},
+        renderer={"spp": 2})
+    scene, settings = flatten_scene(desc)
+    assert settings.has_media
+    before = dict(twt.LAUNCHES)
+    gpu = render(scene, settings, spp=2, seed=7, spp_chunk=2)
+    assert twt.LAUNCHES["closest"] > before["closest"]
+    assert all(twt.LAUNCHES[k] == before[k]
+               for k in ("anyhit", "paged_closest", "paged_anyhit",
+                         "paged_walk"))
+    cpu = render(scene.to("cpu"), settings, spp=2, seed=7, spp_chunk=2,
+                 device="cpu")
+    assert np.isfinite(gpu).all() and gpu.mean() > 0
+    close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1)
+    assert close.mean() >= 0.99, close.mean()
+    assert abs(gpu.mean() / cpu.mean() - 1.0) <= 5e-3

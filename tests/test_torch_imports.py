@@ -167,7 +167,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_unported_features_raise():
     """What the port does not run yet raises, naming it: a minecraft_map
     primitive (the JAX package refuses it too) and the integrators other
-    than path_tracer (bidirectional path tracing among them)."""
+    than path_tracer, bidirectional_path_tracer and light_tracer (the
+    photon map among them), at flatten time and in render_pass."""
     from tungsten_tpu_torch.render import render_pass
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     desc = _tiny_scene()
@@ -176,14 +177,14 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="minecraft_map"):
         flatten_scene(desc, device="cpu")
     desc = _tiny_scene()
-    desc.integrator = {"type": "bidirectional_path_tracer"}
-    with pytest.raises(NotImplementedError, match="bidirectional"):
+    desc.integrator = {"type": "photon_map"}
+    with pytest.raises(NotImplementedError, match="photon_map"):
         flatten_scene(desc, device="cpu")
     scene, settings = flatten_scene(_tiny_scene(), device="cpu")
     from dataclasses import replace
-    with pytest.raises(NotImplementedError, match="bdpt"):
-        render_pass(scene, replace(settings, integrator_type="bdpt"), 0,
-                    0xBA5EBA11)
+    with pytest.raises(NotImplementedError, match="photon_map"):
+        render_pass(scene, replace(settings, integrator_type="photon_map"),
+                    0, 0xBA5EBA11)
 
 
 @pytest.mark.parametrize("kernel", ["closest", "anyhit", "paged_walk",

@@ -54,11 +54,8 @@ def render_scene(path, args) -> dict:
 
     device = resolve_device(args.device)
     print(f"Loading scene {path}")
+    # flattening refuses an integrator the port does not run, naming it
     scene, settings = load_flat_scene(path, device)
-    if settings.integrator_type != "path_tracer":
-        raise NotImplementedError(
-            f"tungsten_tpu_torch: integrator {settings.integrator_type!r} is "
-            f"not ported yet")
     if args.spp:
         settings = replace(settings, spp=args.spp)
     if args.seed is not None:
@@ -87,8 +84,10 @@ def render_scene(path, args) -> dict:
     # output buffers requested: trace through the AOV-tracking wavefront
     # so color and AOVs come from the SAME samples, with Welford
     # variance + parity half-buffers — reference semantics
-    # (PathTracer::_trackOutputValues, OutputBuffer::addSample)
-    use_buffers = bool(buf_specs)
+    # (PathTracer::_trackOutputValues, OutputBuffer::addSample); the
+    # splatting integrators get them from a path-traced post-pass
+    path_tracer = settings.integrator_type == "path_tracer"
+    use_buffers = bool(buf_specs) and path_tracer
     files: list[str] = []
     total_rays = 0
 
@@ -111,7 +110,7 @@ def render_scene(path, args) -> dict:
     bufs = None
 
     use_adaptive = (settings.adaptive_sampling and not use_buffers
-                    and spp > ADAPTIVE_THRESHOLD)
+                    and path_tracer and spp > ADAPTIVE_THRESHOLD)
     if use_adaptive:
         # adaptive renders checkpoint their full tile statistics +
         # sample cursors (ref PathTraceIntegrator.cpp:158-172) so a
@@ -187,15 +186,17 @@ def render_scene(path, args) -> dict:
     files += _write_outputs(acc / max(done, 1), settings, out_dir,
                             output_file, hdr_output)
     if buf_specs and bufs is None:
-        # no round ran (resumed at the target spp): the buffers of the
-        # resumed accumulators, or, where the state file holds none, a
-        # small separate pass as the JAX package renders
+        # no buffer round ran (a splatting integrator, or resumed at the
+        # target spp): the buffers of the resumed accumulators, or, where
+        # there are none, a small separate path-traced pass, as the JAX
+        # package renders them
         if raw_acc is not None and "color_sum" in raw_acc:
             bufs = _finalize_buffers(raw_acc, done, settings.width,
                                      settings.height)
         else:
-            bufs, _ = render_with_aovs(scene, settings, spp=min(spp, 8),
-                                       seed=settings.seed)
+            bufs, _ = render_with_aovs(
+                scene, replace(settings, integrator_type="path_tracer"),
+                spp=min(spp, 8), seed=settings.seed)
     if buf_specs:
         files += _write_output_buffers(bufs, buf_specs, out_dir)
     wall = time.time() - t_start

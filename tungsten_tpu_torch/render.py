@@ -1,7 +1,8 @@
 """Top-level render loop (port of tungsten_tpu/render.py for the
-path_tracer integrator): spp batches over the width-staged wavefront,
-accumulation into a framebuffer, Mrays/s stats; adaptive sampling; the
-output buffers (AOVs, variance, parity halves).
+path_tracer, bidirectional_path_tracer and light_tracer integrators):
+spp batches over the width-staged wavefront or the splatting BDPT /
+light-tracer waves, accumulation into a framebuffer, Mrays/s stats;
+adaptive sampling; the output buffers (AOVs, variance, parity halves).
 
 A small frame batches several spp into one wide wavefront (up to
 WAVE_RAYS = 4 * WAVEFRONT_CHUNK rays): 256x256 at 16 spp is one wave of
@@ -10,7 +11,9 @@ adaptive and output-buffer renders batch their samples the same way,
 where the JAX package traces one wave per spp: rays are independent, so
 only the order of the sums changes (and index_add_ on CUDA sums with
 atomics in a varying order anyway).  They take the same staged schedule
-too, banking each sample by its lane instead of its pixel.
+too, banking each sample by its lane instead of its pixel.  The
+splatting integrators batch their samples into waves of up to WAVE_RAYS
+lanes the same way, where the JAX package traces one chunk per spp.
 """
 from __future__ import annotations
 
@@ -50,12 +53,47 @@ def _trace_chunk_staged(scene, settings, pixel, sample_idx, seed, n_total):
     return fb, int(rays)
 
 
+SPLATTING = ("bidirectional_path_tracer", "light_tracer")
+
+
+def _trace_chunk_splat(scene, settings, pixel, sample_idx, seed, n_total):
+    """One wave of a splatting integrator (bidirectional_path_tracer,
+    light_tracer): each lane's own radiance banked by its pixel, plus
+    every lens connection's splat, scatter-added into the frame (the
+    reference's AtomicFramebuffer, AtomicFramebuffer.hpp:26-89).
+    Non-finite values are dropped, and padded lanes (pixel >= n_total)
+    bank and splat nothing.  Returns ((n_total, 3) sum, rays)."""
+    from tungsten_tpu_torch.integrators.bdpt import trace_bdpt, trace_light
+    kw = dict(max_vertices=settings.bdpt_vertices,
+              max_edges=settings.max_bounces)
+    keep = pixel < n_total
+    pix = torch.clamp(pixel, 0, n_total - 1).long()
+    fb = torch.zeros((n_total, 3), dtype=torch.float32, device=pixel.device)
+    if settings.integrator_type == "light_tracer":
+        spix, sval, rays = trace_light(scene, settings, pixel, sample_idx,
+                                       seed, **kw)
+    else:
+        rad, spix, sval, rays = trace_bdpt(scene, settings, pixel,
+                                           sample_idx, seed, **kw)
+        rad = torch.where(torch.isfinite(rad), rad, 0.0)
+        fb.index_add_(0, pix, torch.where(keep[..., None], rad, 0.0))
+    if spix.shape[0] > 0:
+        sval = torch.where(torch.isfinite(sval), sval, 0.0)
+        valid = keep.repeat(spix.shape[0] // pixel.shape[0])
+        sval = torch.where(valid[..., None], sval, 0.0)
+        fb.index_add_(0, torch.clamp(spix, 0, n_total - 1).long(), sval)
+    return fb, int(rays)
+
+
 def render_pass(scene, settings, sample_start, seed, spp_chunk: int = 1):
     """Render spp_chunk samples per pixel; returns ((H, W, 3) sum, rays)."""
-    if settings.integrator_type != "path_tracer":
+    from tungsten_tpu_torch.scene.flatten import PORTED_INTEGRATORS
+    if settings.integrator_type not in PORTED_INTEGRATORS:
         raise NotImplementedError(
             f"tungsten_tpu_torch: integrator {settings.integrator_type!r} is "
             f"not ported yet")
+    trace = _trace_chunk_splat if settings.integrator_type in SPLATTING \
+        else _trace_chunk_staged
     dev = scene.device
     w, h = settings.width, settings.height
     n = w * h
@@ -73,7 +111,7 @@ def render_pass(scene, settings, sample_start, seed, spp_chunk: int = 1):
             smp = torch.arange(int(sample_start) + i,
                                int(sample_start) + i + k, dtype=torch.int32,
                                device=dev).repeat_interleave(C)
-            part, r = _trace_chunk_staged(scene, settings, pix, smp, seed, n)
+            part, r = trace(scene, settings, pix, smp, seed, n)
             fb = fb + part
             rays += r
         i += k

@@ -75,6 +75,8 @@ CURVE_SUBDIV = 8  # linear pieces per quadratic segment (leaf test)
 CRV_ROW = 16
 CWBVH_ROW = 32
 PORTED_CAMERAS = ("pinhole", "thinlens", "equirectangular", "cubemap")
+PORTED_INTEGRATORS = ("path_tracer", "bidirectional_path_tracer",
+                      "light_tracer")
 
 
 def _lt_slot_of_tri(lt_tri_l, num_tris):
@@ -326,6 +328,8 @@ class RenderSettings:
     voxel_sampling: str = "raymarching"
     rr_max_events: int = 192  # event cap per ratio-tracking query
     integrator_type: str = "path_tracer"
+    bdpt_vertices: int = 8   # per-subpath vertex cap for bdpt/light_tracer
+    mlt_path_length: int = -1  # restrict bdpt to one path length (MMLT)
     # output buffers (ref OutputBufferSettings): when True the wavefront
     # tracks depth/normal/albedo/visibility at the first non-specular
     # vertex (PathTracer.cpp:78-96) alongside the radiance
@@ -1082,7 +1086,7 @@ def flatten_scene(desc: SceneDesc, device=None
 
     media_host, media_kw = _flatten_media(desc)
     integ = desc.integrator
-    if integ.get("type", "path_tracer") != "path_tracer":
+    if integ.get("type", "path_tracer") not in PORTED_INTEGRATORS:
         raise _unsupported(f"integrator {integ.get('type')!r}")
     cam = desc.camera
     if cam.get("type", "pinhole") not in PORTED_CAMERAS:
