@@ -37,7 +37,8 @@ Phases (any failure exits non-zero):
      bitwise equal at the launcher's choice of CTAs a block and at 8,
      running at most 1.5x list_walk's needed count at full width (which
      the bound takes);
-     timed with CUDA events (median of 5 after a warm-up), also on the
+     timed with CUDA events (median of 5 after a warm-up; the plain
+     walk once, after the comparison's call), also on the
      first 1,024, 4,096, 8,192 and 65,536 rays and on a sparse tail wave
      (4,096 rays, the first 256 live), at splits=1 and at the launcher's
      choice;
@@ -60,9 +61,10 @@ Phases (any failure exits non-zero):
      list_walk on the paged front, splits, by width, and the two any-hit
      routes' wrappers (the paged front and walk, the resident front and
      K2) timed in turns; (c)
-     its full-width render (256x256, 16 spp, max_bounces 64) from zero
-     launch counts, only the paged route launching, and one more under torch.profiler, as in phase 5; (d) a
-     64x64 4-spp image of it against the plain path on the CPU;
+     its full-width render (256x256, 16 spp, cut to max_bounces 16) from
+     zero launch counts, only the paged route launching, and one more
+     under torch.profiler, as in phase 5; (d) a 64x64 4-spp image of it
+     at 8 bounces against the plain path on the CPU;
   8. media: (a) the smoke scene's layout in a homogeneous fog that fills
      the view (bounded by a `forward` box; the camera sits in it through
      its medium_index), with a `forward` cube holding a voxel medium on a
@@ -74,11 +76,12 @@ Phases (any failure exits non-zero):
      area light with t_min = EPSILON and the fudged far limit, held to
      phase 4's gates, and a full-width hop wave with one ray in 16 live
      timed against the all-live wave; (c) the full-width render (256x256,
-     16 spp, max_bounces 64) from zero launch counts (K1 alone launches:
+     16 spp, cut to max_bounces 16) from zero launch counts (K1 alone
+     launches:
      the two-strategy NEE traces closest hits only), then one more under
      torch.profiler (launches per render, device busy share, K1's device
-     ms by launch width); (d) a 64x64 4-spp image against the plain path
-     on the CPU, with phase 6's gates;
+     ms by launch width); (d) a 64x64 4-spp image at 4 bounces against
+     the plain path on the CPU, with phase 6's gates;
   9. outdoor: (a) the smoke scene's layout under a skydome with an
      infinite_sphere_cap sun (2 degrees) along its up axis, a point
      light, an emissive analytic sphere, disk and capped cylinder, a
@@ -97,7 +100,7 @@ Phases (any failure exits non-zero):
      width); (d) images against the plain path on the CPU with phase 6's
      gates: the thinlens scene at 64x64, the same scene under an
      equirectangular camera at 32x32 and a cubemap camera
-     (horizontal_cross) at 32x24, 4 spp each;
+     (horizontal_cross) at 32x24, 4 spp and 8 bounces each;
   10. hair: (a) a groom of 16,384 seeded random-walk strands of 24 nodes
      in bcsdf_cylinder mode with the hair BCSDF (melanin ratio 1.0,
      concentration 1.3, roughness 0.3, scale angle 2.5), 2,048 ribbon
@@ -122,11 +125,11 @@ Phases (any failure exits non-zero):
      tested, stack spills and restarts, the distinct rows read and the
      bound; times at full width and on 1,024
      and 65,536 rays, the plain walk's, bvh_intersect's; (c) the
-     full-width render (256x256, 16 spp, max_bounces 64) from zero
+     full-width render (256x256, 16 spp, cut to max_bounces 16) from zero
      launch counts, C1 (both modes), K1 and K2 all launching, then one
      more under torch.profiler (launches per render, device busy share,
      C1's device ms by launch width); (d) the scene cut to 256 + 32 + 16
-     strands at 32x32, 4 spp, 16 bounces against the plain path on the
+     strands at 32x32, 4 spp, 8 bounces against the plain path on the
      CPU with phase 6's gates;
   11. the CLI (cli.render_scene) on the smoke scene at 256x256: (a) with
      the output buffers (color with sample variance and A/B halves,
@@ -146,7 +149,8 @@ Phases (any failure exits non-zero):
      backward's final re-traced emission equal to the forward's L
      bitwise; (b) the peak device memory at max_bounces 8 and 64 within
      1.25x of each other; then the replay once more with each pass under
-     torch.profiler (device busy share, launches, top kernels); (c) at 64x64, 4 spp, 16 bounces the card's
+     torch.profiler (device busy share, launches, top kernels); (c) at
+     64x64, 4 spp, 8 bounces the card's
      gradients against the plain path's on the CPU, on the smoke scene
      and on a box with rough_conductor, rough_plastic and oren_nayar
      walls, where every parameter's gradient must be nonzero; (d) central
@@ -169,15 +173,48 @@ Phases (any failure exits non-zero):
      share, K2's share of kernel time, top kernels); the image finite
      and its mean within 5 % of phase 5's path-tracer image; (b) the
      same under light_tracer, its splat sum > 0; (c) both at 64x64, 4
-     spp, max_bounces 8 against the plain path on the CPU with phase 6's
-     gates; (d) phase 8's media scene under BDPT likewise, K1 alone
-     launching; (e) cli.render_scene on the smoke scene under BDPT at
+     spp, max_bounces 4 against the plain path on the CPU with phase 6's
+     gates; (d) phase 8's media scene under BDPT likewise at
+     max_bounces 2, K1 alone launching; (e) cli.render_scene on the
+     smoke scene under BDPT at
      64x64, 16 spp with the output buffers: every file written loads,
      the feature and color buffers are the 8-spp path-traced post-pass's;
-  17. the kernels JSON line (ten rows: K1, K2, K3 closest and any hit,
+  17. photon maps: (a) the smoke scene without its sky (the quad light
+     alone, so every light emits photons) under photon_map, 256x256, 16
+     spp, max_bounces 64, photon_count 1,048,576, gather_photon_count 20,
+     gather_radius 0.1, from zero launch counts (K1 alone): rays, wall,
+     Mrays/s, paths and deposits a round, the wall split into photon
+     pass, grid and camera pass (CUDA events), peak device memory (under
+     16 GiB); one more render under torch.profiler with marker kernels
+     around the stages (launches a render, device busy share, top
+     kernels, device ms by stage, the grid builds' and gathers' share);
+     the path tracer's image of the same scene and the photon image's
+     mean over it; (b) the same under progressive_photon_map (alpha
+     0.3, 16 iterations); (c) phase 8's layout with its homogeneous fog
+     alone (no voxel cube, no sky; the light's and the surfaces' exterior
+     medium the fog; volume gather radius 0.5) under the points, beams
+     and planes volume maps at 4 spp and max_bounces 16, each as (a)
+     (K1 launching, and K2
+     in planes mode for the planes' shadow rays); phase 8's voxel scene
+     asked for beams calls the points estimator's functions and no beam
+     grid; (d) at 64x64, 4 spp, max_bounces 8: the first 16,384 photon
+     paths of the surface scene and of the fog in planes mode traced on
+     the card and on the CPU (flags equal on >= 0.999 of slots, the
+     positions, directions, powers and beam and plane fields within
+     rtol 1e-5 / atol 1e-6 on >= 0.95 and rtol 1e-3 / atol 1e-4 on >=
+     0.995 of the slots valid on both), and
+     the surface map, PPM and the three volume maps (the volume maps at
+     32x32; 65,536 photon paths a round, volume_photon_count 2,000 as in
+     tests/test_photon_volume.py)
+     gathered on the card and on the CPU from the same photon
+     lists with phase 6's gates (the three volume maps share the CPU's
+     camera walk, which does not depend on the volume map);
+     (e) cli.render_scene of (a)'s scene at 64x64 with the output buffers
+     (every file loaded), and one server /render of it;
+  18. the kernels JSON line (ten rows: K1, K2, K3 closest and any hit,
      the five leaf rows and C1; K1's and K2's with their launches in the
-     replay's forward and backward and in the BDPT and light-tracer
-     renders), then the result line.
+     replay's forward and backward, in the BDPT and light-tracer renders
+     and in the photon-map renders), then the result line.
 """
 from __future__ import annotations
 
@@ -196,7 +233,19 @@ SEED = 0xBA5EBA11
 RES, SPP, MAX_BOUNCES = 256, 16, 64
 GRID_X, GRID_Z, SEG_U, SEG_V = 6, 4, 64, 32
 ZOO_SEG = (160, 80)   # 25,280 triangles a sphere, 606,720 for the 24
-ZOO_CROSS_BOUNCES = 16
+# the depths the run is cut to, so that it ends well inside its time
+# limit: the large, media and hair scenes' renders (their paths live to
+# the limit: 1.6M, 466k and 420k launches a render at 64 bounces, and
+# the profiler's stop takes tens of microseconds a launch) and the
+# cross-paths,
+# whose CPU side is mostly the plain walk's per-step overhead (seconds a
+# walk, whatever the frame size)
+ZOO_BOUNCES = 16
+ZOO_CROSS_BOUNCES = 8
+MEDIA_BOUNCES = 16
+HAIR_BOUNCES = 16
+MEDIA_CROSS_BOUNCES = 4
+OUTDOOR_CROSS_BOUNCES = 8
 SKY_W, SKY_H = 512, 256
 MEDIA_GRID = 256      # the voxel medium's density grid, 256^3 f32
 # the hair scene: the groom's strands and nodes a strand, the ribbon and
@@ -205,7 +254,7 @@ MEDIA_GRID = 256      # the voxel medium's density grid, 256^3 f32
 HAIR_STRANDS, HAIR_NODES = 16384, 24
 HAIR_RIBBONS, HAIR_HALF, HAIR_SPHERES = 2048, 1024, 64
 HAIR_CROSS = (256, 32, 16)
-HAIR_CROSS_BOUNCES = 16
+HAIR_CROSS_BOUNCES = 8
 C1_CHECK = 65536      # rays of each set held against the plain curve walk
 C1_NARROW = 4096      # where the 1,024-ray slice of the lanes check starts
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside the
@@ -213,6 +262,10 @@ C1_NARROW = 4096      # where the 1,024-ray slice of the lanes check starts
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 TIMED_RUNS = 5
+# torch.cuda._sleep's kernel: phase 17's stage markers in the profile,
+# after SENTINELS of them that open it
+MARKER = "spin_kernel"
+SENTINELS = 64
 
 
 def fail(msg: str) -> int:
@@ -467,14 +520,38 @@ def smoke_density(n: int):
     return dens
 
 
+def fog_layout(sj: dict) -> None:
+    """Phase 8's fog layout on the smoke scene's file `sj`: a homogeneous
+    fog the camera sits in, bounded by a 26-unit `forward` box; four
+    thinsheet and four transparency (opacity 0.5) spheres."""
+    sj["bsdfs"] += [{"name": "boundary", "type": "forward"},
+                    {"name": "sheet", "type": "thinsheet", "ior": 1.5,
+                     "sigma_a": [0.1, 0.3, 0.6], "thickness": 0.2}]
+    sj["media"] = [
+        {"name": "fog", "type": "homogeneous", "sigma_a": 0.01,
+         "sigma_s": [0.03, 0.035, 0.04],
+         "phase_function": {"type": "henyey_greenstein", "g": 0.5}}]
+    spheres = [p for p in sj["primitives"] if p["type"] == "mesh"]
+    for k, p in enumerate(spheres):
+        if k % 3 == 1 and k < 12:       # four thinsheet spheres
+            p["bsdf"] = "sheet"
+        elif k % 3 == 1:                # four transparency spheres
+            sj["bsdfs"].append({"name": f"cutout_{k}", "type": "transparency",
+                                "alpha": 0.5, "base": "floor"})
+            p["bsdf"] = f"cutout_{k}"
+    sj["primitives"].append(
+        {"type": "cube", "bsdf": "boundary", "int_medium": "fog",
+         "transform": {"position": [0, 5, 0], "scale": 26}})
+    sj["camera"]["medium"] = "fog"
+
+
 def write_media_scene(dirpath: str, res: int = RES, spp: int = SPP,
                       grid: int = MEDIA_GRID) -> tuple[str, float]:
     """Write the media scene: the smoke scene (the same sphere meshes and
-    sky) in a homogeneous fog the camera sits in, bounded by a large
-    `forward` box; a `forward` cube over the spheres holding a voxel
-    medium on a grid^3 density written with the port's write_vdb (ZIP);
-    four thinsheet and four transparency (opacity 0.5) spheres.
-    Returns (scene path, seconds the .vdb write took)."""
+    sky) in phase 8's fog layout (fog_layout), with a `forward` cube over
+    the spheres holding a voxel medium on a grid^3 density written with
+    the port's write_vdb (ZIP).  Returns (scene path, seconds the .vdb
+    write took)."""
     import numpy as np
     from tungsten_tpu_torch.io import vdb
     path = write_scene(dirpath, res, spp)
@@ -485,32 +562,16 @@ def write_media_scene(dirpath: str, res: int = RES, spp: int = SPP,
         "density": vdb.VdbGridData("density", smoke_density(grid),
                                    (0, 0, 0), np.eye(4))})
     write_s = time.time() - t0
-    sj["bsdfs"] += [{"name": "boundary", "type": "forward"},
-                    {"name": "sheet", "type": "thinsheet", "ior": 1.5,
-                     "sigma_a": [0.1, 0.3, 0.6], "thickness": 0.2}]
-    sj["media"] = [
-        {"name": "fog", "type": "homogeneous", "sigma_a": 0.01,
-         "sigma_s": [0.03, 0.035, 0.04],
-         "phase_function": {"type": "henyey_greenstein", "g": 0.5}},
+    fog_layout(sj)
+    sj["media"].append(
         {"name": "smoke", "type": "voxel", "sigma_a": 0.3,
          "sigma_s": [1.6, 1.8, 2.0],
          "grid": {"type": "vdb", "file": "smoke.vdb",
-                  "transform": {"position": [0, 1.1, 0], "scale": 1.6}}}]
-    spheres = [p for p in sj["primitives"] if p["type"] == "mesh"]
-    for k, p in enumerate(spheres):
-        if k % 3 == 1 and k < 12:       # four thinsheet spheres
-            p["bsdf"] = "sheet"
-        elif k % 3 == 1:                # four transparency spheres
-            sj["bsdfs"].append({"name": f"cutout_{k}", "type": "transparency",
-                                "alpha": 0.5, "base": "floor"})
-            p["bsdf"] = f"cutout_{k}"
-    sj["primitives"] += [
-        {"type": "cube", "bsdf": "boundary", "int_medium": "fog",
-         "transform": {"position": [0, 5, 0], "scale": 26}},
+                  "transform": {"position": [0, 1.1, 0], "scale": 1.6}}})
+    sj["primitives"].append(
         {"type": "cube", "bsdf": "boundary", "int_medium": "smoke",
          "ext_medium": "fog",
-         "transform": {"position": [0, 1.9, 0], "scale": 1.6}}]
-    sj["camera"]["medium"] = "fog"
+         "transform": {"position": [0, 1.9, 0], "scale": 1.6}})
     path = os.path.join(dirpath, "media.json")
     with open(path, "w") as f:
         json.dump(sj, f, indent=1)
@@ -1024,8 +1085,10 @@ def check_closest(scene, name, o, d, t_max, t_min: float = 0.0):
     out.update(splits_equal(scene, name, k, "closest", (t_raw, tri_raw)))
     ms = cuda_ms(lambda: launch(scene, k, "closest"))
     wrap_ms = cuda_ms(lambda: wrapper(scene, k, False))
-    plain_ms = cuda_ms(lambda: tis.bvh_walk(scene, k["o"], k["d"], k["tmin"],
-                                            k["tmax"]))
+    # one run: the plain walk is seconds a call, and the comparison's call
+    # above was its warm-up
+    plain_ms = event_ms(lambda: tis.bvh_walk(scene, k["o"], k["d"],
+                                             k["tmin"], k["tmax"]))
     n_tests, n_ran = tri_test_counts(tests)
     need = out["list_walk_tests"]
     b, by = bound_ms(scene, k, need)
@@ -1108,8 +1171,9 @@ def check_anyhit(scene, o, d, t_max):
                             (t_raw, tri_raw)))
     ms = cuda_ms(lambda: launch(scene, k, "anyhit"))
     wrap_ms = cuda_ms(lambda: wrapper(scene, k, True))
-    plain_ms = cuda_ms(lambda: tis.bvh_walk(scene, k["o"], k["d"], k["tmin"],
-                                            k["tmax"], any_hit=True))
+    plain_ms = event_ms(lambda: tis.bvh_walk(scene, k["o"], k["d"],
+                                             k["tmin"], k["tmax"],
+                                             any_hit=True))
     n_tests, n_ran = tri_test_counts(tests)
     need = out["list_walk_tests"]
     b, by = bound_ms(scene, k, need)
@@ -1492,13 +1556,13 @@ def check_hair_kernels(scene, settings) -> tuple[dict, dict, dict]:
     return tuple(out)
 
 
-def render_counted(scene, settings, twt):
+def render_counted(scene, settings, twt, spp: int = SPP):
     """The main path with every launch count (the wave kernels' and C1's)
     set to 0 just before and read just after: (image, stats, launches)."""
     from tungsten_tpu_torch.ops import curve_trace as tct
     from tungsten_tpu_torch.render import render
     zero_counts()
-    img, stats = render(scene, settings, spp=SPP, seed=SEED, spp_chunk=SPP,
+    img, stats = render(scene, settings, spp=spp, seed=SEED, spp_chunk=spp,
                         return_stats=True)
     return img, stats, dict(twt.LAUNCHES, **tct.LAUNCHES)
 
@@ -1541,13 +1605,51 @@ KERNEL_OF_ROUTE = {"closest": "wave_trace_closest_kernel",
                    "paged_walk": "wave_trace_paged_anyhit_kernel"}
 
 
-def profile_render(render_once, summary: dict | None = None) -> dict:
+def stage_tally(kern, stages) -> dict | None:
+    """Device ms by stage: `stages` is the host's log of (stage, "b" or
+    "e") for each marker kernel (MARKER) launched around a stage, in
+    launch order, after up to SENTINELS markers that open the profile
+    (the profiler may drop its first events); the last len(stages)
+    marker events pair with the log, and each other kernel after the
+    first of them counts to the innermost stage open when it started
+    ("other" outside every stage).  None where the marker events cannot
+    pair with the log."""
+    marks = sorted(s for s, _, name in kern if MARKER in name)
+    if len(marks) < len(stages) or len(marks) > len(stages) + SENTINELS:
+        return None
+    cut = marks[len(marks) - len(stages)] if stages else None
+    marks = marks[len(marks) - len(stages):]
+    kern = [k for k in kern if MARKER in k[2] or cut is None or
+            k[0] > cut]
+    events = sorted([(s, 0, i) for i, s in enumerate(marks)] +
+                    [(s, 1, e - s) for s, e, name in kern
+                     if MARKER not in name])
+    open_, out = [], {}
+    for _, kind, v in events:
+        if kind == 0:
+            stage, edge = stages[v]
+            if edge == "b":
+                open_.append(stage)
+            else:
+                open_.pop()
+        else:
+            key = open_[-1] if open_ else "other"
+            out[key] = out.get(key, 0.0) + v / 1e3
+    return out
+
+
+def profile_render(render_once, summary: dict | None = None,
+                   stages: list | None = None) -> dict:
     """One more render under torch.profiler (device activity only): device
     busy time (the union of kernel intervals) against the profiled wall
-    time, and the kernels that take the most device time.  The profiler's
+    time, and the kernels that take the most device time; with `stages`
+    (stage_tally's log), the device ms by stage into summary["stages"]
+    (the marker kernels left out of every other figure).  The profiler's
     own host cost is in the wall time, so the idle share is an upper
     bound.  The raw device events are read directly: the profiler's
-    per-event Python parse takes minutes at a million launches.  The
+    per-event Python parse takes minutes at a million launches.  Its stop
+    and the read still take tens of microseconds an event, which the log
+    gives in seconds.  The
     wrappers log each traversal launch (route, rays, splits) meanwhile,
     and the traversal kernels' device events, in launch order, are
     tallied by route and width: returns {route: {"launches", "ms",
@@ -1567,7 +1669,8 @@ def profile_render(render_once, summary: dict | None = None) -> dict:
             t0 = time.perf_counter()
             render_once()
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+            t1 = time.perf_counter()
+            wall_us = (t1 - t0) * 1e6
         launched = twt.LAUNCH_LOG
         curve_launched = tct.LAUNCH_LOG
     finally:
@@ -1576,6 +1679,14 @@ def profile_render(render_once, summary: dict | None = None) -> dict:
     kern = [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
             for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA]
+    read_s = time.perf_counter() - t1
+    if stages is not None:
+        tally = stage_tally(kern, stages)
+        n_kern = len(kern)
+        kern = [k for k in kern if MARKER not in k[2]]
+        if summary is not None:
+            summary["stages"] = tally
+            summary["markers"] = n_kern - len(kern)
     if not kern:
         log("profile: the profiler recorded no device activity (device "
             "busy share not measured)")
@@ -1611,7 +1722,8 @@ def profile_render(render_once, summary: dict | None = None) -> dict:
         f"wave kernels {wave / 1e3:.1f} ms ({wave / total * 100:.1f} % of "
         f"kernel time)" + (f"; C1 {curve / 1e3:.1f} ms "
                            f"({curve / total * 100:.1f} %)"
-                           if curve_launched else ""))
+                           if curve_launched else "")
+        + f"; stopped and read in {read_s:.1f} s")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (us, n) in top:
         log(f"  {us / 1e3:9.2f} ms {n:6d}x {us / total * 100:5.1f} %  "
@@ -1922,7 +2034,7 @@ def server_run(path: str) -> None:
 # ----------------------------------------------------- replay, parallel
 
 REPLAY_PARAMS = ("tex_const", "light_emission", "bsdf_params")
-REPLAY_SMALL = (64, 4, 16)    # phase 14(c)-(d): resolution, spp, bounces
+REPLAY_SMALL = (64, 4, 8)     # phase 14(c)-(d): resolution, spp, bounces
 DP_RES, DP_SPP = 128, 2       # phase 15: the data-parallel frame
 GRAD_TOL = ("rtol 1e-3 on entries above 1e-2 * max|g|, the rest within "
             "1e-3 * max|g| (a lane may part where the kernel and the plain "
@@ -2300,7 +2412,11 @@ def check_data_parallel(path, card) -> dict:
 # ------------------------------------------------- BDPT, the light tracer
 
 BDPT_VERTICES = 8
-BDPT_SMALL = (64, 4, 8)      # phase 16(c)-(e): resolution, spp, bounces
+BDPT_SMALL = (64, 4, 4)      # phase 16(c)-(e): resolution, spp, bounces
+# phase 16(d)'s bounces: the media scene's BDPT on the CPU is the run's
+# slowest check (111 s at 8 bounces, 43 s at 4), cut to keep the run
+# well inside its time limit
+BDPT_MEDIA_BOUNCES = 2
 SPLATTING = ("bidirectional_path_tracer", "light_tracer")
 
 
@@ -2386,7 +2502,7 @@ def check_splat(path, mpath, pt_img, card, twt) -> dict:
     mscene, msettings = flatten_scene(load_scene(mpath))
     zero_counts()
     cross_path(mscene, splat_settings(msettings, SPLATTING[0]),
-               max_bounces=bounces, res=(res, res))
+               max_bounces=BDPT_MEDIA_BOUNCES, res=(res, res))
     out["media_launches"] = read_counts()
     log(f"  media scene launches (card side): {out['media_launches']}")
     if not (out["media_launches"].get("closest", 0) > 0 and
@@ -2418,6 +2534,457 @@ def check_splat(path, mpath, pt_img, card, twt) -> dict:
         images_agree(f"cli {name} buffer vs the 8-spp path-traced post-pass",
                      got, ref, 1e-4, 1e-5, 0.999, 1e-4)
     out["cli"] = cli
+    return out
+
+
+# ------------------------------------------------------------ photon maps
+
+PHOTON_INTEGRATOR = {"type": "photon_map", "max_bounces": MAX_BOUNCES,
+                     "photon_count": 1 << 20, "gather_photon_count": 20,
+                     "gather_radius": 0.1}
+# the fog's volume gather radius: at 65,536 paths a round the fog holds
+# about 4 volume photons a cubic unit, so a 0.1 sphere would hold almost
+# none; 0.5 holds a few
+PHOTON_FOG_RADIUS = 0.5
+PHOTON_VOL_SPP = 4                # phase 17(c)
+PHOTON_VOL_BOUNCES = 16           # phase 17(c)'s depth (the fog's long tail)
+PHOTON_SMALL = (64, 4, 8)         # phase 17(d)-(e): resolution, spp, bounces
+PHOTON_LIST_PATHS = 16384         # phase 17(d): the paths held against the CPU
+PHOTON_SMALL_PATHS = 1 << 16      # phase 17(d)'s images: photon paths a round
+PHOTON_SMALL_VOL = 2000           # and the paths the beam / plane maps keep
+# phase 17(d)'s volume-map images: the CPU's beam and plane gathers, the
+# phase's slowest checks (27 s and 55 s at 64x64), grow with the camera
+# rays
+PHOTON_FOG_CROSS_RES = 32
+VOLUME_KINDS = ("points", "beams", "planes")
+PEAK_LIMIT_MIB = 16 * 1024
+# the kernels line's tag for each of check_photon's renders
+PHOTON_TAGS = (("photon_map", "photon"), ("ppm", "ppm"),
+               ("photon_points", "fog_points"),
+               ("photon_beams", "fog_beams"),
+               ("photon_planes", "fog_planes"))
+# the photon module's stages: its functions by the stage each is timed in
+PHOTON_STAGES = {"trace_photons": "photon pass", "build_photon_grid": "grid",
+                 "build_beam_grid": "grid", "build_plane_grid": "grid",
+                 "camera_walk": "camera pass", "gather_walk": "camera pass",
+                 "beam_pass": "camera pass", "plane_pass": "camera pass",
+                 "_gather_estimate": "gather", "_volume_march": "gather",
+                 "_beam_eval": "gather", "_plane_eval": "gather"}
+
+
+def write_photon_scenes(dirpath: str) -> tuple[str, str]:
+    """The smoke scene without its sky (the 24 spheres and the floor lit by
+    the quad light alone, so every light emits photons) under photon_map,
+    and the same in phase 8's fog layout (no voxel cube) with the light's
+    and the surfaces' exterior medium the fog (photons enter a medium
+    only through their emitter's).  Returns (surface path, fog path)."""
+    os.makedirs(dirpath, exist_ok=True)
+    path = write_scene(dirpath)
+    with open(path) as f:
+        sj = json.load(f)
+    sj["primitives"] = [p for p in sj["primitives"]
+                        if p["type"] != "infinite_sphere"]
+    sj["integrator"] = dict(PHOTON_INTEGRATOR)
+    spath = os.path.join(dirpath, "photon.json")
+    with open(spath, "w") as f:
+        json.dump(sj, f, indent=1)
+    for p in sj["primitives"]:
+        p["ext_medium"] = "fog"
+    fog_layout(sj)
+    sj["integrator"]["volume_gather_radius"] = PHOTON_FOG_RADIUS
+    fpath = os.path.join(dirpath, "photon_fog.json")
+    with open(fpath, "w") as f:
+        json.dump(sj, f, indent=1)
+    return spath, fpath
+
+
+class photon_stages:
+    """Wraps the photon module's stages (PHOTON_STAGES) while open.  In
+    "events" mode CUDA events time the outer stages (photon pass, grid,
+    camera pass) and each photon wave's rounds, paths, deposits, beams
+    and planes are counted (one host read a wave); in "markers" mode a
+    marker kernel is launched before and after every stage and logged
+    for stage_tally.  `calls` counts each function's calls."""
+
+    def __init__(self, mode: str):
+        self.mode = mode
+        self.events, self.log, self.waves = [], [], []
+        self.calls = {n: 0 for n in PHOTON_STAGES}
+
+    def __enter__(self):
+        from tungsten_tpu_torch.integrators import photon_map as pm
+        self.pm = pm
+        self.orig = {n: getattr(pm, n) for n in PHOTON_STAGES}
+        for n, stage in PHOTON_STAGES.items():
+            setattr(pm, n, self._wrap(n, stage))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.pm, n, fn)
+
+    def _wrap(self, name, stage):
+        import torch
+        fn = self.orig[name]
+
+        def f(*a, **k):
+            self.calls[name] += 1
+            if self.mode == "markers":
+                torch.cuda._sleep(1)
+                self.log.append((stage, "b"))
+                out = fn(*a, **k)
+                torch.cuda._sleep(1)
+                self.log.append((stage, "e"))
+                return out
+            if stage == "gather":
+                return fn(*a, **k)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = fn(*a, **k)
+            t1.record()
+            self.events.append((stage, t0, t1))
+            if name == "trace_photons":
+                rounds = len(a[3]) if isinstance(a[3], (list, tuple)) else 1
+                self.waves.append(
+                    {"rounds": rounds, "paths": int(a[2]) * rounds,
+                     "deposits": int(out["valid"].sum()),
+                     "volume": int((out["valid"] & out["vol"]).sum()),
+                     "beams": int(out["b_valid"].sum()),
+                     "planes": int(out["pl_valid"].sum())
+                     if "pl_valid" in out else 0})
+            return out
+        return f
+
+    def split(self) -> dict:
+        import torch
+        torch.cuda.synchronize()
+        out = {}
+        for stage, t0, t1 in self.events:
+            out[stage] = out.get(stage, 0.0) + t0.elapsed_time(t1)
+        return out
+
+
+def photon_render(scene, settings, card, twt, spp: int, tag: str) -> dict:
+    """A photon-map render from zero launch counts: rays, wall, Mrays/s,
+    launches, paths and deposits a round, the wall split into photon
+    pass, grid and camera pass (CUDA events), the peak device memory;
+    then one more under torch.profiler with stage markers: launches a
+    render, device busy share, top kernels, device ms by stage and the
+    gather's share (grid builds plus the gathers)."""
+    import numpy as np
+    import torch
+    from tungsten_tpu_torch.render import render
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**20
+    with photon_stages("events") as st:
+        img, stats, launches = render_counted(scene, settings, twt, spp)
+        split = st.split()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    w0 = st.waves[0]
+    log(f"  {tag}: {settings.integrator_type} {settings.width}x"
+        f"{settings.height} {spp} spp max_bounces {settings.max_bounces} "
+        f"photon_count {settings.photon_count} (gather {settings.gather_count}"
+        f" within {settings.gather_radius}, volume {settings.vol_photon_type} "
+        f"within {settings.vol_gather_radius}): {stats['time']:.3f} s, "
+        f"{stats['rays']} rays, {stats['mrays_per_s']:.3f} Mrays/s on {card}; "
+        f"launches { {k: v for k, v in launches.items() if v} }; "
+        f"{len(st.waves)} photon waves, the first of {w0['rounds']} rounds "
+        f"and {w0['paths']} paths: {w0['deposits']} deposits "
+        f"({w0['volume']} in the volume), {w0['beams']} beams, "
+        f"{w0['planes']} planes; wall split "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+        + f"; peak device memory {peak:.1f} MiB ({base:.1f} held before); "
+        f"image mean {img.mean():.6f}")
+    if not (np.isfinite(img).all() and img.mean() > 0):
+        raise AssertionError(f"{tag}: image not finite or black")
+    if peak > PEAK_LIMIT_MIB:
+        raise AssertionError(f"{tag}: peak device memory {peak:.0f} MiB")
+    summ: dict = {}
+
+    def once():
+        # sentinel markers open the profile, after a short wait: the
+        # profiler drops its first events (9 of the first 108 in a late
+        # profile of a long run), and stage_tally pairs the last markers
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        render(scene, settings, spp=spp, seed=SEED, spp_chunk=spp)
+
+    with photon_stages("markers") as mk:
+        prof = profile_render(once, summary=summ, stages=mk.log)
+    stages = summ.get("stages")
+    if stages is None:
+        log(f"  {tag}: {len(mk.log)} stage markers and {SENTINELS} "
+            f"sentinels launched, {summ.get('markers')} marker events in "
+            f"the profile")
+    total = sum(stages.values()) if stages else 0.0
+    gather = (stages.get("grid", 0.0) + stages.get("gather", 0.0)) / total \
+        if total else None
+    summ["gather_share"] = gather
+    log(f"  {tag}: {summ.get('launches')} kernel launches a render, device "
+        f"idle {summ.get('idle')}; device ms by stage "
+        + (", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+           if stages else "not measured (markers did not pair)")
+        + (f"; grid + gather {gather * 100:.1f} % of kernel time"
+           if gather is not None else ""))
+    return dict(img=img, stats=stats, launches=launches, split=split,
+                waves=st.waves, peak_mib=peak, prof=prof, summary=summ)
+
+
+def photon_lists_agree(name, scene, settings) -> dict:
+    """The first round's photon list (its first PHOTON_LIST_PATHS paths)
+    traced on the card and on the CPU: the flags equal on >= 0.999 of
+    slots, positions, directions and powers (and the beam and plane
+    fields) within rtol 1e-5 / atol 1e-6 on >= 0.95 and within rtol
+    1e-3 / atol 1e-4 on >= 0.995 of the slots valid on both (K1's t is
+    an ulp off the plain walk's; a photon reflected off a chain of
+    curved mirrors after such a hit drifts further, and the shading
+    normal's asymmetry factor grows without bound at grazing hits), rays
+    within 0.1 %."""
+    import numpy as np
+    from tungsten_tpu_torch.integrators import photon_map as pm
+    from tungsten_tpu_torch.render import PHOTON_CHUNK
+    B = max(settings.max_bounces - 1, 1)
+    n_paths = min(max(settings.photon_count // B, PHOTON_CHUNK),
+                  PHOTON_LIST_PATHS)
+    t0 = time.time()
+    g = {k: v.cpu().numpy() for k, v in pm.trace_photons(
+        scene, settings, n_paths, SEED).items()}
+    w = {k: v.numpy() for k, v in pm.trace_photons(
+        scene.to("cpu"), settings, n_paths, SEED).items()}
+    flags, close, loose, err = {}, {}, {}, {}
+    for k in ("valid", "vol", "bounce", "b_valid", "pl_valid"):
+        if k in g:
+            flags[k] = float((g[k] == w[k]).mean())
+    for k, v in (("pos", "valid"), ("dir", "valid"), ("power", "valid"),
+                 ("b_o", "b_valid"), ("b_pow", "b_valid"),
+                 ("pl_p1", "pl_valid"), ("pl_pow", "pl_valid")):
+        m = g[v] & w[v] if k in g else None
+        if m is None or not m.any():
+            continue
+        for d, rtol, atol in ((close, 1e-5, 1e-6), (loose, 1e-3, 1e-4)):
+            ok = np.isclose(g[k], w[k], rtol=rtol, atol=atol)
+            d[k] = float(ok.reshape(len(ok), -1).all(-1)[m].mean())
+        gk, wk = g[k].reshape(len(g[k]), -1), w[k].reshape(len(w[k]), -1)
+        rel = np.abs(gk - wk).max(-1) / np.maximum(np.abs(wk).max(-1), 1e-6)
+        rel = rel[m]
+        err[k] = [float(x) for x in np.quantile(rel, [0.99, 0.999, 1.0])]
+    log(f"  {name} photon list ({n_paths} paths x {B} slots, "
+        f"{int(w['valid'].sum())} deposits, rays {int(g['rays'])} vs "
+        f"{int(w['rays'])}), card vs CPU: flags equal "
+        + ", ".join(f"{k} {v:.5f}" for k, v in flags.items())
+        + "; within rtol 1e-5 / atol 1e-6 "
+        + ", ".join(f"{k} {v:.5f}" for k, v in close.items())
+        + "; within rtol 1e-3 / atol 1e-4 "
+        + ", ".join(f"{k} {v:.5f}" for k, v in loose.items())
+        + "; error over the slot's largest entry, p99 / p99.9 / max "
+        + ", ".join(f"{k} {a:.2e} / {b:.2e} / {c:.2e}"
+                    for k, (a, b, c) in err.items())
+        + f"; {time.time() - t0:.1f} s")
+    if not (all(v >= 0.999 for v in flags.values()) and
+            all(v >= 0.95 for v in close.values()) and
+            all(v >= 0.995 for v in loose.values()) and
+            abs(int(g["rays"]) / int(w["rays"]) - 1.0) <= 1e-3):
+        raise AssertionError(f"{name}: photon lists disagree")
+    return dict(flags=flags, close=close, loose=loose, rel_err=err)
+
+
+def photon_images_agree(name, scene, settings, walks=None) -> dict:
+    """A render on the card and one on the CPU gathered from the same
+    photon lists (the card's, copied to the CPU), under phase 6's gates;
+    returns the share of pixels off and the means.  `walks`, a list,
+    carries the CPU's camera walks from one call to the next (the walk
+    does not depend on the volume map): empty, it is filled; else its
+    walks are taken in order."""
+    import numpy as np
+    from tungsten_tpu_torch.integrators import photon_map as pm
+    from tungsten_tpu_torch.render import render
+    _, spp, _ = PHOTON_SMALL
+    orig, orig_walk = pm.trace_photons, pm.camera_walk
+    kept = []
+    replay_walks = list(walks) if walks else None
+
+    def card(*a, **k):
+        out = orig(*a, **k)
+        kept.append({x: v.cpu() for x, v in out.items()})
+        return out
+
+    def replay(*a, **k):
+        return dict(kept.pop(0))
+
+    def cpu_walk(*a, **k):
+        if replay_walks is not None:
+            return replay_walks.pop(0)
+        out = orig_walk(*a, **k)
+        if walks is not None:
+            walks.append(out)
+        return out
+
+    t0 = time.time()
+    try:
+        pm.trace_photons = card
+        gpu = render(scene, settings, spp=spp, seed=SEED, spp_chunk=spp)
+        pm.trace_photons, pm.camera_walk = replay, cpu_walk
+        cpu = render(scene.to("cpu"), settings, spp=spp, seed=SEED,
+                     spp_chunk=spp, device="cpu")
+    finally:
+        pm.trace_photons, pm.camera_walk = orig, orig_walk
+    close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1)
+    off = 1.0 - close.mean()
+    rel = abs(gpu.mean() / cpu.mean() - 1.0)
+    whole = 1.0 - np.isclose(gpu, cpu, rtol=1e-5, atol=1e-6).all(-1).mean()
+    log(f"  {name} {settings.width}x{settings.height} {spp} spp "
+        f"max_bounces {settings.max_bounces} from the same photons: "
+        f"{off * 100:.3f} % of pixels off by more than rtol 1e-3 (atol "
+        f"1e-4), {whole * 100:.3f} % by more than rtol 1e-5, mean "
+        f"{gpu.mean():.6f} vs {cpu.mean():.6f} ({rel * 100:.4f} %), "
+        f"{time.time() - t0:.1f} s")
+    if not (off <= 0.01 and rel <= 0.005 and gpu.mean() > 0):
+        raise AssertionError(f"{name}: card and CPU images disagree")
+    return dict(off=off, off_1e5=whole, rel_mean=rel)
+
+
+def check_photon(path, card, twt) -> dict:
+    """Phase 17: the photon maps.  (a) the surface map at full width with
+    its profile and the path tracer's image of the same scene; (b) PPM;
+    (c) the three volume maps on the fog scene, and phase 8's voxel scene
+    asked for beams taking the points estimator; (d) the card against
+    the CPU on photon lists and on images gathered from one photon list;
+    (e) the CLI and the server."""
+    import numpy as np
+    from tungsten_tpu_torch.render import render
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.parse import load_scene
+    out = {}
+    spath, fpath = write_photon_scenes(
+        os.path.join(os.path.dirname(path), "photon"))
+    scene, settings = flatten_scene(load_scene(spath))
+    if not (settings.integrator_type == "photon_map" and
+            not settings.has_env and settings.num_lights == 1 and
+            settings.photon_count == 1 << 20):
+        raise AssertionError("photon scene off its layout")
+    log("  (a) the surface map:")
+    a = photon_render(scene, settings, card, twt, SPP, "photon_map")
+    if not (a["launches"]["closest"] > 0 and
+            set(k for k, v in a["launches"].items() if v) == {"closest"}):
+        raise AssertionError(f"photon_map: not K1 alone {a['launches']}")
+    pt = render(scene, replace(settings, integrator_type="path_tracer"),
+                spp=SPP, seed=SEED, spp_chunk=SPP)
+    a["vs_path_tracer"] = a["img"].mean() / pt.mean()
+    log(f"  photon map mean {a['img'].mean():.6f} over the path tracer's "
+        f"{pt.mean():.6f} (same scene, {SPP} spp): "
+        f"{a['vs_path_tracer']:.4f}")
+    if not 0.25 < a["vs_path_tracer"] < 4.0:
+        raise AssertionError("photon_map: mean far off the path tracer's")
+    out["photon"] = a
+    log("  (b) progressive photon map:")
+    ppm_settings = replace(settings, integrator_type="progressive_photon_map",
+                           ppm_alpha=0.3)
+    b = photon_render(scene, ppm_settings, card, twt, SPP, "ppm")
+    if not (b["launches"]["closest"] > 0 and
+            set(k for k, v in b["launches"].items() if v) == {"closest"}):
+        raise AssertionError(f"ppm: not K1 alone {b['launches']}")
+    b["vs_path_tracer"] = b["img"].mean() / pt.mean()
+    log(f"  PPM mean over the path tracer's: {b['vs_path_tracer']:.4f}")
+    out["ppm"] = b
+    del pt
+
+    log(f"  (c) the volume maps, {PHOTON_VOL_SPP} spp:")
+    fscene, fsettings = flatten_scene(load_scene(fpath))
+    if not (fsettings.has_media and int(fscene.cam_medium) == 0 and
+            fsettings.vol_gather_radius == PHOTON_FOG_RADIUS):
+        raise AssertionError("photon fog scene off its layout")
+    fsettings = replace(fsettings, max_bounces=PHOTON_VOL_BOUNCES)
+    fpt = render(fscene, replace(fsettings, integrator_type="path_tracer"),
+                 spp=PHOTON_VOL_SPP, seed=SEED, spp_chunk=PHOTON_VOL_SPP)
+    for kind in VOLUME_KINDS:
+        c = photon_render(fscene, replace(fsettings, vol_photon_type=kind),
+                          card, twt, PHOTON_VOL_SPP, f"fog {kind}")
+        ran = set(k for k, v in c["launches"].items() if v)
+        want = {"closest", "anyhit"} if kind == "planes" else {"closest"}
+        if ran != want:
+            raise AssertionError(f"fog {kind}: launched {c['launches']}")
+        c["vs_path_tracer"] = c["img"].mean() / fpt.mean()
+        out[f"fog_{kind}"] = c
+    log("  fog: " + "; ".join(
+        f"{k} {out['fog_' + k]['stats']['time']:.3f} s, launches "
+        f"{out['fog_' + k]['summary'].get('launches')}, peak "
+        f"{out['fog_' + k]['peak_mib']:.0f} MiB, mean "
+        f"{out['fog_' + k]['img'].mean():.6f} "
+        f"({out['fog_' + k]['vs_path_tracer']:.4f} of the path tracer's "
+        f"{fpt.mean():.6f})" for k in VOLUME_KINDS))
+    del fpt
+    mpath = os.path.join(os.path.dirname(path), "media.json")
+    mscene, msettings = flatten_scene(load_scene(mpath))
+    res, spp, bounces = PHOTON_SMALL
+    vox = replace(msettings, integrator_type="photon_map", width=res,
+                  height=res, max_bounces=bounces, gather_radius=0.1,
+                  vol_gather_radius=PHOTON_FOG_RADIUS)
+    imgs, calls = {}, {}
+    for kind in ("beams", "points"):
+        with photon_stages("events") as st:
+            imgs[kind] = render(mscene, replace(vox, vol_photon_type=kind),
+                                spp=1, seed=SEED)
+        calls[kind] = {n: c for n, c in st.calls.items() if c}
+    log(f"  phase 8's scene (medium kinds {msettings.med_kinds}) asked for "
+        f"beams calls {calls['beams']}, asked for points {calls['points']};"
+        f" means {imgs['beams'].mean():.6f} vs {imgs['points'].mean():.6f}")
+    if not (calls["beams"] == calls["points"] and
+            calls["beams"].get("_volume_march", 0) > 0 and
+            "build_beam_grid" not in calls["beams"]):
+        raise AssertionError("voxel scene asked for beams: not the points "
+                             "estimator")
+    images_agree("voxel scene, beams vs points", imgs["beams"],
+                 imgs["points"], 1e-4, 1e-5, 0.999, 1e-4)
+    del mscene
+
+    log(f"  (d) {res}x{res} {spp} spp max_bounces {bounces} (the volume "
+        f"maps' images {PHOTON_FOG_CROSS_RES}x{PHOTON_FOG_CROSS_RES}) "
+        f"against the CPU:")
+    small = dict(width=res, height=res, max_bounces=bounces)
+    out["lists"] = {
+        "surface": photon_lists_agree("surface", scene,
+                                      replace(settings, **small)),
+        "fog planes": photon_lists_agree(
+            "fog planes", fscene,
+            replace(fsettings, vol_photon_type="planes", **small))}
+    out["images"] = {}
+    walks: list = []
+    fog_small = dict(small, width=PHOTON_FOG_CROSS_RES,
+                     height=PHOTON_FOG_CROSS_RES)
+    for name, sc, st, sm in (
+            ("photon_map", scene, settings, small),
+            ("ppm", scene, ppm_settings, small),
+            *((f"fog {k}", fscene, replace(fsettings, vol_photon_type=k),
+               fog_small) for k in VOLUME_KINDS)):
+        out["images"][name] = photon_images_agree(
+            name, sc, replace(st, photon_count=PHOTON_SMALL_PATHS
+                              * (bounces - 1),
+                              vol_photon_count=PHOTON_SMALL_VOL, **sm),
+            walks if name.startswith("fog") else None)
+    del scene, fscene
+
+    log(f"  (e) the CLI ({res}x{res}, {SPP} spp, output buffers) and the "
+        f"server:")
+    cpath = scene_variant(spath, "photon_cli.json", res=res, spp=SPP,
+                          integrator=dict(PHOTON_INTEGRATOR),
+                          output_file="photon.png",
+                          hdr_output_file="photon.pfm",
+                          output_buffers=BUFFER_SPECS)
+    out["cli"] = cli_run(cpath, os.path.join(os.path.dirname(spath),
+                                             "cli_photon"), twt, res)
+    names = sorted(os.path.basename(f) for f in out["cli"]["files"])
+    want = sorted(["photon.png", "photon.pfm", "color.pfm",
+                   "colorVariance.pfm", "colorA.pfm", "colorB.pfm",
+                   "depth.pfm", "normal.pfm", "albedo.pfm", "visibility.pfm"])
+    if names != want:
+        raise AssertionError(f"photon cli: wrote {names}")
+    server_run(scene_variant(spath, "photon_server.json", res=res, spp=2,
+                             spp_step=1, integrator=dict(PHOTON_INTEGRATOR)))
     return out
 
 
@@ -2478,7 +3045,9 @@ def main() -> int:
 
     kind = torch.cuda.get_device_name(0)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, device {kind}")
+        f"CUDA {torch.version.cuda}, device {kind}; host CPUs "
+        f"{os.cpu_count()}, {len(os.sched_getaffinity(0))} usable, torch "
+        f"CPU threads {torch.get_num_threads()}")
 
     # 1. card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2596,6 +3165,7 @@ def main() -> int:
         zprim, zcont, zshadow = check_scene_kernels(zscene, zsettings)
         mark("large scene (b)")
         log("  (c) render:")
+        zsettings = replace(zsettings, max_bounces=ZOO_BOUNCES)
         zimg, zstats, zlaunches = render_counted(zscene, zsettings, twt)
         log(f"  {zsettings.width}x{zsettings.height} {SPP} spp max_bounces "
             f"{zsettings.max_bounces}: {zstats['time']:.3f} s, "
@@ -2612,7 +3182,7 @@ def main() -> int:
         zprof = profile_render(lambda: render(zscene, zsettings, spp=SPP,
                                               seed=SEED, spp_chunk=SPP))
         mark("large scene (c)")
-        # (d) at 16 bounces: the CPU plain walk of 606k triangles costs
+        # (d) at 8 bounces: the CPU plain walk of 606k triangles costs
         # seconds a bounce body, and glass keeps paths alive to the limit
         log("  (d)")
         cross_path(zscene, zsettings, max_bounces=ZOO_CROSS_BOUNCES)
@@ -2656,6 +3226,7 @@ def main() -> int:
         mhop = check_media_hop(mscene, msettings)
         mark("media (b)")
         log("  (c) render:")
+        msettings = replace(msettings, max_bounces=MEDIA_BOUNCES)
         mimg, mstats, mlaunches = render_counted(mscene, msettings, twt)
         log(f"  {msettings.width}x{msettings.height} {SPP} spp max_bounces "
             f"{msettings.max_bounces}: {mstats['time']:.3f} s, "
@@ -2677,7 +3248,7 @@ def main() -> int:
             f"render beside {mstats['mrays_per_s']:.3f} Mrays/s")
         mark("media (c)")
         log("  (d)")
-        cross_path(mscene, msettings)
+        cross_path(mscene, msettings, max_bounces=MEDIA_CROSS_BOUNCES)
         mark("media (d)")
         del mscene
 
@@ -2735,10 +3306,11 @@ def main() -> int:
             f"render beside {ostats['mrays_per_s']:.3f} Mrays/s")
         mark("outdoor (c)")
         log("  (d)")
-        cross_path(oscene, osettings)
-        cross_path(oscene, osettings, res=(32, 32),
-                   camera_type="equirectangular")
-        cross_path(oscene, osettings, res=(32, 24), camera_type="cubemap",
+        cross_path(oscene, osettings, max_bounces=OUTDOOR_CROSS_BOUNCES)
+        cross_path(oscene, osettings, max_bounces=OUTDOOR_CROSS_BOUNCES,
+                   res=(32, 32), camera_type="equirectangular")
+        cross_path(oscene, osettings, max_bounces=OUTDOOR_CROSS_BOUNCES,
+                   res=(32, 24), camera_type="cubemap",
                    cubemap_mode="horizontal_cross")
         mark("outdoor (d)")
         del oscene
@@ -2810,6 +3382,7 @@ def main() -> int:
         hcam, hshadow, hcont = check_hair_kernels(hscene, hsettings)
         mark("hair (b)")
         log("  (c) render:")
+        hsettings = replace(hsettings, max_bounces=HAIR_BOUNCES)
         himg, hstats, hlaunches = render_counted(hscene, hsettings, twt)
         log(f"  {hsettings.width}x{hsettings.height} {SPP} spp max_bounces "
             f"{hsettings.max_bounces}: {hstats['time']:.3f} s, "
@@ -2909,7 +3482,13 @@ def main() -> int:
         sp = check_splat(path, mpath, img, card, twt)
         mark("bdpt / light tracer")
 
-    # 17. kernels line and result
+        # 17. the photon maps: the surface map, PPM and the three volume
+        # maps on K1 (and K2 for the planes' shadow rays)
+        log("photon maps:")
+        ph = check_photon(path, card, twt)
+        mark("photon maps")
+
+    # 18. kernels line and result
     closest_tol = ("vs plain walk: hit-set agreement > 0.998, same triangle "
                    "> 0.999, t within rtol 2e-3 on > 0.999 (the kernel's "
                    "own t and after the finalize), u/v atol 2e-3; "
@@ -2934,7 +3513,9 @@ def main() -> int:
                "the analytic hits; outdoor_launches / outdoor_render_ms: "
                "its render's")
     splat = ("; bdpt_* / light_*: launches and device ms in the full-width "
-             "bidirectional path tracer and light tracer renders (phase 16)")
+             "bidirectional path tracer and light tracer renders (phase 16)"
+             "; photon_map_* / ppm_* / photon_{points,beams,planes}_*: the "
+             "same in the photon-map renders (phase 17)")
     k1 = "tungsten_tpu/ops/wave_trace.py:300"
     k3 = "tungsten_tpu/ops/wave_trace.py:724"
     k1_row = kernel_row("wave_trace_closest", "closest", prim, launches, k1,
@@ -2951,7 +3532,9 @@ def main() -> int:
                             ("bdpt", sp["bdpt"]["launches"],
                              sp["bdpt"]["prof"]),
                             ("light", sp["light"]["launches"],
-                             sp["light"]["prof"])):
+                             sp["light"]["prof"])) + tuple(
+                (tag, ph[key]["launches"], ph[key]["prof"])
+                for tag, key in PHOTON_TAGS):
             if tag == "media" and mode == "anyhit":
                 continue
             row[f"{tag}_launches"] = lc[mode]
@@ -3055,7 +3638,17 @@ def main() -> int:
             f"{r['peak_mib']:.1f}"
             for tag, r in (("bdpt", sp["bdpt"]), ("light", sp["light"]))) +
         f" bdpt_vs_pt {sp['bdpt']['vs_path_tracer']:.5f} cli_bdpt_s "
-        f"{sp['cli']['seconds']:.3f} total_s {time.time() - t_start:.1f}")
+        f"{sp['cli']['seconds']:.3f} " + " ".join(
+            f"{tag}_render_s {ph[k]['stats']['time']:.3f} {tag}_mrays_per_s "
+            f"{ph[k]['stats']['mrays_per_s']:.3f} {tag}_rays "
+            f"{ph[k]['stats']['rays']} {tag}_launches_per_render "
+            f"{ph[k]['summary'].get('launches')} {tag}_idle "
+            f"{ph[k]['summary'].get('idle')} {tag}_gather_share "
+            f"{ph[k]['summary'].get('gather_share')} {tag}_peak_mib "
+            f"{ph[k]['peak_mib']:.1f} {tag}_vs_pt "
+            f"{ph[k]['vs_path_tracer']:.5f}" for tag, k in PHOTON_TAGS) +
+        f" cli_photon_s {ph['cli']['seconds']:.3f} total_s "
+        f"{time.time() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

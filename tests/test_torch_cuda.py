@@ -49,7 +49,12 @@ one-rank NCCL group gives the replay's loss and gradients.  A BDPT wave
 on the card (walks on K1, connections on K2) agrees with the plain path
 on the CPU lane for lane, and BDPT and light-tracer renders, and a BDPT
 render of fog, forward-lobe surfaces and a thinlens camera through K1
-alone, match the plain path's images.
+alone, match the plain path's images.  The photon pass on the card (K1)
+agrees with the plain path's slot for slot, the photon, beam and plane
+grids built on the card are the CPU's bitwise, the k nearest photons
+are selected bitwise and the four gathers agree; photon-map and PPM
+renders of the surface map and the three volume maps (K2 in planes
+mode) match the plain path's images.
 """
 from types import SimpleNamespace
 
@@ -1650,3 +1655,208 @@ def test_cuda_bdpt_media_render_matches_plain_path(cuda_device):
     close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1)
     assert close.mean() >= 0.99, close.mean()
     assert abs(gpu.mean() / cpu.mean() - 1.0) <= 5e-3
+
+
+# ------------------------------------------ the photon maps (K1 and K2)
+
+def _photon_desc(volume=None):
+    """The BDPT card scene under photon_map (32x24, max_bounces 4, 65,536
+    photon paths, gather radius 0.1); with `volume` its room filled with
+    a homogeneous fog the light and the surfaces face (their exterior
+    medium) and the camera sits in, with that volume photon type."""
+    desc = _bdpt_desc()
+    desc.integrator = {"type": "photon_map", "max_bounces": 4,
+                       "photon_count": 1 << 16, "gather_radius": 0.1,
+                       "gather_photon_count": 16}
+    if volume:
+        desc.media = [{"type": "homogeneous", "sigma_a": 0.02,
+                       "sigma_s": 0.25}]
+        for p in desc.primitives:
+            p["ext_medium_index"] = 0
+        desc.camera["medium_index"] = 0
+        desc.integrator.update(volume_photon_type=volume,
+                               volume_gather_radius=0.3,
+                               volume_photon_count=2000)
+    return desc
+
+
+def _photons_agree(got, want):
+    """Flags equal on >= 0.999 of slots; positions, directions and
+    powers (and the beam and plane fields) within rtol 1e-5 / atol 1e-6
+    on >= 0.95 and within rtol 1e-3 / atol 1e-4 on >= 0.995 of the slots
+    valid on both (the kernels' t is an ulp off the plain walk's, and a
+    photon reflected off a curved mirror after such a hit drifts
+    further)."""
+    g = {k: v.cpu().numpy() for k, v in got.items()}
+    w = {k: v.numpy() for k, v in want.items()}
+    assert set(g) == set(w)
+    for k in ("valid", "vol", "bounce", "b_valid", "pl_valid"):
+        if k in g:
+            assert (g[k] == w[k]).mean() >= 0.999, k
+    for k, v in (("pos", "valid"), ("dir", "valid"), ("power", "valid"),
+                 ("b_o", "b_valid"), ("b_pow", "b_valid"),
+                 ("pl_p1", "pl_valid"), ("pl_pow", "pl_valid")):
+        if k not in g or not (g[v] & w[v]).any():
+            continue
+        m = g[v] & w[v]
+        for share, rtol, atol in ((0.95, 1e-5, 1e-6), (0.995, 1e-3, 1e-4)):
+            ok = np.isclose(g[k], w[k], rtol=rtol, atol=atol)
+            ok = ok.reshape(len(ok), -1).all(-1)[m]
+            assert ok.mean() >= share, (k, rtol, ok.mean())
+    assert abs(int(g["rays"]) / int(w["rays"]) - 1.0) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("volume", [None, "planes"])
+def test_cuda_photons_match_plain_path(cuda_device, volume):
+    """The photon pass on the card (its walk on K1) against the plain
+    path on the CPU, slot for slot (_photons_agree); then the grids
+    built on the card from the CPU's photons are the CPU's bitwise, and
+    the gathers on them select the same photons (the k nearest bitwise)
+    and estimate within rtol 1e-5 (atol 1e-6 of the largest)."""
+    from tungsten_tpu_torch.integrators import photon_map as pm
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.utils import vecmath as vm
+    scene, settings = flatten_scene(_photon_desc(volume))
+    cpu_scene = scene.to("cpu")
+    before = dict(twt.LAUNCHES)
+    got = pm.trace_photons(scene, settings, 8192, 7)
+    assert twt.LAUNCHES["closest"] > before["closest"]
+    want = pm.trace_photons(cpu_scene, settings, 8192, 7)
+    _photons_agree(got, want)
+    assert want["valid"].float().mean() > 0.05
+
+    cpu = {k: v for k, v in want.items() if k != "rays"}
+    dev = {k: v.to(cuda_device) for k, v in cpu.items()}
+    r = 0.3
+    kinds = [("surf", pm.build_photon_grid,
+              lambda ph: dict(ph, valid=ph["valid"] & ~ph["vol"]))]
+    if volume:
+        kinds += [("vol", pm.build_photon_grid,
+                   lambda ph: dict(ph, valid=ph["valid"] & ph["vol"])),
+                  ("beam", pm.build_beam_grid, lambda ph: ph),
+                  ("plane", pm.build_plane_grid, lambda ph: ph)]
+    grids = {}
+    for name, build, pick in kinds:
+        gc, gg = build(pick(cpu), r), build(pick(dev), r)
+        for k, v in gc.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(gg[k].cpu(), v), (name, k)
+            else:
+                assert gg[k] == v, (name, k)
+        assert gc["key"].shape[0] > 0, name
+        grids[name] = (gc, gg)
+
+    rng = np.random.default_rng(4)
+    pos = want["pos"][want["valid"]].numpy()
+    p = (pos[rng.integers(0, len(pos), 512)]
+         + rng.uniform(-0.1, 0.1, (512, 3))).astype(np.float32)
+    pc = torch.from_numpy(p)
+    K = settings.gather_count
+    sel_c = pm._knn(grids["surf"][0], r, K, pc)
+    sel_g = pm._knn(grids["surf"][1], r, K, pc.to(cuda_device))
+    for a, b in zip(sel_c, sel_g):
+        assert torch.equal(a, b.cpu())
+    assert torch.isfinite(sel_c[0]).sum() > 1000
+
+    def close(a, b):
+        b = b.cpu()
+        atol = 1e-6 * max(float(a.abs().max()), 1e-30)
+        return bool(torch.isclose(b, a, rtol=1e-5, atol=atol).all())
+
+    n = p.shape[0]
+    ns = torch.tensor([0.0, 1.0, 0.0]).expand(n, 3).contiguous()
+    tan, bit = (x.contiguous() for x in vm.ortho_frame(ns))
+    wi = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    wi[:, 2] = wi[:, 2].abs()
+    wi = wi / wi.norm(dim=-1, keepdim=True)
+    bsdf = torch.zeros((n,), dtype=torch.int64)
+    uv = torch.zeros((n, 2))
+    cb = torch.ones((n,), dtype=torch.int32)
+    args = (pc, (tan, bit, ns), wi, bsdf, uv, cb)
+    est_c = pm._gather_estimate(cpu_scene, settings, grids["surf"][0], r,
+                                *args)
+    est_g = pm._gather_estimate(
+        scene, settings, grids["surf"][1], r,
+        *[tuple(x.to(cuda_device) for x in a) if isinstance(a, tuple)
+          else a.to(cuda_device) for a in args])
+    assert close(est_c, est_g) and float(est_c.sum()) > 0
+    if not volume:
+        return
+    ptype = cpu_scene.med_phase[:1].expand(n).contiguous()
+    pg = cpu_scene.med_g[:1].expand(n).contiguous()
+    vc = pm._gather_volume(cpu_scene, settings, grids["vol"][0], r, pc, -wi,
+                           ptype, pg)
+    vg = pm._gather_volume(scene, settings, grids["vol"][1], r,
+                           pc.to(cuda_device), -wi.to(cuda_device),
+                           ptype.to(cuda_device), pg.to(cuda_device))
+    assert close(vc, vg) and float(vc.sum()) > 0
+    o = torch.tensor([0.0, 0.6, 4.0]).expand(64, 3).contiguous()
+    tgt = torch.from_numpy(rng.uniform([-2, -1, -2], [2, 2, 2], (64, 3))
+                           .astype(np.float32))
+    d = (tgt - o) / (tgt - o).norm(dim=-1, keepdim=True)
+    t1 = torch.full((64,), 5.0)
+    before = dict(twt.LAUNCHES)
+    for kind in ("beam", "plane"):
+        if kind == "beam":
+            ec = pm._beam_eval(cpu_scene, settings, grids[kind][0], r, o, d,
+                               t1)
+            eg = pm._beam_eval(scene, settings, grids[kind][1], r,
+                               o.to(cuda_device), d.to(cuda_device),
+                               t1.to(cuda_device))
+        else:
+            ec = pm._plane_eval(cpu_scene, settings, grids[kind][0], o, d, t1)
+            eg = pm._plane_eval(scene, settings, grids[kind][1],
+                                o.to(cuda_device), d.to(cuda_device),
+                                t1.to(cuda_device))
+        assert close(ec, eg) and float(ec.sum()) > 0, kind
+    assert twt.LAUNCHES["anyhit"] > before["anyhit"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator,volume", [
+    ("photon_map", None), ("progressive_photon_map", None),
+    ("photon_map", "points"), ("photon_map", "beams"),
+    ("photon_map", "planes")])
+def test_cuda_photon_render_matches_plain_path(cuda_device, integrator,
+                                               volume):
+    """A photon-map render (32x24, 2 spp) on the card against the plain
+    path on the CPU under phase 6's gates: K1 launches, and K2 too in
+    planes mode (the planes' shadow rays)."""
+    from dataclasses import replace
+    from tungsten_tpu_torch.render import render
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    scene, settings = flatten_scene(_photon_desc(volume))
+    settings = replace(settings, integrator_type=integrator)
+    before = dict(twt.LAUNCHES)
+    gpu = render(scene, settings, spp=2, seed=7, spp_chunk=2)
+    assert twt.LAUNCHES["closest"] > before["closest"]
+    assert (twt.LAUNCHES["anyhit"] > before["anyhit"]) == (volume == "planes")
+    cpu = render(scene.to("cpu"), settings, spp=2, seed=7, spp_chunk=2,
+                 device="cpu")
+    assert np.isfinite(gpu).all() and gpu.mean() > 0
+    close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1)
+    assert close.mean() >= 0.99, close.mean()
+    assert abs(gpu.mean() / cpu.mean() - 1.0) <= 5e-3
+
+
+def test_photon_render_takes_cuda_by_default():
+    """device=None means CUDA for a photon-map scene as for the others:
+    with a card the scene flattens onto it and renders through K1;
+    without one flatten_scene and render raise, naming CUDA."""
+    from tungsten_tpu_torch.render import render
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    desc = _photon_desc()
+    desc.camera["resolution"] = [8, 6]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            flatten_scene(desc)
+        scene, settings = flatten_scene(desc, device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            render(scene, settings, spp=1)
+        return
+    scene, settings = flatten_scene(desc)
+    assert scene.device.type == "cuda"
+    before = twt.LAUNCHES["closest"]
+    img = render(scene, settings, spp=1)
+    assert twt.LAUNCHES["closest"] > before and img.mean() > 0

@@ -167,8 +167,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_unported_features_raise():
     """What the port does not run yet raises, naming it: a minecraft_map
     primitive (the JAX package refuses it too) and the integrators other
-    than path_tracer, bidirectional_path_tracer and light_tracer (the
-    photon map among them), at flatten time and in render_pass."""
+    than path_tracer, bidirectional_path_tracer, light_tracer,
+    photon_map and progressive_photon_map (the MLT family, kelemen_mlt
+    among them), at flatten time and in render_pass."""
     from tungsten_tpu_torch.render import render_pass
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     desc = _tiny_scene()
@@ -177,13 +178,13 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="minecraft_map"):
         flatten_scene(desc, device="cpu")
     desc = _tiny_scene()
-    desc.integrator = {"type": "photon_map"}
-    with pytest.raises(NotImplementedError, match="photon_map"):
+    desc.integrator = {"type": "kelemen_mlt"}
+    with pytest.raises(NotImplementedError, match="kelemen_mlt"):
         flatten_scene(desc, device="cpu")
     scene, settings = flatten_scene(_tiny_scene(), device="cpu")
     from dataclasses import replace
-    with pytest.raises(NotImplementedError, match="photon_map"):
-        render_pass(scene, replace(settings, integrator_type="photon_map"),
+    with pytest.raises(NotImplementedError, match="kelemen_mlt"):
+        render_pass(scene, replace(settings, integrator_type="kelemen_mlt"),
                     0, 0xBA5EBA11)
 
 

@@ -1,8 +1,9 @@
 """Top-level render loop (port of tungsten_tpu/render.py for the
-path_tracer, bidirectional_path_tracer and light_tracer integrators):
-spp batches over the width-staged wavefront or the splatting BDPT /
-light-tracer waves, accumulation into a framebuffer, Mrays/s stats;
-adaptive sampling; the output buffers (AOVs, variance, parity halves).
+path_tracer, bidirectional_path_tracer, light_tracer, photon_map and
+progressive_photon_map integrators): spp batches over the width-staged
+wavefront or the splatting BDPT / light-tracer waves, the photon maps'
+spp rounds, accumulation into a framebuffer, Mrays/s stats; adaptive
+sampling; the output buffers (AOVs, variance, parity halves).
 
 A small frame batches several spp into one wide wavefront (up to
 WAVE_RAYS = 4 * WAVEFRONT_CHUNK rays): 256x256 at 16 spp is one wave of
@@ -13,7 +14,12 @@ only the order of the sums changes (and index_add_ on CUDA sums with
 atomics in a varying order anyway).  They take the same staged schedule
 too, banking each sample by its lane instead of its pixel.  The
 splatting integrators batch their samples into waves of up to WAVE_RAYS
-lanes the same way, where the JAX package traces one chunk per spp.
+lanes the same way, where the JAX package traces one chunk per spp.  A photon-map render traces
+the photon paths of several rounds in one wave, where the JAX package
+traces chunks of PHOTON_CHUNK paths a round: the paths keep their ids
+and each its round's seed, so each round's photons keep the chunks'
+path-major order; and it walks the camera lanes of those rounds in one
+wave, each round gathering against its own grids after.
 """
 from __future__ import annotations
 
@@ -85,6 +91,131 @@ def _trace_chunk_splat(scene, settings, pixel, sample_idx, seed, n_total):
     return fb, int(rays)
 
 
+# the photon paths of a round are at least this many (the JAX package's
+# photon chunk); the rounds one photon wave traces together keep their
+# packed slots within PHOTON_WAVE_BYTES
+PHOTON_CHUNK = 1 << 16
+PHOTON_WAVE_BYTES = 4 << 30
+PHOTON_MAPS = ("photon_map", "progressive_photon_map")
+
+
+def _photon_grids(PM, settings, photons, n_paths, it, use_beams,
+                  use_planes):
+    """One round's grids: (surface grid, its radius as f32, the volume
+    grid (points), or the beam grid, or (beam grid, plane grid), or None,
+    the volume radius as f32 or None), at PPM's radii for iteration
+    `it`."""
+    photons = dict(photons, power=photons["power"] / n_paths)
+    gamma = PM.ppm_gamma(it, settings.ppm_alpha) \
+        if settings.integrator_type == "progressive_photon_map" else 1.0
+    radius = settings.gather_radius * float(np.sqrt(gamma))
+    grid = PM.build_photon_grid(
+        dict(photons, valid=photons["valid"] & ~photons["vol"]), radius)
+    vgrid = vradius = None
+    if settings.has_media:
+        # the volume map, at the volume gather radius: the beam or plane
+        # grids over the first vol_photon_count paths' slots, or the
+        # points grid over every volume photon
+        vradius = settings.vol_gather_radius * float(np.sqrt(gamma))
+        if use_beams or use_planes:
+            B = max(settings.max_bounces - 1, 1)
+            n_vb = min(settings.vol_photon_count, n_paths)
+            sub = {k: v[:n_vb * B] for k, v in photons.items()}
+            sub["b_pow"] = sub["b_pow"] / n_vb
+            if use_beams:
+                vgrid = PM.build_beam_grid(sub, vradius)
+            else:
+                # planes for the volume-to-volume segments and beams for
+                # the segments rooted on the light or a surface
+                sub["pl_pow"] = sub["pl_pow"] / n_vb
+                vgrid = (PM.build_beam_grid(sub, vradius),
+                         PM.build_plane_grid(sub, vradius))
+        else:
+            vgrid = PM.build_photon_grid(
+                dict(photons, valid=photons["valid"] & photons["vol"]),
+                vradius)
+        vradius = float(np.float32(vradius))
+    return grid, float(np.float32(radius)), vgrid, vradius
+
+
+def _render_pass_photon(scene, settings, sample_start, seed,
+                        spp_chunk: int):
+    """Photon-map / PPM spp rounds (ref PhotonMapIntegrator::renderSegment
+    and ProgressivePhotonMapIntegrator's per-iteration radius shrink):
+    each round traces a fresh photon map (seed offset by the iteration),
+    builds its grids and gathers every pixel against them.  The rounds'
+    photon paths are traced in waves of several rounds, and their camera
+    walks a pixel chunk in one wave; each round then gathers its lanes.
+    Returns ((H, W, 3) sum, rays)."""
+    from tungsten_tpu_torch.integrators import photon_map as PM
+    from tungsten_tpu_torch.media.grid import MED_HOMOGENEOUS
+    dev = scene.device
+    w, h = settings.width, settings.height
+    n = w * h
+    C = min(WAVEFRONT_CHUNK, n)
+    n_chunks = -(-n // C)
+    if settings.vol_photon_type in ("beams", "planes") and \
+            settings.has_media and \
+            any(k != MED_HOMOGENEOUS for k in settings.med_kinds):
+        # the beams' and planes' analytic transmittance covers
+        # homogeneous media: heterogeneous scenes take the points
+        # estimator (the JAX package's choice)
+        settings = replace(settings, vol_photon_type="points")
+    use_beams = settings.has_media and settings.vol_photon_type == "beams"
+    use_planes = settings.has_media and settings.vol_photon_type == "planes"
+
+    acc = torch.zeros((n_chunks * C, 3), dtype=torch.float32, device=dev)
+    rays = 0
+    B = max(settings.max_bounces - 1, 1)
+    n_paths = max(settings.photon_count // B, PHOTON_CHUNK)
+    per_wave = max(1, PHOTON_WAVE_BYTES // (n_paths * B *
+                                            PM.slot_bytes(settings)))
+    its = list(range(int(sample_start), int(sample_start) + spp_chunk))
+    for b0 in range(0, len(its), per_wave):
+        batch = its[b0:b0 + per_wave]
+        # ---- photon pass (fresh photons each round) ----
+        photons = PM.trace_photons(
+            scene, settings, n_paths,
+            [(int(seed) + 0x9E3779B9 * it) & 0xFFFFFFFF for it in batch])
+        rays += int(photons.pop("rays"))
+        nb = n_paths * B
+        grids = [_photon_grids(PM, settings,
+                               {k: v[r * nb:(r + 1) * nb]
+                                for k, v in photons.items()},
+                               n_paths, it, use_beams, use_planes)
+                 for r, it in enumerate(batch)]
+        del photons
+
+        # ---- camera passes: one walk of the batch's rounds a chunk ----
+        for ci in range(n_chunks):
+            pix = torch.arange(ci * C, (ci + 1) * C, dtype=torch.int32,
+                               device=dev).repeat(len(batch))
+            smp = torch.tensor(batch, dtype=torch.int32,
+                               device=dev).repeat_interleave(C)
+            walk = PM.camera_walk(scene, settings, pix, smp, seed)
+            rays += int(walk["rays"])
+            for r, (grid, radius, vgrid, vradius) in enumerate(grids):
+                lanes = slice(r * C, (r + 1) * C)
+                p, sm = pix[lanes], smp[lanes]
+                rad = PM.gather_walk(
+                    scene, settings, walk, lanes, grid, radius, seed,
+                    vgrid=None if use_beams or use_planes else vgrid,
+                    vradius=vradius, pixel=p, sample_idx=sm)
+                if use_beams:
+                    rad = rad + PM.beam_pass(scene, settings, vgrid, vradius,
+                                             p, sm, seed)
+                elif use_planes:
+                    rad = rad + PM.beam_pass(scene, settings, vgrid[0],
+                                             vradius, p, sm, seed)
+                    rad = rad + PM.plane_pass(scene, settings, vgrid[1], p,
+                                              sm, seed)
+                if use_beams or use_planes:
+                    rays += C  # the beam / plane pass re-traces primaries
+                rad = torch.where(torch.isfinite(rad), rad, 0.0)
+                acc[ci * C:(ci + 1) * C] += rad
+    return acc[:n].reshape(h, w, 3), rays
+
+
 def render_pass(scene, settings, sample_start, seed, spp_chunk: int = 1):
     """Render spp_chunk samples per pixel; returns ((H, W, 3) sum, rays)."""
     from tungsten_tpu_torch.scene.flatten import PORTED_INTEGRATORS
@@ -92,6 +223,9 @@ def render_pass(scene, settings, sample_start, seed, spp_chunk: int = 1):
         raise NotImplementedError(
             f"tungsten_tpu_torch: integrator {settings.integrator_type!r} is "
             f"not ported yet")
+    if settings.integrator_type in PHOTON_MAPS:
+        return _render_pass_photon(scene, settings, sample_start, seed,
+                                   spp_chunk)
     trace = _trace_chunk_splat if settings.integrator_type in SPLATTING \
         else _trace_chunk_staged
     dev = scene.device

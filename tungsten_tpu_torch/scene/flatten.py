@@ -76,7 +76,7 @@ CRV_ROW = 16
 CWBVH_ROW = 32
 PORTED_CAMERAS = ("pinhole", "thinlens", "equirectangular", "cubemap")
 PORTED_INTEGRATORS = ("path_tracer", "bidirectional_path_tracer",
-                      "light_tracer")
+                      "light_tracer", "photon_map", "progressive_photon_map")
 
 
 def _lt_slot_of_tri(lt_tri_l, num_tris):
@@ -330,6 +330,14 @@ class RenderSettings:
     integrator_type: str = "path_tracer"
     bdpt_vertices: int = 8   # per-subpath vertex cap for bdpt/light_tracer
     mlt_path_length: int = -1  # restrict bdpt to one path length (MMLT)
+    # photon_map / progressive_photon_map (ref PhotonMapSettings.hpp)
+    photon_count: int = 1 << 20
+    gather_radius: float = 0.05
+    gather_count: int = 20   # gather_photon_count (kNN k)
+    vol_gather_radius: float = 0.05  # volume_gather_radius
+    vol_photon_type: str = "points"  # "points" | "beams" | "planes"
+    vol_photon_count: int = 10000    # paths the beam / plane maps keep
+    ppm_alpha: float = 0.3           # PPM's radius shrink (alpha)
     # output buffers (ref OutputBufferSettings): when True the wavefront
     # tracks depth/normal/albedo/visibility at the first non-specular
     # vertex (PathTracer.cpp:78-96) alongside the radiance
@@ -1519,6 +1527,15 @@ def flatten_scene(desc: SceneDesc, device=None
         has_sphere_lights=any(lt["type"] == LIGHT_SPHERE for lt in lights),
         has_area_lights=any(lt["type"] == LIGHT_AREA for lt in lights),
         integrator_type=integ.get("type", "path_tracer"),
+        photon_count=int(integ.get("photon_count", 1 << 20)),
+        gather_radius=float(integ.get("gather_radius", 0.05)),
+        gather_count=int(integ.get("gather_photon_count", 20)),
+        vol_photon_type=str(integ.get("volume_photon_type", "points")),
+        vol_photon_count=int(integ.get("volume_photon_count", 10000)),
+        vol_gather_radius=float(
+            integ.get("volume_gather_radius",
+                      integ.get("gather_radius", 0.05))),
+        ppm_alpha=float(integ.get("alpha", 0.3)),
         **media_kw,
     )
 
