@@ -211,10 +211,44 @@ Phases (any failure exits non-zero):
      camera walk, which does not depend on the volume map);
      (e) cli.render_scene of (a)'s scene at 64x64 with the output buffers
      (every file loaded), and one server /render of it;
-  18. the kernels JSON line (ten rows: K1, K2, K3 closest and any hit,
+  18. MLT (max_bounces 8, the smoke scene's sky and quad light, the
+     uniform sampler the MLT integrators latch): (a) kelemen_mlt on its
+     default bidirectional tape through render() at 256x256 with 8,192
+     chains, a 10,000-sample bootstrap pool and 1 mutation a pixel (8
+     steps), from zero launch and MLT counts (K1 and K2): wall, steps,
+     tape traces, accepted proposals, Mrays/s by the JAX estimate beside
+     the rays traced, launches, peak device memory, the image finite with
+     its mean within 10 % of the path tracer's at the same bounces; the
+     render once more under torch.profiler (launches a render, device
+     busy share); (b)-(d) profile one Metropolis step instead; (b) the
+     same on the path tracer's tape ("bidirectional": false); (c)
+     multiplexed_mlt likewise on the bidirectional tape, whose lengths
+     miss the camera's direct view of an emitter (ROADMAP C-ref 9), so
+     its mean is held to 0.905 +- 0.02 of the path tracer's (what the
+     card measured), and one pass on the path tracer's tape at 64x64
+     (the path-length restriction: b_k and steps by length, the mean
+     within 10 % of the path tracer's); (d) reversible_jump_mlt
+     likewise, with the share of technique exchanges proposed and of
+     those whose inversions held; (e) the card against the CPU plain
+     path at 4 bounces: trace_tape and trace_tape_rj of 8,192 chains (a
+     wave the body sorts and the staged loop compacts, as the traversal
+     launches' widths show) lane for lane (radiance within rtol 1e-4 /
+     atol 1e-6, the rj flags equal, rj_dims / rj_nee within rtol 1e-4 /
+     atol 1e-5, each on >= 0.999 of lanes), and kelemen_mlt at 64x64
+     with 2,048 chains (one bootstrap batch, 5 subpath vertices): the
+     bootstrap pool's luminances (rtol 1e-4 on >= 0.999) and b (rtol
+     1e-4), the first step's proposal luminance and acceptance from the
+     same chain states (>= 0.99 of chains), the share of chains in the
+     same state after the last step (printed) and the images' means
+     (within 2 %); (f) cli.render_scene of the smoke scene under
+     kelemen_mlt at 64x64, 4 spp (a 4,096-sample pool) with the output
+     buffers (every file loaded), and one server /render of it; each
+     part's seconds printed;
+  19. the kernels JSON line (ten rows: K1, K2, K3 closest and any hit,
      the five leaf rows and C1; K1's and K2's with their launches in the
-     replay's forward and backward, in the BDPT and light-tracer renders
-     and in the photon-map renders), then the result line.
+     replay's forward and backward, in the BDPT and light-tracer renders,
+     in the photon-map renders and in the MLT renders), then the result
+     line.
 """
 from __future__ import annotations
 
@@ -2988,6 +3022,348 @@ def check_photon(path, card, twt) -> dict:
     return out
 
 
+# ------------------------------------------------------------------- MLT
+
+MLT_BOUNCES = 8        # phase 18's depth (the JAX ray estimate's own cap)
+MLT_GATE = 0.10        # (a)-(d): image mean against the path tracer's
+# (c) on the bidirectional tape: its lengths never measure the camera's
+# direct view of an emitter (ROADMAP C-ref 9), and its image sits at
+# 0.9053 of the path tracer's on this scene (an H100 at 700 W, 1 and 2
+# spp alike; without the direct view, min_bounces 1, the path tracer's
+# is 0.9647 of the whole); held to that ratio within MLT_MMLT_BAND
+MLT_MMLT_RATIO = 0.905
+MLT_MMLT_BAND = 0.02
+MLT_SMALL = (64, 2048)  # (e): resolution and chains (one bootstrap batch)
+# (e)'s subpath vertices: 5 hold every strategy of a 4-edge path
+MLT_CROSS_VERTICES = 5
+MLT_CLI_POOL = 4096    # (f): one bootstrap batch of 4,096 chains at 64x64
+# (e)'s depth: the card and the CPU part where a hit's rounding picks
+# another triangle, which grows with the segments a path has (at 8
+# bounces 13 of 8,192 tape traces parted, on the mirror spheres)
+MLT_CROSS_BOUNCES = 4
+MLT_CLI_SPP = 4        # (f): the CLI's mutations a pixel
+# (tag, integrator, bidirectional, mutations a pixel): 8 steps of 8,192
+# chains a pass at 256x256
+MLT_RUNS = (("mlt_kelemen", "kelemen_mlt", True, 1),
+            ("mlt_kelemen_pt", "kelemen_mlt", False, 1),
+            ("mlt_multiplexed", "multiplexed_mlt", True, 1),
+            ("mlt_rj", "reversible_jump_mlt", False, 1))
+
+
+def mlt_settings(settings, integ: str, bidirectional: bool, **changes):
+    return replace(settings, **dict(dict(
+        integrator_type=integ, max_bounces=MLT_BOUNCES,
+        mlt_bidirectional=bidirectional), **changes))
+
+
+def mlt_step(scene, settings):
+    """One Metropolis step of the settings' chains from a bootstrap state
+    (the work a step repeats), as a function for profile_render."""
+    from tungsten_tpu_torch.integrators import mlt
+    s = replace(settings, stratified_sampler=False)
+    R = mlt._chains(s)
+    if s.integrator_type == "multiplexed_mlt":
+        s = replace(s, mlt_path_length=2)
+    bidi = s.mlt_bidirectional and s.integrator_type != "reversible_jump_mlt"
+    if bidi:
+        init = mlt._bootstrap_batch_bdpt(scene, s, SEED, 0, R,
+                                         mlt.tape_dims_bdpt(s)[1])
+        return lambda: mlt._mlt_batch_bdpt(scene, s, SEED, 0, R, 1, *init)
+    init = mlt._bootstrap_batch(scene, s, SEED, 0, R, mlt.tape_dims(s))
+    prob = s.mlt_strategy_prob \
+        if s.integrator_type == "reversible_jump_mlt" else 0.0
+    return lambda: mlt._mlt_batch(scene, s, SEED, 0, R, 1, *init,
+                                  strategy_prob=prob)
+
+
+def mlt_render(scene, settings, card, twt, tag: str, spp: int,
+               pt_mean: float, whole: bool, expect: float = 1.0,
+               gate: float = MLT_GATE) -> dict:
+    """An MLT render through render() from zero launch and MLT counts:
+    wall, steps, traces, Mrays/s by the JAX estimate beside the rays
+    traced, launches, peak device memory, the image mean over the path
+    tracer's (`pt_mean`) within `gate` of `expect`; then the render once
+    more (`whole`) or one Metropolis step under torch.profiler
+    (launches, device busy share)."""
+    from tungsten_tpu_torch.render import render
+    import numpy as np
+    import torch
+    from tungsten_tpu_torch.integrators import mlt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**20
+    mlt.zero_counts()
+    img, stats, launches = render_counted(scene, settings, twt, spp)
+    counts = mlt.read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ratio = float(img.mean() / pt_mean)
+    rel = abs(ratio - 1.0)
+    traced = counts["rays"] / max(stats["time"], 1e-9) / 1e6
+    log(f"  {tag}: {settings.integrator_type} (bidirectional "
+        f"{settings.mlt_bidirectional}) {settings.width}x{settings.height} "
+        f"{spp} spp max_bounces {settings.max_bounces} chains "
+        f"{min(settings.mlt_chains, settings.width * settings.height)}: "
+        f"{stats['time']:.3f} s, {counts['steps']} steps, {counts['traces']}"
+        f" tape traces (+{counts['rj_traces']} rj re-traces), "
+        f"{counts['accepted']} proposals accepted; {stats['rays']} rays by "
+        f"the JAX estimate ({stats['mrays_per_s']:.3f} Mrays/s), "
+        f"{counts['rays']} rays traced ({traced:.3f} Mrays/s) on {card}; "
+        f"launches { {k: v for k, v in launches.items() if v} }; peak device "
+        f"memory {peak:.1f} MiB ({base:.1f} held before); image mean "
+        f"{img.mean():.6f}, {ratio:.4f} of the path tracer's {pt_mean:.6f}"
+        f" (held to {expect} +- {gate})")
+    if counts["rj_traces"]:
+        log(f"  {tag}: exchanges proposed on {counts['rj_proposed']} of "
+            f"{counts['steps'] * mlt._chains(settings)} chain steps "
+            f"({counts['rj_proposed'] / max(counts['steps'] * mlt._chains(settings), 1) * 100:.2f} %), "
+            f"both inversions valid on {counts['rj_valid']} "
+            f"({counts['rj_valid'] / max(counts['rj_proposed'], 1) * 100:.2f}"
+            f" % of those proposed)")
+    if not (np.isfinite(img).all() and img.mean() > 0):
+        raise AssertionError(f"{tag}: image not finite or black")
+    if not (launches["closest"] > 0 and launches["anyhit"] > 0):
+        raise AssertionError(f"{tag}: K1 or K2 never launched {launches}")
+    if abs(ratio - expect) > gate:
+        raise AssertionError(f"{tag}: image mean {ratio:.4f} of the path "
+                             f"tracer's, not {expect} +- {gate}")
+    summ: dict = {}
+    if whole:
+        what = "the render"
+        prof = profile_render(lambda: render(scene, settings, spp=spp,
+                                             seed=SEED, spp_chunk=spp),
+                              summary=summ)
+    else:
+        what = "one step"
+        prof = profile_render(mlt_step(scene, settings), summary=summ)
+    log(f"  {tag}: {what} under the profiler: {summ.get('launches')} "
+        f"kernel launches, device idle {summ.get('idle')}")
+    summ["profiled"] = what
+    return dict(img=img, stats=stats, counts=counts, launches=launches,
+                peak_mib=peak, prof=prof, summary=summ, vs_path_tracer=rel,
+                traced_mrays_per_s=traced)
+
+
+def share_close(a, b, rtol=1e-4, atol=1e-6) -> float:
+    """The share of leading-index entries of a (card) within the tolerance
+    of b (CPU) over all their trailing entries (ints and bools equal)."""
+    import numpy as np
+    a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+    b = b.cpu().numpy() if hasattr(b, "cpu") else np.asarray(b)
+    if a.dtype.kind in "biu":
+        ok = a.astype(np.int64) == b.astype(np.int64)
+    else:
+        ok = np.isclose(a, b, rtol=rtol, atol=atol)
+    return float(ok.reshape(ok.shape[0], -1).all(-1).mean())
+
+
+def mlt_lanes_agree(scene, settings) -> dict:
+    """The lane-identity check: trace_tape and trace_tape_rj of 8,192
+    chains (256x256, the path tracer's tape, MLT_CROSS_BOUNCES) on the
+    card, whose body sorts its rays and whose staged loop compacts (the
+    traversal launches' widths show it), against the CPU, lane for lane;
+    beside it the same card lanes against the CPU's lanes shifted by one
+    (what a lane reading another chain's row would give)."""
+    import torch
+    from tungsten_tpu_torch.integrators import mlt
+    from tungsten_tpu_torch.ops import wave_trace as twt
+    s = mlt_settings(settings, "reversible_jump_mlt", False,
+                     stratified_sampler=False, max_bounces=MLT_CROSS_BOUNCES)
+    R = mlt._chains(s)
+    tape = mlt._uniform_tape(SEED ^ 0x1A4E, 0, 0, R, mlt.tape_dims(s),
+                             scene.device)
+    b_pick = torch.clamp(
+        (mlt._uniform_tape(SEED ^ 0xB1C, 0, 0, R, 1, scene.device)[:, 0]
+         * s.max_bounces).to(torch.int32), max=s.max_bounces - 1)
+    cpu = scene.to("cpu")
+    out = {}
+    t0 = time.time()
+    twt.LAUNCH_LOG = []
+    try:
+        gpu = mlt.trace_tape(scene, s, tape, SEED)
+        widths = sorted({rays for _, rays, _ in twt.LAUNCH_LOG}, reverse=True)
+    finally:
+        twt.LAUNCH_LOG = None
+    ref = mlt.trace_tape(cpu, s, tape.cpu(), SEED)
+    out["trace_tape"] = min(share_close(gpu[0], ref[0]),
+                            share_close(gpu[1], ref[1]))
+    out["trace_tape_1e-3"] = share_close(gpu[0], ref[0], 1e-3, 1e-4)
+    out["shifted"] = share_close(gpu[0], torch.roll(ref[0], 1, 0))
+    out["widths"] = widths
+    gpu = mlt.trace_tape_rj(scene, s, tape, b_pick, SEED)
+    ref = mlt.trace_tape_rj(cpu, s, tape.cpu(), b_pick.cpu(), SEED)
+    out["rj_flags"] = min(share_close(gpu[1], ref[1]),
+                          share_close(gpu[3], ref[3]))
+    out["rj_dims"] = min(share_close(gpu[0], ref[0], 1e-4, 1e-5),
+                         share_close(gpu[2], ref[2], 1e-4, 1e-5))
+    out["rj_valid_share"] = float(gpu[1].float().mean())
+    out["rj_rev_valid_share"] = float(gpu[3].float().mean())
+    log(f"  lane identity, {R} chains at max_bounces {s.max_bounces}, "
+        f"traversal launch widths {widths}: trace_tape radiance and pixel "
+        f"within rtol 1e-4 / atol 1e-6 on {out['trace_tape'] * 100:.3f} % of "
+        f"lanes (rtol 1e-3 / atol 1e-4: {out['trace_tape_1e-3'] * 100:.3f} "
+        f"%; against the CPU's lanes shifted by one: "
+        f"{out['shifted'] * 100:.3f} %); "
+        f"trace_tape_rj flags equal on {out['rj_flags'] * 100:.3f} %, "
+        f"rj_dims / rj_nee within rtol 1e-4 / atol 1e-5 on "
+        f"{out['rj_dims'] * 100:.3f} % (forward inversion valid on "
+        f"{out['rj_valid_share'] * 100:.2f} %, reverse on "
+        f"{out['rj_rev_valid_share'] * 100:.2f} %), {time.time() - t0:.1f} s")
+    if not (out["trace_tape"] >= 0.999 and out["rj_flags"] >= 0.999 and
+            out["rj_dims"] >= 0.999 and min(widths) < R):
+        raise AssertionError("mlt: card lanes disagree with the CPU's")
+    return out
+
+
+def mlt_chains_agree(scene, settings) -> dict:
+    """kelemen_mlt at MLT_SMALL on the card against the CPU plain path:
+    the bootstrap pool's luminances and b, the first step's proposal
+    luminances and acceptances from the same chain states, the chains'
+    states after the last step, and the images from those steps."""
+    import numpy as np
+    import torch
+    from tungsten_tpu_torch.integrators import mlt
+    res, chains = MLT_SMALL
+    s = mlt_settings(settings, "kelemen_mlt", True, width=res, height=res,
+                     mlt_chains=chains, mlt_sample_pool=chains,
+                     stratified_sampler=False, max_bounces=MLT_CROSS_BOUNCES,
+                     bdpt_vertices=MLT_CROSS_VERTICES)
+    R = mlt._chains(s)
+    n = res * res
+    D = mlt.tape_dims_bdpt(s)[1]
+    cpu = scene.to("cpu")
+    t0 = time.time()
+    pool_b = max(1, min(s.mlt_sample_pool, 4 * R) // R)
+    pools = {}
+    for name, sc in (("card", scene), ("cpu", cpu)):
+        pools[name] = [mlt._bootstrap_batch_bdpt(sc, s, SEED, pb, R, D)
+                       for pb in range(pool_b)]
+    lum = {k: torch.cat([p[-1] for p in v]).cpu() for k, v in pools.items()}
+    pool_share = share_close(lum["card"], lum["cpu"])
+    b = {k: float(torch.mean(v)) for k, v in lum.items()}
+    idx = mlt._resample(lum["cpu"], (SEED & 0xFFFFFFFF) ^ 0x5EED, 0, R)
+    init = tuple(torch.cat([p[k] for p in pools["cpu"]])[idx]
+                 for k in range(len(pools["cpu"][0])))
+    n_steps = max(1, n // R)
+    first, final, fbs = {}, {}, {}
+    for name, sc in (("card", scene), ("cpu", cpu)):
+        def rec(i, prop_lum, accept, name=name):
+            if i == 0:
+                first[name] = (prop_lum.cpu(), accept.cpu())
+        fb, tape, lum_end = mlt._mlt_batch_bdpt(
+            sc, s, SEED, 0, R, n_steps,
+            *(v.to(sc.device) for v in init), on_step=rec)
+        final[name] = (tape.cpu(), lum_end.cpu())
+        fbs[name] = fb.cpu().numpy() * b[name] * n / (R * n_steps)
+    prop_ok = np.isclose(first["card"][0].numpy(), first["cpu"][0].numpy(),
+                         rtol=1e-4, atol=1e-6) & \
+        (first["card"][1].numpy() == first["cpu"][1].numpy())
+    same = (np.abs(final["card"][0].numpy() - final["cpu"][0].numpy())
+            .max(-1) <= 1e-6) & np.isclose(final["card"][1].numpy(),
+                                           final["cpu"][1].numpy(),
+                                           rtol=1e-4, atol=1e-6)
+    rel_b = abs(b["card"] / b["cpu"] - 1.0)
+    rel_img = abs(fbs["card"].mean() / fbs["cpu"].mean() - 1.0)
+    out = dict(pool=pool_share, b_card=b["card"], b_cpu=b["cpu"], b_rel=rel_b,
+               first_step=float(prop_ok.mean()),
+               same_state=float(same.mean()), steps=n_steps,
+               image_rel=rel_img,
+               accepted_first=float(first["cpu"][1].float().mean()))
+    log(f"  kelemen_mlt {res}x{res} max_bounces {s.max_bounces}, {R} chains, "
+        f"{pool_b} bootstrap batches,"
+        f" {n_steps} steps, card against the CPU: pool luminance within rtol"
+        f" 1e-4 on {pool_share * 100:.3f} % of samples; b {b['card']:.6f} "
+        f"vs {b['cpu']:.6f} ({rel_b:.2e}); first step's proposal luminance "
+        f"and acceptance agree on {prop_ok.mean() * 100:.3f} % of chains "
+        f"({out['accepted_first'] * 100:.1f} % accepted); chains in the "
+        f"same state after step {n_steps}: {same.mean() * 100:.3f} %; image "
+        f"means {fbs['card'].mean():.6f} vs {fbs['cpu'].mean():.6f} "
+        f"({rel_img * 100:.3f} %), {time.time() - t0:.1f} s")
+    if not (pool_share >= 0.999 and rel_b <= 1e-4 and prop_ok.mean() >= 0.99
+            and rel_img <= 0.02):
+        raise AssertionError("mlt: the card's chains disagree with the CPU's")
+    return out
+
+
+def check_mlt(path, card, twt) -> dict:
+    """Phase 18: the MLT family on the smoke scene through render() at
+    256x256 with 8,192 chains (a-d), the card against the CPU (e), the
+    CLI and the server (f)."""
+    import numpy as np
+    from tungsten_tpu_torch.integrators import mlt
+    from tungsten_tpu_torch.render import render
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.parse import load_scene
+    out = {}
+    t0 = time.time()
+    scene, settings = flatten_scene(load_scene(path))
+    pt = render(scene, replace(settings, max_bounces=MLT_BOUNCES),
+                spp=SPP, seed=SEED, spp_chunk=SPP)
+    log(f"  the path tracer at max_bounces {MLT_BOUNCES}: image mean "
+        f"{pt.mean():.6f} ({time.time() - t0:.1f} s)")
+    for part, (tag, integ, bidi, spp) in zip("abcd", MLT_RUNS):
+        t1 = time.time()
+        log(f"  ({part}) {integ}, bidirectional {bidi}:")
+        c_ref9 = integ == "multiplexed_mlt" and bidi
+        out[tag] = mlt_render(
+            scene, mlt_settings(settings, integ, bidi), card, twt, tag, spp,
+            float(pt.mean()), whole=part == "a",
+            expect=MLT_MMLT_RATIO if c_ref9 else 1.0,
+            gate=MLT_MMLT_BAND if c_ref9 else MLT_GATE)
+        if integ == "multiplexed_mlt":
+            res, _ = MLT_SMALL
+            small = mlt_settings(settings, integ, False, width=res,
+                                 height=res)
+            st: dict = {}
+            zero_counts()
+            img, rays = mlt.render_pass_mmlt(scene, small, 0, SEED,
+                                             stats=st)
+            got = read_counts()
+            img = img.cpu().numpy()
+            rel = abs(img.mean() / pt.mean() - 1.0)
+            log(f"  (c) multiplexed_mlt on the path tracer's tape, {res}x"
+                f"{res}: b_k {[round(x, 6) for x in st['b_k']]}, steps by "
+                f"length {st['steps_k']}, {st['traces']} traces, image mean "
+                f"{img.mean():.6f} against the path tracer's {pt.mean():.6f}"
+                f": {rel * 100:.3f} % apart, launches {got}")
+            if not (np.isfinite(img).all() and img.mean() > 0 and
+                    sum(1 for x in st["steps_k"] if x) >= 2 and
+                    rel <= MLT_GATE):
+                raise AssertionError("mmlt on the path tracer's tape")
+            out["mlt_multiplexed_pt"] = dict(b_k=st["b_k"],
+                                             steps_k=st["steps_k"],
+                                             launches=got,
+                                             vs_path_tracer=rel)
+        log(f"  [({part}): {time.time() - t1:.1f} s]")
+    t1 = time.time()
+    log(f"  (e) the card against the CPU plain path:")
+    out["lanes"] = mlt_lanes_agree(scene, settings)
+    out["chains"] = mlt_chains_agree(scene, settings)
+    del scene
+    log(f"  [(e): {time.time() - t1:.1f} s]")
+    t1 = time.time()
+    res, _ = MLT_SMALL
+    integ = {"type": "kelemen_mlt", "max_bounces": MLT_BOUNCES,
+             "initial_sample_pool": MLT_CLI_POOL}
+    log(f"  (f) the CLI ({res}x{res}, {MLT_CLI_SPP} spp, output buffers) and"
+        f" the server:")
+    cpath = scene_variant(path, "mlt_cli.json", res=res, spp=MLT_CLI_SPP,
+                          integrator=integ, output_file="mlt.png",
+                          hdr_output_file="mlt.pfm",
+                          output_buffers=BUFFER_SPECS)
+    out["cli"] = cli_run(cpath, os.path.join(os.path.dirname(path),
+                                             "cli_mlt"), twt, res)
+    names = sorted(os.path.basename(f) for f in out["cli"]["files"])
+    want = sorted(["mlt.png", "mlt.pfm", "color.pfm", "colorVariance.pfm",
+                   "colorA.pfm", "colorB.pfm", "depth.pfm", "normal.pfm",
+                   "albedo.pfm", "visibility.pfm"])
+    if names != want:
+        raise AssertionError(f"mlt cli: wrote {names}")
+    server_run(scene_variant(path, "mlt_server.json", res=res, spp=2,
+                             spp_step=1, integrator=integ))
+    log(f"  [(f): {time.time() - t1:.1f} s]")
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 def kernel_row(name, mode, m, launches, replaces, tol, extra, prof):
@@ -3488,7 +3864,13 @@ def main() -> int:
         ph = check_photon(path, card, twt)
         mark("photon maps")
 
-    # 18. kernels line and result
+        # 18. the MLT family on tapes, through render, the CLI and the
+        # server (K1 and K2)
+        log("mlt:")
+        ml = check_mlt(path, card, twt)
+        mark("mlt")
+
+    # 19. kernels line and result
     closest_tol = ("vs plain walk: hit-set agreement > 0.998, same triangle "
                    "> 0.999, t within rtol 2e-3 on > 0.999 (the kernel's "
                    "own t and after the finalize), u/v atol 2e-3; "
@@ -3515,7 +3897,11 @@ def main() -> int:
     splat = ("; bdpt_* / light_*: launches and device ms in the full-width "
              "bidirectional path tracer and light tracer renders (phase 16)"
              "; photon_map_* / ppm_* / photon_{points,beams,planes}_*: the "
-             "same in the photon-map renders (phase 17)")
+             "same in the photon-map renders (phase 17); mlt_kelemen_* / "
+             "mlt_kelemen_pt_* / mlt_multiplexed_* / mlt_rj_*: launches in "
+             "the MLT renders (phase 18) and device ms in the profiled "
+             "kelemen render and in one profiled Metropolis step of the "
+             "others (profiled_ms)")
     k1 = "tungsten_tpu/ops/wave_trace.py:300"
     k3 = "tungsten_tpu/ops/wave_trace.py:724"
     k1_row = kernel_row("wave_trace_closest", "closest", prim, launches, k1,
@@ -3542,6 +3928,12 @@ def main() -> int:
                 else None
             row[f"{tag}_render_by_width"] = (pr[mode]["by_width"]
                                              if pr.get(mode) else None)
+    for row, mode in ((k1_row, "closest"), (k2_row, "anyhit")):
+        for tag, *_ in MLT_RUNS:
+            row[f"{tag}_launches"] = ml[tag]["launches"][mode]
+            pr = ml[tag]["prof"]
+            row[f"{tag}_profiled_ms"] = pr[mode]["ms"] if pr.get(mode) \
+                else None
     k1_row["outdoor_strategy"].update(
         {k: ostrat[k] for k in ("live", "bvh_intersect_ms")})
     for row, mode in ((k1_row, "closest"), (k2_row, "anyhit")):
@@ -3647,7 +4039,19 @@ def main() -> int:
             f"{ph[k]['summary'].get('gather_share')} {tag}_peak_mib "
             f"{ph[k]['peak_mib']:.1f} {tag}_vs_pt "
             f"{ph[k]['vs_path_tracer']:.5f}" for tag, k in PHOTON_TAGS) +
-        f" cli_photon_s {ph['cli']['seconds']:.3f} total_s "
+        f" cli_photon_s {ph['cli']['seconds']:.3f} " + " ".join(
+            f"{tag}_render_s {ml[tag]['stats']['time']:.3f} "
+            f"{tag}_mrays_per_s {ml[tag]['stats']['mrays_per_s']:.3f} "
+            f"{tag}_traced_mrays_per_s {ml[tag]['traced_mrays_per_s']:.3f} "
+            f"{tag}_traces {ml[tag]['counts']['traces']} "
+            f"{tag}_profiled_launches {ml[tag]['summary'].get('launches')} "
+            f"{tag}_idle "
+            f"{ml[tag]['summary'].get('idle')} {tag}_peak_mib "
+            f"{ml[tag]['peak_mib']:.1f} {tag}_vs_pt "
+            f"{ml[tag]['vs_path_tracer']:.5f}" for tag, *_ in MLT_RUNS) +
+        f" mlt_lanes {ml['lanes']['trace_tape']:.5f} mlt_same_state "
+        f"{ml['chains']['same_state']:.5f} cli_mlt_s "
+        f"{ml['cli']['seconds']:.3f} total_s "
         f"{time.time() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -54,7 +54,10 @@ agrees with the plain path's slot for slot, the photon, beam and plane
 grids built on the card are the CPU's bitwise, the k nearest photons
 are selected bitwise and the four gathers agree; photon-map and PPM
 renders of the surface map and the three volume maps (K2 in planes
-mode) match the plain path's images.
+mode) match the plain path's images.  MLT tape traces of 4,096 chains,
+sorted and compacted on the card, give each lane its own chain's result
+(the CPU's lane for lane, the reversible-jump inversions too), and
+kelemen, reversible-jump and multiplexed renders match the CPU's means.
 """
 from types import SimpleNamespace
 
@@ -1860,3 +1863,76 @@ def test_photon_render_takes_cuda_by_default():
     before = twt.LAUNCHES["closest"]
     img = render(scene, settings, spp=1)
     assert twt.LAUNCHES["closest"] > before and img.mean() > 0
+
+
+# ------------------------------------------------ MLT (tapes on K1 and K2)
+
+def _mlt_tapes(settings, R, dev):
+    from tungsten_tpu_torch.integrators import mlt
+    tape = mlt._uniform_tape(0x1A4E, 0, 0, R, mlt.tape_dims(settings), dev)
+    b_pick = torch.clamp((mlt._uniform_tape(0xB1C, 0, 0, R, 1, dev)[:, 0]
+                          * settings.max_bounces).to(torch.int32),
+                         max=settings.max_bounces - 1)
+    return tape, b_pick
+
+
+@pytest.mark.cuda
+def test_cuda_mlt_tape_lanes_match_plain_path(cuda_device):
+    """trace_tape and trace_tape_rj of 4,096 chains on the card, whose
+    body sorts its rays by the traversal key and whose staged loop
+    compacts (4,096 -> 2,048 -> 1,024 lanes), against the plain path on
+    the CPU lane for lane: each lane reads its own chain's tape row
+    wherever the sort and the compactions move it.  Radiance and pixel
+    within rtol 1e-4 / atol 1e-6, the rj flags equal, rj_dims / rj_nee
+    within rtol 1e-4 / atol 1e-5, each on >= 0.999 of lanes; K1 and K2
+    launch."""
+    from dataclasses import replace
+    from tungsten_tpu_torch.integrators import mlt
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    scene, settings = flatten_scene(_bdpt_desc())
+    s = replace(settings, integrator_type="reversible_jump_mlt",
+                stratified_sampler=False)
+    cpu_scene = scene.to("cpu")
+    tape, b_pick = _mlt_tapes(s, 4096, cuda_device)
+    before = dict(twt.LAUNCHES)
+    got = mlt.trace_tape(scene, s, tape, 7)
+    assert twt.LAUNCHES["closest"] > before["closest"]
+    assert twt.LAUNCHES["anyhit"] > before["anyhit"]
+    want = mlt.trace_tape(cpu_scene, s, tape.cpu(), 7)
+
+    def share(a, b, rtol=1e-4, atol=1e-6):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        ok = a == b if a.dtype.kind in "biu" else \
+            np.isclose(a, b, rtol=rtol, atol=atol)
+        return ok.reshape(a.shape[0], -1).all(-1).mean()
+
+    assert share(got[0], want[0]) >= 0.999
+    assert share(got[1], want[1]) == 1.0
+    assert float(got[2].sum()) > 0
+    got = mlt.trace_tape_rj(scene, s, tape, b_pick, 7)
+    want = mlt.trace_tape_rj(cpu_scene, s, tape.cpu(), b_pick.cpu(), 7)
+    for k in (1, 3):
+        assert share(got[k], want[k]) >= 0.999, k
+    for k in (0, 2):
+        assert share(got[k], want[k], 1e-4, 1e-5) >= 0.999, k
+    assert got[1].float().mean() > 0.05 and bool(got[3].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["kelemen_mlt", "reversible_jump_mlt",
+                                        "multiplexed_mlt"])
+def test_cuda_mlt_render_matches_plain_path(cuda_device, integrator):
+    """A render of each MLT integrator (32x24, 768 chains, 1 mutation a
+    pixel; kelemen and multiplexed on the bidirectional tape) on the card
+    against the plain path on the CPU: the chains follow the same
+    trajectories but where a rounding flips an acceptance, so the
+    images' means agree within 2 %."""
+    from dataclasses import replace
+    from tungsten_tpu_torch.render import render
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    scene, settings = flatten_scene(_bdpt_desc())
+    s = replace(settings, integrator_type=integrator, mlt_sample_pool=3072)
+    gpu = render(scene, s, spp=1, seed=7)
+    cpu = render(scene.to("cpu"), s, spp=1, seed=7, device="cpu")
+    assert np.isfinite(gpu).all() and gpu.mean() > 0
+    assert abs(gpu.mean() / cpu.mean() - 1.0) <= 0.02, integrator

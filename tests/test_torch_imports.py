@@ -50,7 +50,8 @@ def test_every_port_module_imports_without_jax():
               "media.grid", "io.vdb", "scene.sky", "scene.hosek_data",
               "cameras.camera", "integrators.lights", "io.curves",
               "bsdf.fiber", "ops.curve_trace", "ops.intersect",
-              "parallel.sharded", "parallel.distributed"):
+              "parallel.sharded", "parallel.distributed", "bsdf.invert",
+              "integrators.invert_path", "integrators.mlt"):
         assert "tungsten_tpu_torch." + m in mods
     # the sky bake reads the port's own copy of the Hosek-Wilkie data
     code = ("import sys\n"
@@ -131,6 +132,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         flatten_scene(_tiny_scene())
     with pytest.raises(RuntimeError, match="CUDA"):
         render(scene, settings, spp=1)
+    from dataclasses import replace
+    for integ in ("kelemen_mlt", "multiplexed_mlt", "reversible_jump_mlt"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            render(scene, replace(settings, integrator_type=integ), spp=1)
     o = torch.zeros((4, 3))
     with pytest.raises(RuntimeError, match="CUDA"):
         wave_intersect(scene, o, o + 1.0, 0.0, 1.0)
@@ -165,11 +170,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_features_raise():
-    """What the port does not run yet raises, naming it: a minecraft_map
-    primitive (the JAX package refuses it too) and the integrators other
-    than path_tracer, bidirectional_path_tracer, light_tracer,
-    photon_map and progressive_photon_map (the MLT family, kelemen_mlt
-    among them), at flatten time and in render_pass."""
+    """What the port does not run raises, naming it: a minecraft_map
+    primitive (the JAX package refuses it too) and an integrator neither
+    package knows, at flatten time and in render_pass."""
     from tungsten_tpu_torch.render import render_pass
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     desc = _tiny_scene()
@@ -178,14 +181,17 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="minecraft_map"):
         flatten_scene(desc, device="cpu")
     desc = _tiny_scene()
-    desc.integrator = {"type": "kelemen_mlt"}
-    with pytest.raises(NotImplementedError, match="kelemen_mlt"):
+    desc.integrator = {"type": "vertex_connection_merging"}
+    with pytest.raises(NotImplementedError,
+                       match="vertex_connection_merging"):
         flatten_scene(desc, device="cpu")
     scene, settings = flatten_scene(_tiny_scene(), device="cpu")
     from dataclasses import replace
-    with pytest.raises(NotImplementedError, match="kelemen_mlt"):
-        render_pass(scene, replace(settings, integrator_type="kelemen_mlt"),
-                    0, 0xBA5EBA11)
+    with pytest.raises(NotImplementedError,
+                       match="vertex_connection_merging"):
+        render_pass(scene, replace(
+            settings, integrator_type="vertex_connection_merging"),
+            0, 0xBA5EBA11)
 
 
 @pytest.mark.parametrize("kernel", ["closest", "anyhit", "paged_walk",

@@ -70,10 +70,10 @@ def test_sobol_draws_bit_equal(seed):
     pixel, sample, dim = _grid(n=2048, seed=seed % 97)
     a = jrng._sobol_value(jnp.uint32(seed), jnp.asarray(pixel),
                           jnp.asarray(sample), jnp.asarray(dim))
-    b = trng.random_1d(seed, _t(pixel), _t(sample), _t(dim), sobol=True)
+    b = trng.random_1d(seed, _t(pixel), _t(sample), _t(dim), smp=True)
     assert np.array_equal(_bits(a), _bits(b.numpy()))
     # random_2d/3d consume consecutive dims in Sobol' mode too
-    b2 = trng.random_3d(seed, _t(pixel), _t(sample), _t(dim), sobol=True)
+    b2 = trng.random_3d(seed, _t(pixel), _t(sample), _t(dim), smp=True)
     for k in range(3):
         ak = jrng._sobol_value(jnp.uint32(seed), jnp.asarray(pixel),
                                jnp.asarray(sample), jnp.asarray(dim + k))

@@ -65,6 +65,12 @@ def _reflect_z(wi):
     return torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
 
 
+def _is_mirror_dir(wi, wo, tol=1e-3):
+    """wo is wi's mirror direction (the reference's
+    checkReflectionConstraint, for float wavefronts)."""
+    return torch.sum(torch.abs(wo - _reflect_z(wi)), dim=-1) < tol
+
+
 def _normalized(x):
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
                            min=1e-20)
@@ -542,11 +548,15 @@ def _oren_nayar_sample(sp, wi, U, ctx):
 
 # ===================================================================== phong
 
+def _phong_terms(sp):
+    """The phong exponent n and diffuse ratio dr."""
+    return sp.params[..., P.EXTRA0], sp.params[..., P.EXTRA1]
+
+
 def _phong_lobe(sp, wi, wo, norm_add):
     """exponent n, diffuse ratio dr and the glossy lobe
     cos^n (n + norm_add) / 2pi around the mirror direction."""
-    n = sp.params[..., P.EXTRA0]
-    dr = sp.params[..., P.EXTRA1]
+    n, dr = _phong_terms(sp)
     cos_t = torch.sum(_reflect_z(wi) * wo, dim=-1)
     glossy = torch.where(cos_t > 0,
                          torch.pow(torch.clamp(cos_t, min=1e-20), n)

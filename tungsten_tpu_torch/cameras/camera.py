@@ -144,18 +144,18 @@ def _to_world(scene, local):
     return torch.broadcast_to(scene.cam_mat[:3, 3], d.shape), d
 
 
-def generate_rays_w(scene, settings, pixel, sample_idx, seed):
+def generate_rays_w(scene, settings, pixel, sample_idx, seed, tape=None):
     """pixel (R,) linear index, sample_idx (R,) -> (o, d, weight (R,)).
     The subpixel offset is addressed by (pixel, sample) through the
-    counter RNG.  `weight` is 1 except for thinlens samples the cat eye
+    counter RNG, or read from `tape` (an rng.Tape) when one is given.  `weight` is 1 except for thinlens samples the cat eye
     vignettes (weight 0: the reference's sampleDirection returns false
     and the sample counts black, ThinlensCamera.cpp:118-123)."""
-    sobol = settings.stratified_sampler
+    smp = rng.sampler(settings, tape)
     w = settings.width
     px = (pixel % w).to(torch.float32)
     py = torch.div(pixel, w, rounding_mode="floor").to(torch.float32)
     u1, u2 = rng.random_2d(seed, pixel, sample_idx, rng.DIM_CAMERA,
-                           sobol=sobol)
+                           smp=smp)
     fx = filter_sample(settings.filter, u1)
     fy = filter_sample(settings.filter, u2)
     ones = torch.ones(pixel.shape, dtype=torch.float32, device=pixel.device)
@@ -217,11 +217,11 @@ def generate_rays_w(scene, settings, pixel, sample_idx, seed):
         # ref ThinlensCamera::sampleDirection: a lens position, the
         # direction through the focus plane
         u3, u4 = rng.random_2d(seed, pixel, sample_idx, rng.DIM_CAMERA + 2,
-                               sobol=sobol)
+                               smp=smp)
         # the texel pick's seed is the render seed as a uint32 word xor
         # 0xA9E27 (the JAX package's `seed ^ jnp.uint32(0xA9E27)`)
         u5 = rng.random_1d((int(seed) & 0xFFFFFFFF) ^ 0xA9E27, pixel,
-                           sample_idx, rng.DIM_CAMERA + 2, sobol=sobol)
+                           sample_idx, rng.DIM_CAMERA + 2, smp=smp)
         lens = sample_aperture(scene, settings, u3, u4, u5)
         plane = torch.stack([lx, ly, lz], dim=-1)
         plane = plane * (settings.focus_distance / plane[..., 2:3])

@@ -38,8 +38,11 @@ Port notes:
     forward-lobe surfaces with closest hits (K1), at most MAX_CONN_HOPS,
     ending when no lane is active.  The segment's transmittance and
     both its medium pdfs share one optical-depth query.
-  * The sampler is `settings.stratified_sampler`, threaded into every
-    draw (the JAX package latches it in a module global).
+  * The sampler is `settings.stratified_sampler`, or the MLT tape
+    (`tape`, an rng.Tape whose light columns take the light root's and
+    walk's dims from LIGHT_WALK_DIM_OFFSET on), threaded into every draw
+    (the JAX package latches both in module globals).  Lanes never move,
+    so lane i reads tape row i.
 """
 from __future__ import annotations
 
@@ -65,7 +68,7 @@ from tungsten_tpu_torch.utils import vecmath as vm
 
 # RNG dim blocks: the camera subpath uses the camera dims and the
 # per-bounce blocks, the light subpath an offset block
-LIGHT_WALK_DIM_OFFSET = 4096
+LIGHT_WALK_DIM_OFFSET = rng.LIGHT_DIM_OFFSET
 FWD_HOP_BUDGET = 4   # extra walk iterations for collapsed forward hops
 MAX_CONN_HOPS = 6    # forward-surface crossings a connection ray may pass
 LENS_SEED_XOR = 0x7E15C0DE
@@ -284,7 +287,7 @@ def _unpack_vertices(rows, pdf_rev, nv):
 
 def _trace_subpath(scene, settings, media, o, d, alpha, adjoint, seed,
                    pixel, sample_idx, dim_base, nv, pdf_solid, n0, med0=None,
-                   escapes=False):
+                   escapes=False, smp=None):
     """Random walk storing per-vertex SoA arrays (ref LightPath::tracePath
     + PathVertex::sampleNextVertex).
 
@@ -301,10 +304,11 @@ def _trace_subpath(scene, settings, media, o, d, alpha, adjoint, seed,
 
     o/d: first ray; alpha (R,3); pdf_solid: solid-angle pdf of d from the
     root; n0: root normal (area conversions); med0: medium the root emits
-    into (None: no media)."""
+    into (None: no media); smp: the sampler (rng.sampler; None: the
+    settings')."""
     R = o.shape[0]
     dev = o.device
-    sobol = settings.stratified_sampler
+    smp = rng.sampler(settings) if smp is None else smp
     types = settings.present_bsdf_types
     has_media = settings.has_media
     has_fwd = _has_forward_types(settings)
@@ -345,7 +349,7 @@ def _trace_subpath(scene, settings, media, o, d, alpha, adjoint, seed,
         max_t = torch.where(hit, res["t"], INF)
         if has_media:
             u_c, u_d, u_e = rng.random_3d(seed, pixel, sample_idx,
-                                          dims + rng.BounceDims.MEDIUM, sobol)
+                                          dims + rng.BounceDims.MEDIUM, smp)
             ms = _medium_segment(scene, settings, media, med, med_first, o, d,
                                  max_t, start_surf, u_c, u_d, u_e, alive)
             vol_ev = alive & ms["scattered"]
@@ -382,7 +386,7 @@ def _trace_subpath(scene, settings, media, o, d, alpha, adjoint, seed,
             transp = bsdf_forward(sp, wi_local, types)
             t_scalar = torch.mean(transp, dim=-1)
             u_fwd = rng.random_1d(seed, pixel, sample_idx,
-                                  dims + rng.BounceDims.FORWARD, sobol)
+                                  dims + rng.BounceDims.FORWARD, smp)
             take_fwd = surf_ev & (torch.amax(transp, dim=-1) > 0) & \
                 (u_fwd < t_scalar)
             fwd_w = transp / torch.clamp(t_scalar, min=1e-20)[..., None]
@@ -410,11 +414,11 @@ def _trace_subpath(scene, settings, media, o, d, alpha, adjoint, seed,
 
         # ---- continuation sampling at the vertex ----
         ul = rng.random_1d(seed, pixel, sample_idx,
-                           dims + rng.BounceDims.BSDF_LOBE, sobol)
+                           dims + rng.BounceDims.BSDF_LOBE, smp)
         u1, u2 = rng.random_2d(seed, pixel, sample_idx,
-                               dims + rng.BounceDims.BSDF_SAMPLE, sobol)
+                               dims + rng.BounceDims.BSDF_SAMPLE, smp)
         ul2 = rng.random_1d(seed, pixel, sample_idx,
-                            dims + rng.BounceDims.BSDF_LOBE2, sobol)
+                            dims + rng.BounceDims.BSDF_LOBE2, smp)
         wo, wt, pdf_new, flags = bsdf_sample(sp, wi_local, ul, u1, u2, types,
                                              u_lobe2=ul2, adjoint=adjoint)
         spec = (flags & FLAG_SPECULAR) != 0
@@ -508,21 +512,22 @@ def _trace_subpath(scene, settings, media, o, d, alpha, adjoint, seed,
 
 # ----------------------------------------------------------------- roots
 
-def _sample_light_root(scene, settings, R, seed, pixel, sample_idx):
+def _sample_light_root(scene, settings, R, seed, pixel, sample_idx,
+                       smp=None):
     """Pick a light uniformly, a point on it and a cosine direction.
     Returns dict: q, n, Le, li, prim, pdf_a (area pdf incl. the pick),
     d0, pdf0_solid, alpha_v0, alpha_walk, pick_pdf, area, med (the medium
     the emitter radiates into, ref PathVertex::sampleRootVertex)."""
-    sobol = settings.stratified_sampler
+    smp = rng.sampler(settings) if smp is None else smp
     dev = pixel.device
     nl = settings.num_lights
     base = LIGHT_WALK_DIM_OFFSET
-    u_sel = rng.random_1d(seed, pixel, sample_idx, base + 0, sobol)
+    u_sel = rng.random_1d(seed, pixel, sample_idx, base + 0, smp)
     li = torch.clamp((u_sel * nl).to(torch.int32), max=nl - 1).long()
     pick_pdf = 1.0 / nl
 
-    u1, u2 = rng.random_2d(seed, pixel, sample_idx, base + 1, sobol)
-    u_tri = rng.random_1d(seed, pixel, sample_idx, base + 3, sobol)
+    u1, u2 = rng.random_2d(seed, pixel, sample_idx, base + 1, smp)
+    u_tri = rng.random_1d(seed, pixel, sample_idx, base + 3, smp)
     if scene.tri_v0.shape[0] > 0:
         tri = torch.clamp(L.alias_pick_tri(scene, li, u_tri), 0,
                           scene.tri_v0.shape[0] - 1).long()
@@ -576,7 +581,7 @@ def _sample_light_root(scene, settings, R, seed, pixel, sample_idx):
     Le = scene.light_emission[li]
 
     # cosine-hemisphere emission direction
-    u3, u4 = rng.random_2d(seed, pixel, sample_idx, base + 4, sobol)
+    u3, u4 = rng.random_2d(seed, pixel, sample_idx, base + 4, smp)
     phi = u3 * 2.0 * math.pi
     r = torch.sqrt(u4)
     z = torch.sqrt(torch.clamp(1.0 - u4, min=0.0))
@@ -909,7 +914,7 @@ def _connect(scene, settings, media, cam, lig, root, s, t, R):
 
 
 def _connect_lens(scene, settings, media, lig, root, s, R, seed, pixel,
-                  sample_idx, mis=True):
+                  sample_idx, mis=True, smp=None):
     """t=1: connect light vertex s-1 to the lens; returns (pixel, value,
     ok) for splatting (ref LightPath::bdptCameraConnect).  mis=False is
     the light tracer's estimator (every lens connection at weight 1, ref
@@ -924,10 +929,10 @@ def _connect_lens(scene, settings, media, lig, root, s, R, seed, pixel,
     thinlens = settings.camera_type == "thinlens"
     if thinlens:
         from tungsten_tpu_torch.cameras.camera import sample_aperture
-        sobol = settings.stratified_sampler
+        smp = rng.sampler(settings) if smp is None else smp
         lens_seed = (int(seed) & 0xFFFFFFFF) ^ LENS_SEED_XOR
-        u3, u4 = rng.random_2d(lens_seed, pixel, sample_idx, 3 * s, sobol)
-        u5 = rng.random_1d(lens_seed, pixel, sample_idx, 3 * s + 2, sobol)
+        u3, u4 = rng.random_2d(lens_seed, pixel, sample_idx, 3 * s, smp)
+        u5 = rng.random_1d(lens_seed, pixel, sample_idx, 3 * s + 2, smp)
         lens_local = sample_aperture(scene, settings, u3, u4, u5)
         cam_point = lens_local @ scene.cam_mat[:3, :3].T + cam_pos
     else:
@@ -985,20 +990,23 @@ def _connect_lens(scene, settings, media, lig, root, s, R, seed, pixel,
 
 # -------------------------------------------------------------- strategies
 
-def _light_subpath(scene, settings, media, seed, pixel, sample_idx, nv):
+def _light_subpath(scene, settings, media, seed, pixel, sample_idx, nv,
+                   smp=None):
     R = pixel.shape[0]
-    root = _sample_light_root(scene, settings, R, seed, pixel, sample_idx)
+    root = _sample_light_root(scene, settings, R, seed, pixel, sample_idx,
+                              smp=smp)
     lig = _trace_subpath(scene, settings, media,
                          root["q"] + root["d0"] * EPSILON, root["d0"],
                          root["alpha_walk"], True, seed, pixel, sample_idx,
                          LIGHT_WALK_DIM_OFFSET + 16, nv, root["pdf0_solid"],
                          root["n"],
-                         med0=root["med"] if settings.has_media else None)
+                         med0=root["med"] if settings.has_media else None,
+                         smp=smp)
     return root, lig
 
 
 def _lens_strategies(s_list, scene, settings, media, lig, root, seed, pixel,
-                     sample_idx, mis):
+                     sample_idx, mis, smp=None):
     """The t=1 lens connections for each s: (splat pixels (R*S,), values
     (R*S,3), rays)."""
     R = pixel.shape[0]
@@ -1007,7 +1015,8 @@ def _lens_strategies(s_list, scene, settings, media, lig, root, seed, pixel,
     for s in s_list:
         rays = rays + torch.sum(lig["valid"][:, s - 1].to(torch.int64))
         pixv, val, ok = _connect_lens(scene, settings, media, lig, root, s, R,
-                                      seed, pixel, sample_idx, mis=mis)
+                                      seed, pixel, sample_idx, mis=mis,
+                                      smp=smp)
         pix_l.append(torch.where(ok, pixv, 0))
         val_l.append(torch.where(ok[..., None], val, 0.0))
     if not pix_l:
@@ -1022,15 +1031,18 @@ def _lens_s(settings, nv, me):
 
 
 def trace_bdpt(scene, settings, pixel, sample_idx, seed, max_vertices=8,
-               max_edges=None):
+               max_edges=None, tape=None):
     """One BDPT sample per entry; pixel/sample_idx (R,) int32, seed a
     uint32 word.  Returns (radiance (R,3) of the pixel's own estimator,
     splat pixels (R*NS,) int32, splat values (R*NS,3), rays as a 0-d
     int64 tensor).  max_edges caps the path's segments (the path
     tracer's max_bounces); strategies with s + t - 1 > max_edges are
     skipped, and each connection applies the per-ray budget in original
-    vertex indices (ref bdptConnect's `bounce >= maxBounce`)."""
+    vertex indices (ref bdptConnect's `bounce >= maxBounce`).  `tape` (an
+    rng.Tape) drives every draw (the MLT integrators' bidirectional
+    tape)."""
     from tungsten_tpu_torch.cameras.camera import generate_rays_w
+    smp = rng.sampler(settings, tape)
     R = pixel.shape[0]
     dev = pixel.device
     NV = max_vertices
@@ -1039,7 +1051,8 @@ def trace_bdpt(scene, settings, pixel, sample_idx, seed, max_vertices=8,
     media = _Media(scene, settings) if settings.has_media else None
 
     # ---- camera subpath ----
-    o, d, cam_w = generate_rays_w(scene, settings, pixel, sample_idx, seed)
+    o, d, cam_w = generate_rays_w(scene, settings, pixel, sample_idx, seed,
+                                  tape=tape)
     cam_med0 = scene.cam_medium.to(torch.int32).expand(R).contiguous() \
         if settings.has_media else None
     cam = _trace_subpath(scene, settings, media, o, d,
@@ -1047,10 +1060,10 @@ def trace_bdpt(scene, settings, pixel, sample_idx, seed, max_vertices=8,
                          seed, pixel, sample_idx, rng.DIMS_CAMERA, NV,
                          _camera_dir_pdf(scene, settings, d),
                          scene.cam_mat[:3, 2].expand(R, 3), med0=cam_med0,
-                         escapes=settings.has_env)
+                         escapes=settings.has_env, smp=smp)
     # ---- light subpath ----
     root, lig = _light_subpath(scene, settings, media, seed, pixel,
-                               sample_idx, NV)
+                               sample_idx, NV, smp=smp)
 
     radiance = torch.zeros((R, 3), dtype=torch.float32, device=dev)
     if settings.has_env:
@@ -1136,7 +1149,7 @@ def trace_bdpt(scene, settings, pixel, sample_idx, seed, max_vertices=8,
     # ================= t = 1: light path to the lens (splat) ============
     spix, sval, lens_rays = _lens_strategies(
         _lens_s(settings, NV, ME), scene, settings, media, lig, root, seed,
-        pixel, sample_idx, mis=True)
+        pixel, sample_idx, mis=True, smp=smp)
     return radiance, spix, sval, rays + lens_rays
 
 

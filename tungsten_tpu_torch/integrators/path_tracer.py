@@ -41,6 +41,14 @@ traversal sort key (one key sort + one packed row gather) so the
 closest-hit launch skips its own sort, as the JAX package does when its
 Pallas path is on; on the CPU lanes keep their order, as there.
 
+MLT: with a primary-sample tape (rng.Tape) every draw reads the tape row
+of the lane's input entry, the state's `lane`, which the sort and the
+compactions move with the lane (the JAX package reads row i for lane i,
+wrong once its sort permutes lanes, ROADMAP C-ref 1).  A chain may be
+restricted to one path length (`mlt_path_length`, multiplexed MLT), and
+trace_wave_rj records the reversible-jump inversions at a bounce per
+lane (_rj_step).
+
 Gradients (trace_wave_replay, the JAX package's path replay): sampling
 decisions and traversals are detached, interior derivatives only.
 `bvh_intersect` returns no graph, the microfacet samplers detach their
@@ -79,12 +87,15 @@ def _has_forward_types(settings) -> bool:
 
 
 def _one_sample_mis(settings) -> bool:
-    """The JAX package's one-sample-MIS condition (the port has no MMLT
-    path-length restriction): no media, no forward lobes, light sampling
-    on, and no cap lights."""
+    """The JAX package's one-sample-MIS condition: no media, no forward
+    lobes, light sampling on, no cap lights, and no MMLT path-length
+    restriction (`mlt_path_length` < 0: a chain restricted to one length
+    keeps the two-strategy estimator, whose terms the body gates by
+    length)."""
     return (not settings.has_media and not _has_forward_types(settings)
             and bool(settings.enable_light_sampling)
-            and settings.num_lights > 0 and settings.num_caps == 0)
+            and settings.num_lights > 0 and settings.num_caps == 0
+            and settings.mlt_path_length < 0)
 
 
 def _light_select_pmf(scene, settings, p, li):
@@ -208,8 +219,8 @@ def _shadow_transmittance(scene, settings, media, o, d, dist, medium,
 
 # ----------------------------------------------------------------- NEE
 
-def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
-         want_tr: bool = False, media=None):
+def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base, smp,
+         want_tr: bool = False, media=None, want_dir: bool = False):
     """Next-event estimation toward one chosen light, at surface vertices
     (bsdf) or medium vertices (phase).  ctx: p, frame, sp, wi_local, gate
     (the vertices that want NEE this bounce) and, with media, is_volume,
@@ -220,10 +231,13 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
     ((R,3) contribution excluding path throughput, NEE rays traced, and
     with want_tr (tr (R,3), tr_valid (R,)): the light strategy's shadow
     transmittance, valid only where that ray was traced — the visibility
-    AOV's input, ref PathTracer.cpp:92-93 — else None)."""
+    AOV's input, ref PathTracer.cpp:92-93 — else None; with want_dir
+    (d (R,3), visible (R,)): the light strategy's direction and whether
+    its shadow ray was traced and reached the light — the reversible-jump
+    inversion's input — else None).  `smp` is the sampler
+    (rng.sampler)."""
     p = ctx["p"]
     R = p.shape[0]
-    sobol = settings.stratified_sampler
     types = settings.present_bsdf_types
     t, b, n = ctx["frame"]
     sp = ctx["sp"]
@@ -231,17 +245,17 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
     gate = ctx["gate"]
     is_vol = ctx.get("is_volume")
     u_sel = rng.random_1d(seed, pixel, sample_idx,
-                          bounce_dim_base + rng.BounceDims.LIGHT_SELECT, sobol)
+                          bounce_dim_base + rng.BounceDims.LIGHT_SELECT, smp)
     li, sel_weight = L.choose_light(scene, settings, p, u_sel)
     ltype = scene.light_type[li]
 
     u1, u2 = rng.random_2d(seed, pixel, sample_idx,
                            bounce_dim_base + rng.BounceDims.LIGHT_SAMPLE,
-                           sobol)
+                           smp)
     if settings.has_area_lights or settings.has_cyl_lights:
         u_tri = rng.random_1d(seed, pixel, sample_idx,
                               bounce_dim_base + rng.BounceDims.LIGHT_TRI,
-                              sobol)
+                              smp)
     if settings.has_area_lights:
         a = L.area_light_sample(scene, li, p, u_tri, u1, u2)
     else:
@@ -331,7 +345,8 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
         out = f * tr * emis / torch.clamp(pdf, min=1e-20)[..., None] \
             * mis_l[..., None] * sel_weight[..., None]
         return (out, torch.sum(do_shadow.to(torch.int64)),
-                (tr, do_shadow) if want_tr else None)
+                (tr, do_shadow) if want_tr else None,
+                _nee_dir(d, tr, do_shadow) if want_dir else None)
 
     # ---- two strategies: the light sample's visibility, through the
     # generalized shadow ray where media or forward lobes are present,
@@ -368,13 +383,13 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
 
     # ---- the independent bsdf/phase sample (ref TraceBase::bsdfSample)
     ub = rng.random_1d(seed, pixel, sample_idx,
-                       bounce_dim_base + rng.BounceDims.NEE_BSDF_LOBE, sobol)
+                       bounce_dim_base + rng.BounceDims.NEE_BSDF_LOBE, smp)
     ub1, ub2 = rng.random_2d(seed, pixel, sample_idx,
                              bounce_dim_base + rng.BounceDims.NEE_BSDF_SAMPLE,
-                             sobol)
+                             smp)
     ub_l2 = rng.random_1d(seed, pixel, sample_idx,
                           bounce_dim_base + rng.BounceDims.NEE_BSDF_LOBE2,
-                          sobol)
+                          smp)
     wo_b, wt_b, pdf_b, flags_b = bsdf_sample(
         sp, wi_local, ub, ub1, ub2, types, u_lobe2=ub_l2, no_specular=True)
     wd = vm.to_global(t, b, n, wo_b)
@@ -432,7 +447,14 @@ def _nee(scene, settings, ctx, seed, pixel, sample_idx, bounce_dim_base,
     out = (contrib_l + contrib_b) * sel_weight[..., None]
     nee_rays = torch.sum(do_shadow.to(torch.int64)) + \
         torch.sum(trace_b.to(torch.int64))
-    return out, nee_rays, (tr, do_shadow) if want_tr else None
+    return (out, nee_rays, (tr, do_shadow) if want_tr else None,
+            _nee_dir(d, tr, do_shadow) if want_dir else None)
+
+
+def _nee_dir(d, tr, do_shadow):
+    """The light strategy's direction and whether its shadow ray was
+    traced and reached the light."""
+    return d, do_shadow & (torch.amax(tr, dim=-1) > 0.0)
 
 
 # ------------------------------------------------------------ hit expand
@@ -673,13 +695,15 @@ def shading_frame(info, ns):
 
 # --------------------------------------------------------------- the loop
 
-def _init_state(scene, settings, pixel, sample_idx, seed):
+def _init_state(scene, settings, pixel, sample_idx, seed, tape=None):
     """Initial wavefront: camera rays, traced by the first bounce body.
-    pixel/sample_idx (R,) int32.  `bounce` is a host int."""
+    pixel/sample_idx (R,) int32.  `bounce` is a host int.  With a tape
+    (rng.Tape) the camera's draws read it, lane i row i."""
     from tungsten_tpu_torch.cameras.camera import generate_rays_w
     R = pixel.shape[0]
     dev = pixel.device
-    o, d, cam_w = generate_rays_w(scene, settings, pixel, sample_idx, seed)
+    o, d, cam_w = generate_rays_w(scene, settings, pixel, sample_idx, seed,
+                                  tape=tape)
     state = dict(
         o=o.contiguous(), d=d,
         throughput=cam_w[..., None].expand(R, 3) * 1.0,
@@ -718,7 +742,7 @@ def _init_state(scene, settings, pixel, sample_idx, seed):
     return state
 
 
-def _sample_medium(scene, settings, media, s, res, seed, dim_base, sobol):
+def _sample_medium(scene, settings, media, s, res, seed, dim_base, smp):
     """Medium distance sampling at the top of the body (ref
     HomogeneousMedium::sampleDistance with spectral channel MIS, the
     heterogeneous media's inverse optical depth, and volumetric
@@ -739,7 +763,7 @@ def _sample_medium(scene, settings, media, s, res, seed, dim_base, sobol):
     first = s["med_first"]
 
     u_c, u_d, u_e = rng.random_3d(seed, s["pixel"], s["sample"],
-                                  dim_base + rng.BounceDims.MEDIUM, sobol)
+                                  dim_base + rng.BounceDims.MEDIUM, smp)
     comp = torch.clamp((u_c * 3).to(torch.int32), max=2)
     sigma_tc = torch.gather(sigma_t, -1, comp[..., None].long())[..., 0]
     t_law = TR.sample_distance(tt, tp, first, u_d, u_e, laws)
@@ -800,17 +824,22 @@ def _sample_medium(scene, settings, media, s, res, seed, dim_base, sobol):
             med_bounce)
 
 
-def _make_bounce_body(scene, settings, seed, replay: bool = False):
+def _make_bounce_body(scene, settings, seed, replay: bool = False,
+                      tape=None):
     """The per-bounce wavefront step: state dict -> state dict.  `replay`
     (the path-replay gradient, trace_wave_replay) turns the body-start
     sort off: the replay's suffix math needs every lane to keep its
-    identity, as in the JAX package's detach mode."""
+    identity, as in the JAX package's detach mode.  With a tape (rng.Tape)
+    every draw reads the row the state's `lane` names, so the sort and
+    the compactions keep each chain on its own row.  A state holding
+    `rj_b` runs the reversible-jump inversions (trace_wave_rj)."""
     body_sort = scene.device.type == "cuda" and not replay
     one_sample = _one_sample_mis(settings)
     fwd_types = _has_forward_types(settings)
     has_media = settings.has_media
     media = _Media(scene, settings) if has_media else None
-    sobol = settings.stratified_sampler
+    plain_smp = rng.sampler(settings)
+    mlt_len = settings.mlt_path_length
     types = settings.present_bsdf_types
     els = bool(settings.enable_light_sampling)
     transmissive = torch.tensor(
@@ -822,6 +851,7 @@ def _make_bounce_body(scene, settings, seed, replay: bool = False):
             key = ray_sort_key(scene, s["o"], s["d"], ~s["alive"])
             _, order = torch.sort(key, stable=True)
             s = _gather_rows(s, order)
+        smp = plain_smp if tape is None else tape.at(s["lane"])
 
         pixel = s["pixel"]
         sample_idx = s["sample"]
@@ -841,7 +871,7 @@ def _make_bounce_body(scene, settings, seed, replay: bool = False):
         if has_media:
             (vol_scatter, alive, throughput, emission, med_point, med_first,
              med_bounce) = _sample_medium(scene, settings, media, s, res,
-                                          seed, dim_base, sobol)
+                                          seed, dim_base, smp)
             active = alive & res["hit"] & ~vol_scatter
             escaped = alive & ~res["hit"] & ~vol_scatter
         else:
@@ -852,6 +882,9 @@ def _make_bounce_body(scene, settings, seed, replay: bool = False):
         # handleInfiniteLights) ----
         if settings.has_env or settings.num_caps > 0:
             env_ok = escaped & (bounce >= settings.min_bounces)
+            if mlt_len >= 0:
+                # MMLT: this chain measures length-k paths only
+                env_ok = env_ok & (bounce + 1 == mlt_len)
             guard = s["was_specular"] | (not els)
             if settings.has_env:
                 env_val = L.env_eval(scene, s["d"], active=env_ok)
@@ -897,7 +930,7 @@ def _make_bounce_body(scene, settings, seed, replay: bool = False):
             transp = bsdf_forward(sp, wi_local, types)
             t_scalar = torch.mean(transp, dim=-1)
             u_fwd = rng.random_1d(seed, pixel, sample_idx,
-                                  dim_base + rng.BounceDims.FORWARD, sobol)
+                                  dim_base + rng.BounceDims.FORWARD, smp)
             take_forward = active & (u_fwd < t_scalar)
             fwd_weight = transp / torch.clamp(t_scalar, min=1e-20)[..., None]
             shade = active & ~take_forward
@@ -906,11 +939,11 @@ def _make_bounce_body(scene, settings, seed, replay: bool = False):
 
         # ---- continuation: bsdf sample / phase sample / forward ----
         ul = rng.random_1d(seed, pixel, sample_idx,
-                           dim_base + rng.BounceDims.BSDF_LOBE, sobol)
+                           dim_base + rng.BounceDims.BSDF_LOBE, smp)
         u1, u2 = rng.random_2d(seed, pixel, sample_idx,
-                               dim_base + rng.BounceDims.BSDF_SAMPLE, sobol)
+                               dim_base + rng.BounceDims.BSDF_SAMPLE, smp)
         ul2 = rng.random_1d(seed, pixel, sample_idx,
-                            dim_base + rng.BounceDims.BSDF_LOBE2, sobol)
+                            dim_base + rng.BounceDims.BSDF_LOBE2, smp)
         wo, wt, pdf, flags = bsdf_sample(sp, wi_local, ul, u1, u2, types,
                                          u_lobe2=ul2)
         ok = ((flags & FLAG_VALID) != 0) & (torch.amax(wt, dim=-1) > 0)
@@ -959,7 +992,7 @@ def _make_bounce_body(scene, settings, seed, replay: bool = False):
         r_pdf = torch.amax(torch.abs(thr_next), dim=-1)
         do_rr = alive2 & (bounce > 2) & (r_pdf < 0.1)
         u_rr = rng.random_1d(seed, pixel, sample_idx,
-                             dim_base + rng.BounceDims.ROULETTE, sobol)
+                             dim_base + rng.BounceDims.ROULETTE, smp)
         survive = u_rr < r_pdf
         thr_next = torch.where(
             (do_rr & survive)[..., None],
@@ -973,10 +1006,13 @@ def _make_bounce_body(scene, settings, seed, replay: bool = False):
         # ---- NEE at surface and medium vertices together; the
         # continuation ray is traced at the NEXT body's top ----
         nee_rays = 0
-        tr_nee = None
+        tr_nee = nee_dir = None
+        rj = "rj_b" in s
         if els and settings.num_lights > 0:
             vertex = (shade | vol_scatter) if has_media else shade
             do_nee = vertex & (bounce < settings.max_bounces - 1)
+            if mlt_len >= 0:
+                do_nee = do_nee & (bounce + 2 == mlt_len)
             ctx = dict(p=info["p"], sp=sp, frame=(tan, bit, ns),
                        wi_local=wi_local, gate=do_nee)
             if has_media:
@@ -984,10 +1020,9 @@ def _make_bounce_body(scene, settings, seed, replay: bool = False):
                            is_volume=vol_scatter, ray_d=s["d"],
                            medium=s["medium"], phase_type=phase_type,
                            phase_g=phase_g)
-            nee, nee_rays, tr_nee = _nee(scene, settings, ctx, seed, pixel,
-                                         sample_idx, dim_base,
-                                         want_tr=settings.track_aovs,
-                                         media=media)
+            nee, nee_rays, tr_nee, nee_dir = _nee(
+                scene, settings, ctx, seed, pixel, sample_idx, dim_base, smp,
+                want_tr=settings.track_aovs, media=media, want_dir=rj)
             emission = emission + torch.where(do_nee[..., None],
                                               nee * throughput, 0.0)
 
@@ -1017,8 +1052,11 @@ def _make_bounce_body(scene, settings, seed, replay: bool = False):
                 take_emit[..., None], throughput * e_hit * w_emit[..., None],
                 0.0)
         else:
+            take_emit = take_emit & guard
+            if mlt_len >= 0:
+                take_emit = take_emit & (bounce + 1 == mlt_len)
             emission = emission + torch.where(
-                (take_emit & guard)[..., None], throughput * e_hit, 0.0)
+                take_emit[..., None], throughput * e_hit, 0.0)
 
         out = dict(
             o=o2, d=d2, throughput=thr_next, emission=emission,
@@ -1033,6 +1071,9 @@ def _make_bounce_body(scene, settings, seed, replay: bool = False):
             out["pdf_fwd"] = torch.where(shade & ok, pdf, s["pdf_fwd"])
         if "lane" in s:
             out["lane"] = s["lane"]
+        if rj:
+            out.update(_rj_step(scene, settings, s, res, info, sp, wi_local,
+                                (tan, bit, ns), shade, nee_dir, seed))
 
         # ---- output-value capture (ref PathTracer.cpp:78-96,133-140):
         # depth/normal/albedo/visibility at the first non-specular or
@@ -1068,6 +1109,79 @@ def _make_bounce_body(scene, settings, seed, replay: bool = False):
     return body
 
 
+RJ_FIELDS = ("rj_b", "rj_dims", "rj_valid", "rj_nee", "rj_rev_valid",
+             "rj_pp")
+# the rj fields each lane writes at most once: banked by lane like the
+# accumulators, so compaction keeps them
+RJ_RESULTS = ("rj_dims", "rj_valid", "rj_nee", "rj_rev_valid")
+
+
+def _rj_step(scene, settings, s, res, info, sp, wi_local, frame, shade,
+             nee_dir, seed):
+    """The reversible-jump bookkeeping of one body (the JAX package's rj
+    block): at each lane's bounce rj_b, invert both techniques.
+
+      * forward: the continuation sampler's coordinates (lobe, u1, u2,
+        lobe2) that aim the bounce's bsdf sample at the NEE light
+        direction (bsdf_invert, the reference's Bsdf::invert), where that
+        direction's shadow ray reached the light;
+      * reverse, one body later: whether rj_b's continuation ray (this
+        body's top trace `res`) hit the front of a samplable area light,
+        and the NEE sampler's coordinates (light select, u1, u2, triangle
+        pick) that regenerate that hit from rj_b's shading point rj_pp.
+
+    The inversions' free coordinates come from untracked pcg4d draws keyed
+    on rj_b's dim block, never from the tape.  As in the JAX package, a
+    pick rj_b = max_bounces - 1 never validates (no NEE there, and no body
+    runs the reverse check) and a medium vertex at rj_b never shades
+    (rj_pp stays as it was).  Returns the rj fields of the body's
+    output."""
+    from tungsten_tpu_torch.bsdf.invert import bsdf_invert
+    from tungsten_tpu_torch.integrators.invert_path import (
+        invert_area_light_point, invert_choose_light)
+    keep = {k: s[k] for k in RJ_FIELDS}
+    if nee_dir is None:
+        return keep
+    pixel, sample_idx, bounce = s["pixel"], s["sample"], s["bounce"]
+    seed32 = int(seed) & 0xFFFFFFFF
+    dim_base = rng.DIMS_CAMERA + bounce * rng.DIMS_PER_BOUNCE
+    tan, bit, ns = frame
+    at_b = shade & (s["rj_b"] == bounce)
+    d, d_ok = nee_dir
+    mu = torch.stack(rng.untracked_4d(seed32 ^ 0x52A11CE, pixel, sample_idx,
+                                      dim_base), dim=-1)
+    inv = bsdf_invert(sp, wi_local, vm.to_local(tan, bit, ns, d),
+                      settings.present_bsdf_types, mu)
+    take = at_b & d_ok & inv["valid"]
+    new_dims = torch.stack([inv["lobe"], inv["u1"], inv["u2"],
+                            inv["lobe2"]], dim=-1)
+    out = dict(keep)
+    out["rj_dims"] = torch.where(take[..., None], new_dims, s["rj_dims"])
+    out["rj_valid"] = s["rj_valid"] | take
+
+    at_rev = s["alive"] & (s["rj_b"] + 1 == bounce)
+    hit_prim = _hit_prim(scene, res)
+    li_hit = scene.prim_light[torch.clamp(hit_prim, min=0).long()]
+    li_c = torch.clamp(li_hit, 0,
+                       max(scene.light_type.shape[0] - 1, 0)).long()
+    front = torch.sum(s["d"] * _hit_ng(scene, res), dim=-1) < 0.0
+    is_area_hit = res["hit"] & (li_hit >= 0) & \
+        (scene.light_type[li_c] == LIGHT_AREA) & front & (res["tri"] >= 0)
+    dim_prev = rng.DIMS_CAMERA + (bounce - 1) * rng.DIMS_PER_BOUNCE
+    mu2 = rng.untracked_4d(seed32 ^ 0x2E5, pixel, sample_idx, dim_prev)
+    u_tri, lu1, lu2, ok_pos = invert_area_light_point(
+        scene, li_c, torch.clamp(res["tri"], 0, scene.lt_slot.shape[0] - 1),
+        res["u"], res["v"], mu2[0])
+    u_sel, ok_sel = invert_choose_light(scene, settings, s["rj_pp"], li_hit,
+                                        mu2[1])
+    take_r = at_rev & is_area_hit & ok_pos & ok_sel
+    nee_dims = torch.stack([u_sel, lu1, lu2, u_tri], dim=-1)
+    out["rj_nee"] = torch.where(take_r[..., None], nee_dims, s["rj_nee"])
+    out["rj_rev_valid"] = s["rj_rev_valid"] | take_r
+    out["rj_pp"] = vm.where3(at_b, info["p"], s["rj_pp"])
+    return out
+
+
 def init_wave(scene, settings, pixel, sample_idx, seed):
     """Initial wavefront state (camera rays, traced by the first body)."""
     return _init_state(scene, settings, pixel, sample_idx, seed)
@@ -1083,15 +1197,47 @@ def run_bounces(scene, settings, seed, state, bounce_end):
 
 
 def trace_wave(scene, settings, pixel, sample_idx, seed, with_stats=False,
-               min_wave: int = 4096, step: int = 2):
+               min_wave: int = 4096, step: int = 2, tape=None):
     """Trace one radiance sample per entry; pixel/sample_idx (R,) int32.
     Returns radiance (R,3), or (radiance, rays traced as a 0-d int64
-    tensor) with stats.  The staged loop, banking by lane."""
+    tensor) with stats.  The staged loop, banking by lane.  `tape` (an
+    rng.Tape) drives every draw from its rows instead of the counter
+    hash (the MLT integrators)."""
     banks, rays = _staged(scene, settings, pixel, sample_idx, seed,
-                          pixel.shape[0], min_wave, step, key="lane")
+                          pixel.shape[0], min_wave, step, key="lane",
+                          tape=tape)
     if with_stats:
         return banks["emission"], rays
     return banks["emission"]
+
+
+def trace_wave_rj(scene, settings, pixel, sample_idx, seed, rj_b, tape=None,
+                  with_stats=False, min_wave: int = 4096, step: int = 2):
+    """Trace one sample per entry while inverting, at each lane's bounce
+    rj_b ((R,) int32), both techniques (_rj_step): the continuation
+    sampler's coordinates that aim the bounce's bsdf sample at the NEE
+    light direction, and the NEE sampler's coordinates that regenerate
+    the continuation ray's area-light hit.  Returns (radiance (R,3),
+    rj_dims (R,4), rj_valid (R,), rj_nee (R,4), rj_rev_valid (R,)), the
+    reversible-jump exchange's raw material (JAX trace_wave_rj), with
+    stats also the rays traced."""
+    R = pixel.shape[0]
+    dev = pixel.device
+    z = torch.zeros((R,), dtype=torch.bool, device=dev)
+    extra = dict(rj_b=torch.broadcast_to(
+        torch.as_tensor(rj_b, dtype=torch.int32, device=dev), (R,))
+        .contiguous(),
+        rj_dims=torch.zeros((R, 4), dtype=torch.float32, device=dev),
+        rj_valid=z, rj_nee=torch.zeros((R, 4), dtype=torch.float32,
+                                       device=dev),
+        rj_rev_valid=z, rj_pp=torch.zeros((R, 3), dtype=torch.float32,
+                                          device=dev))
+    banks, rays = _staged(scene, settings, pixel, sample_idx, seed, R,
+                          min_wave, step, key="lane", tape=tape, extra=extra)
+    out = (banks["emission"], banks["rj_dims"],
+           banks["rj_valid"][:, 0] > 0.5, banks["rj_nee"],
+           banks["rj_rev_valid"][:, 0] > 0.5)
+    return out + (rays,) if with_stats else out
 
 
 def trace_wave_aovs(scene, settings, pixel, sample_idx, seed,
@@ -1112,10 +1258,12 @@ def trace_wave_aovs(scene, settings, pixel, sample_idx, seed,
     return banks["emission"], aovs
 
 
-# per-ray sums that retire into banks: radiance and each AOV's (value,
-# count); everything else in the state is carried
+# per-ray sums that retire into banks: radiance, each AOV's (value,
+# count) and the reversible-jump results (written once a lane, so their
+# bank sums are the values; flags bank as 0 / 1); everything else in the
+# state is carried
 ACCUMULATORS = ("emission", "aov_depth", "aov_normal", "aov_albedo",
-                "aov_vis")
+                "aov_vis") + RJ_RESULTS
 
 
 def bank(state, n_total, key="pixel"):
@@ -1133,6 +1281,8 @@ def bank(state, n_total, key="pixel"):
         if k not in state:
             continue
         v = state[k]
+        if v.ndim == 1:
+            v = v.to(torch.float32)[..., None]
         if k == "emission" and key == "pixel":
             v = torch.where(torch.isfinite(v), v, 0.0)
         v = torch.where(keep, v, 0.0)
@@ -1199,17 +1349,36 @@ def compact_wave(state, new_r: int):
     return out
 
 
+# the staged schedule of a whole render: on CUDA compact after every
+# bounce to width / 2; the CPU (tests) compacts to width / 4 (the JAX
+# package's CPU schedule); the tail runs at MIN_WAVE lanes or fewer
+MIN_WAVE = 1024
+WIDTH_STEP = 2
+
+
+def staged_schedule(device: torch.device) -> dict:
+    """The staged loop's min_wave and step for a render on `device`."""
+    return dict(min_wave=MIN_WAVE,
+                step=4 if device.type == "cpu" else WIDTH_STEP)
+
+
 def _staged(scene, settings, pixel, sample_idx, seed, n_total: int,
-            min_wave: int, step: int, key: str):
+            min_wave: int, step: int, key: str, tape=None, extra=None):
     """The width-staged bounce schedule: run the bounce body at a fixed
     width until the survivors fit the next width (width // step), bank
     every ray's accumulators by `key`, compact, repeat down to min_wave,
     then run the tail to extinction.  key "pixel" banks into the
     framebuffer; key "lane" banks by input entry (n_total = R), which
-    undoes the body's sort and the compactions.  Returns ({accumulator:
-    (n_total, C) sum}, rays traced as a 0-d int64 tensor)."""
-    body = _make_bounce_body(scene, settings, seed)
-    state = _init_state(scene, settings, pixel, sample_idx, seed)
+    undoes the body's sort and the compactions.  `tape` drives the draws
+    (rng.Tape, each lane reading its entry's row; key "lane" only);
+    `extra` adds state fields (trace_wave_rj's).  Returns ({accumulator:
+    (n_total, C) sum; a flag's C is 1}, rays traced as a 0-d int64
+    tensor)."""
+    if tape is not None and key != "lane":
+        raise ValueError("a tape is read by lane: trace it banking by lane")
+    body = _make_bounce_body(scene, settings, seed, tape=tape)
+    state = _init_state(scene, settings, pixel, sample_idx, seed, tape=tape)
+    state.update(extra or {})
     if key == "lane":
         state["lane"] = torch.arange(pixel.shape[0], dtype=torch.int32,
                                      device=pixel.device)

@@ -188,7 +188,8 @@ def _analytic_prims(scene, o, d, t_min, t_max, neg=None):
 def bvh_walk(scene, o, d, t_min, t_max, any_hit: bool = False):
     """Skip-pointer BVH walk over the FlatScene triangles — the plain
     version of the wave kernels.  Returns (t, tri, u, v); t = t_max and
-    tri = -1 on a miss.  Finished rays leave the working set every
+    tri = -1 on a miss.  A step tests the leaf's triangles only for the
+    rays that reached one, and finished rays leave the working set every
     WALK_UNROLL steps (each ray's result depends on that ray alone)."""
     R = o.shape[0]
     t_min = torch.broadcast_to(_f32(t_min, o), (R,))
@@ -202,6 +203,8 @@ def bvh_walk(scene, o, d, t_min, t_max, any_hit: bool = False):
     num_nodes = scene.bvh_meta.shape[0]
     inv_d = 1.0 / _safe_d(d)
 
+    slots = torch.arange(MAX_LEAF, dtype=scene.bvh_meta.dtype,
+                         device=o.device)
     act = torch.arange(R, device=o.device)
     node = torch.zeros((R,), dtype=torch.int64, device=o.device)
     ao, ad, ainv, atmin = o, d, inv_d, t_min
@@ -214,19 +217,30 @@ def bvh_walk(scene, o, d, t_min, t_max, any_hit: bool = False):
             box_hit, _ = ray_box(ao, ainv, scene.bvh_min[nc],
                                  scene.bvh_max[nc], at)
             is_leaf = meta[:, 1] > 0
-            test_leaf = box_hit & is_leaf
-            for k in range(MAX_LEAF):
-                valid = test_leaf & (k < meta[:, 1])
-                tid = torch.clamp(meta[:, 0] + k, 0, T - 1)
+            # the rays at a leaf test its triangles side by side: the
+            # nearest hit wins, the first of equals on a tie, as testing
+            # them in order against the shrinking t_max does
+            at_leaf = torch.nonzero(box_hit & is_leaf)[:, 0]
+            if at_leaf.shape[0]:
+                lm = meta[at_leaf]
+                tid = torch.clamp(lm[:, 0:1] + slots, 0, T - 1)
                 tl = tid.long()
-                h, t, uu, vv = ray_tri(ao, ad, scene.tri_v0[tl],
-                                       scene.tri_e1[tl], scene.tri_e2[tl],
-                                       atmin, at)
-                h = h & valid
-                at = torch.where(h, t, at)
-                atri = torch.where(h, tid, atri)
-                au = torch.where(h, uu, au)
-                av = torch.where(h, vv, av)
+                lt = at[at_leaf]
+                h, t, uu, vv = ray_tri(ao[at_leaf, None], ad[at_leaf, None],
+                                       scene.tri_v0[tl], scene.tri_e1[tl],
+                                       scene.tri_e2[tl],
+                                       atmin[at_leaf, None], lt[:, None])
+                h = h & (slots < lm[:, 1:2])
+                k = torch.argmin(torch.where(h, t, INF), dim=1, keepdim=True)
+                got = torch.gather(h, 1, k)[:, 0]
+                at = at.index_put((at_leaf,), torch.where(
+                    got, torch.gather(t, 1, k)[:, 0], lt))
+                atri = atri.index_put((at_leaf,), torch.where(
+                    got, torch.gather(tid, 1, k)[:, 0], atri[at_leaf]))
+                au = au.index_put((at_leaf,), torch.where(
+                    got, torch.gather(uu, 1, k)[:, 0], au[at_leaf]))
+                av = av.index_put((at_leaf,), torch.where(
+                    got, torch.gather(vv, 1, k)[:, 0], av[at_leaf]))
             nxt = torch.where(box_hit & ~is_leaf, node + 1,
                               scene.bvh_skip[nc].long())
             if any_hit:

@@ -1,15 +1,18 @@
-"""Top-level render loop (port of tungsten_tpu/render.py for the
-path_tracer, bidirectional_path_tracer, light_tracer, photon_map and
-progressive_photon_map integrators): spp batches over the width-staged
-wavefront or the splatting BDPT / light-tracer waves, the photon maps'
-spp rounds, accumulation into a framebuffer, Mrays/s stats; adaptive
-sampling; the output buffers (AOVs, variance, parity halves).
+"""Top-level render loop (port of tungsten_tpu/render.py for every
+integrator of the JAX package: path_tracer, bidirectional_path_tracer,
+light_tracer, photon_map, progressive_photon_map and the MLT family
+kelemen_mlt, multiplexed_mlt and reversible_jump_mlt): spp batches over
+the width-staged wavefront or the splatting BDPT / light-tracer waves,
+the photon maps' spp rounds, the MLT chains' batches, accumulation into a
+framebuffer, Mrays/s stats; adaptive sampling; the output buffers (AOVs,
+variance, parity halves).
 
 A small frame batches several spp into one wide wavefront (up to
 WAVE_RAYS = 4 * WAVEFRONT_CHUNK rays): 256x256 at 16 spp is one wave of
-1,048,576 rays, narrowed by the staged schedule down to MIN_WAVE.  The
-adaptive and output-buffer renders batch their samples the same way,
-where the JAX package traces one wave per spp: rays are independent, so
+1,048,576 rays, narrowed by the staged schedule
+(path_tracer.staged_schedule).  The adaptive and output-buffer renders
+batch their samples the same way, where the JAX package traces one wave
+per spp: rays are independent, so
 only the order of the sums changes (and index_add_ on CUDA sums with
 atomics in a varying order anyway).  They take the same staged schedule
 too, banking each sample by its lane instead of its pixel.  The
@@ -30,32 +33,23 @@ import numpy as np
 import torch
 
 from tungsten_tpu_torch.device import resolve_device
-from tungsten_tpu_torch.integrators.path_tracer import (trace_wave,
+from tungsten_tpu_torch.integrators.path_tracer import (staged_schedule,
+                                                        trace_wave,
                                                         trace_wave_aovs,
                                                         trace_wave_staged)
 
 WAVEFRONT_CHUNK = 262144
 WAVE_RAYS = 4 * WAVEFRONT_CHUNK
-# staged schedule: on CUDA compact after every bounce to width / 2; the
-# CPU (tests) compacts to width / 4 (the JAX package's CPU schedule)
-MIN_WAVE = 1024
-WIDTH_STEP = 2
 ADAPTIVE_THRESHOLD = 16
 VARIANCE_TILE = 4
 LUMA = (0.2126, 0.7152, 0.0722)
 
 
-def _schedule_params(device: torch.device) -> int:
-    """The staged schedule's width divisor for the scene's device."""
-    return 4 if device.type == "cpu" else WIDTH_STEP
-
-
 def _trace_chunk_staged(scene, settings, pixel, sample_idx, seed, n_total):
     """One pixel chunk, one spp batch: the full width-staged bounce
     schedule.  Returns ((n_total, 3) radiance sum, rays)."""
-    step = _schedule_params(scene.device)
     fb, rays = trace_wave_staged(scene, settings, pixel, sample_idx, seed,
-                                 n_total, min_wave=MIN_WAVE, step=step)
+                                 n_total, **staged_schedule(scene.device))
     return fb, int(rays)
 
 
@@ -226,6 +220,16 @@ def render_pass(scene, settings, sample_start, seed, spp_chunk: int = 1):
     if settings.integrator_type in PHOTON_MAPS:
         return _render_pass_photon(scene, settings, sample_start, seed,
                                    spp_chunk)
+    if "mlt" in settings.integrator_type:
+        # the chains and their helper draws run on the uniform sampler
+        # (the JAX package latches `stratified_sampler and "mlt" not in
+        # integrator_type`)
+        from tungsten_tpu_torch.integrators import mlt
+        settings = replace(settings, stratified_sampler=False)
+        fn = mlt.render_pass_mmlt \
+            if settings.integrator_type == "multiplexed_mlt" \
+            else mlt.render_pass_mlt
+        return fn(scene, settings, sample_start, seed, spp_chunk)
     trace = _trace_chunk_splat if settings.integrator_type in SPLATTING \
         else _trace_chunk_staged
     dev = scene.device
@@ -277,8 +281,8 @@ def _trace_adaptive_chunk(scene, settings, pixel, sample_idx, seed,
     radiance framebuffer part + per-variance-tile (sum, sumsq, count)
     luminance statistics and the rays traced."""
     rad, nrays = trace_wave(scene, settings, pixel, sample_idx, seed,
-                            with_stats=True, min_wave=MIN_WAVE,
-                            step=_schedule_params(scene.device))
+                            with_stats=True,
+                            **staged_schedule(scene.device))
     rad = torch.where(torch.isfinite(rad), rad, 0.0)
     ok = pixel < n_total
     rad = torch.where(ok[..., None], rad, 0.0)
@@ -520,8 +524,7 @@ def _trace_chunk_aov(scene, settings, pixel, sample_idx, seed,
     count; and the rays traced."""
     rad, aovs, rays = trace_wave_aovs(scene, settings, pixel, sample_idx,
                                       seed, with_stats=True,
-                                      min_wave=MIN_WAVE,
-                                      step=_schedule_params(scene.device))
+                                      **staged_schedule(scene.device))
     rad = torch.where(torch.isfinite(rad), rad, 0.0)
     ok = pixel < n_total
     rad = torch.where(ok[..., None], rad, 0.0)

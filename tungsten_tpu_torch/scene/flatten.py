@@ -76,7 +76,8 @@ CRV_ROW = 16
 CWBVH_ROW = 32
 PORTED_CAMERAS = ("pinhole", "thinlens", "equirectangular", "cubemap")
 PORTED_INTEGRATORS = ("path_tracer", "bidirectional_path_tracer",
-                      "light_tracer", "photon_map", "progressive_photon_map")
+                      "light_tracer", "photon_map", "progressive_photon_map",
+                      "kelemen_mlt", "multiplexed_mlt", "reversible_jump_mlt")
 
 
 def _lt_slot_of_tri(lt_tri_l, num_tris):
@@ -329,7 +330,17 @@ class RenderSettings:
     rr_max_events: int = 192  # event cap per ratio-tracking query
     integrator_type: str = "path_tracer"
     bdpt_vertices: int = 8   # per-subpath vertex cap for bdpt/light_tracer
-    mlt_path_length: int = -1  # restrict bdpt to one path length (MMLT)
+    mlt_path_length: int = -1  # MMLT: restrict to one path length
+    # the MLT family (ref KelemenMltSettings / MultiplexedMltSettings /
+    # ReversibleJumpMltSettings)
+    mlt_large_step_prob: float = 0.1
+    mlt_sample_pool: int = 10000     # initial_sample_pool
+    mlt_chains: int = 8192           # parallel chains a batch
+    mlt_strategy_prob: float = 0.05  # strategy_perturbation_probability
+    # kelemen_mlt / multiplexed_mlt's base sampler (ref
+    # KelemenMltSettings.hpp:19 "bidirectional", default true): the chains
+    # mutate a BDPT tape instead of the path tracer's
+    mlt_bidirectional: bool = True
     # photon_map / progressive_photon_map (ref PhotonMapSettings.hpp)
     photon_count: int = 1 << 20
     gather_radius: float = 0.05
@@ -1536,6 +1547,11 @@ def flatten_scene(desc: SceneDesc, device=None
             integ.get("volume_gather_radius",
                       integ.get("gather_radius", 0.05))),
         ppm_alpha=float(integ.get("alpha", 0.3)),
+        mlt_large_step_prob=float(integ.get("large_step_probability", 0.1)),
+        mlt_sample_pool=int(integ.get("initial_sample_pool", 10000)),
+        mlt_strategy_prob=float(
+            integ.get("strategy_perturbation_probability", 0.05)),
+        mlt_bidirectional=bool(integ.get("bidirectional", True)),
         **media_kw,
     )
 

@@ -1,9 +1,13 @@
 """Stateless, replay-exact counter RNG (port of tungsten_tpu/utils/rng.py).
 
 Every random number is addressed by (seed, pixel, sample, dim) and hashed
-with pcg4d (Jarzynski & Olano, JCGT 2020), or drawn from the scrambled
-Sobol' sequence of utils/sobol.py when `sobol=True` (the JAX package
-latches that choice in a module global; here it is an argument).
+with pcg4d (Jarzynski & Olano, JCGT 2020), drawn from the scrambled
+Sobol' sequence of utils/sobol.py when the draw's sampler `smp` is True,
+or read from a primary-sample-space `Tape` when `smp` is one (the MLT
+integrators).
+The JAX package latches the sampler and the tape in module globals
+(`set_sampler`, `tape_mode`); here the sampler is an argument that every
+draw takes, and each lane reads its own tape row.
 
 torch has no usable uint32 arithmetic, so words live in int32 tensors:
 two's-complement multiply and add wrap mod 2^32 exactly as uint32 does,
@@ -14,6 +18,8 @@ Dimension layout: dims 0..3 camera, then DIMS_PER_BOUNCE per bounce
 (offsets in `BounceDims`).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass, field
 
 import torch
 
@@ -40,6 +46,50 @@ class BounceDims:
 
 def bounce_dim(bounce, slot):
     return DIMS_CAMERA + bounce * DIMS_PER_BOUNCE + slot
+
+
+# bidirectional tapes: dims from here on (bdpt.LIGHT_WALK_DIM_OFFSET) are
+# the light root's and walk's
+LIGHT_DIM_OFFSET = 4096
+
+
+@dataclass(frozen=True)
+class Tape:
+    """A primary-sample-space tape: MLT drives the tracer from one
+    mutated (D,) vector per chain instead of the counter hash (the
+    reference's MetropolisSampler).  A draw at `dim` reads column
+    dim mod D of the lane's row and ignores (seed, pixel, sample); lane i
+    reads row i, or the row `at(rows)` names for it (the path tracer
+    passes its wave state's `lane`, which sorts and compactions move
+    with the lane).  light_cols, for bidirectional tapes: dims >=
+    LIGHT_DIM_OFFSET read column dim - LIGHT_DIM_OFFSET + light_cols
+    instead of wrapping, so camera- and light-walk coordinates take
+    separate columns."""
+    table: torch.Tensor
+    light_cols: int | None = None
+    rows: torch.Tensor | None = field(default=None, init=False)
+
+    def at(self, rows):
+        """The same tape read through lane rows `rows` (R,)."""
+        tape = Tape(self.table, self.light_cols)
+        object.__setattr__(tape, "rows", rows.long())
+        return tape
+
+    def read(self, dim: int):
+        d = self.table.shape[1]
+        dim = int(dim)
+        if self.light_cols is not None and dim >= LIGHT_DIM_OFFSET:
+            dim = dim - LIGHT_DIM_OFFSET + self.light_cols
+        col = dim % d
+        if self.rows is None:
+            return self.table[:, col]
+        return self.table[self.rows, col]
+
+
+def sampler(settings, tape=None):
+    """What a draw's `smp` argument takes: the tape when one drives the
+    trace, else the settings' choice of Sobol' (True) or pcg4d (False)."""
+    return tape if tape is not None else bool(settings.stratified_sampler)
 
 
 def _device_of(*xs):
@@ -112,25 +162,32 @@ def _sobol_value(seed, pixel, sample_idx, dim):
     return _to_unit_float(v ^ h)
 
 
-def random_1d(seed, pixel, sample_idx, dim, sobol: bool = False):
-    """One uniform float in [0,1) addressed by (seed, pixel, sample, dim)."""
-    if sobol:
+def random_1d(seed, pixel, sample_idx, dim, smp=False):
+    """One uniform float in [0,1) addressed by (seed, pixel, sample, dim).
+    `smp`: False (pcg4d), True (Sobol') or a Tape (read the tape)."""
+    if isinstance(smp, Tape):
+        return smp.read(dim)
+    if smp:
         return _sobol_value(seed, pixel, sample_idx, dim)
     x, _, _, _ = _pcg4d(*_words(seed, pixel, sample_idx, dim))
     return _to_unit_float(x)
 
 
-def random_2d(seed, pixel, sample_idx, dim, sobol: bool = False):
+def random_2d(seed, pixel, sample_idx, dim, smp=False):
     """Two uniform floats; consumes dims [dim, dim+1]."""
-    if sobol:
+    if isinstance(smp, Tape):
+        return smp.read(dim), smp.read(dim + 1)
+    if smp:
         return (_sobol_value(seed, pixel, sample_idx, dim),
                 _sobol_value(seed, pixel, sample_idx, dim + 1))
     x, y, _, _ = _pcg4d(*_words(seed, pixel, sample_idx, dim))
     return _to_unit_float(x), _to_unit_float(y)
 
 
-def random_3d(seed, pixel, sample_idx, dim, sobol: bool = False):
-    if sobol:
+def random_3d(seed, pixel, sample_idx, dim, smp=False):
+    if isinstance(smp, Tape):
+        return smp.read(dim), smp.read(dim + 1), smp.read(dim + 2)
+    if smp:
         return (_sobol_value(seed, pixel, sample_idx, dim),
                 _sobol_value(seed, pixel, sample_idx, dim + 1),
                 _sobol_value(seed, pixel, sample_idx, dim + 2))
@@ -139,7 +196,9 @@ def random_3d(seed, pixel, sample_idx, dim, sobol: bool = False):
 
 
 def untracked_4d(seed, pixel, sample_idx, dim):
-    """Four uniforms from one pcg4d hash (never Sobol')."""
+    """Four uniforms from one pcg4d hash (never Sobol', never the tape:
+    the reference's untracked1D, helper randomness for inversion that
+    must not consume or disturb the tape)."""
     x, y, z, w = _pcg4d(*_words(seed, pixel, sample_idx, dim))
     return (_to_unit_float(x), _to_unit_float(y),
             _to_unit_float(z), _to_unit_float(w))
