@@ -9,7 +9,8 @@ Phases (any failure exits non-zero):
      closest-hit, resident any-hit and paged any-hit kernels), the
      tensor-core leaf kernel (csrc/leaf_mma.cu, nvcc), the curve-piece
      walk C1 (csrc/curve_trace.cu, nvcc) and the host BVH library (g++),
-     the four compiles started together;
+     the four compiles started together (the host library holds the
+     OBJ parser too, native/objloader.cpp);
   2b. leaf kernels (K4, K5): each of the five kernel rows (mma_loop,
      mma_loop_stores, leaf_variant_a/b/c) against its plain version,
      exactly on the TPU tool's all-ones inputs and within the stated
@@ -244,11 +245,28 @@ Phases (any failure exits non-zero):
      kelemen_mlt at 64x64, 4 spp (a 4,096-sample pool) with the output
      buffers (every file loaded), and one server /render of it; each
      part's seconds printed;
-  19. the kernels JSON line (ten rows: K1, K2, K3 closest and any hit,
+  19. OBJ meshes: (a) the smoke scene written again with its 24
+     spheres as OBJ files in exporter style (each triangle's corners as
+     v / vt / vn lines just before `f -3/-3/-3 -2/-2/-2 -1/-1/-1`, every
+     float as repr of its f32 value); (b) every file through the native
+     loader (native/objloader.cpp) and the Python parser
+     (io/mesh.py::load_obj_python): the two Meshes bitwise equal, each
+     triangle's corners the .wo3 mesh's, both loaders' host seconds;
+     (c) load_scene -> flatten_scene on the card: 95,236 triangles, every
+     FlatScene field (triangle tables, BVH, cluster tables) and the
+     settings equal to phase 3's .wo3 scene's; (d) the main path's render
+     (256x256, 16 spp, 64 bounces) from zero launch counts: K1's and K2's
+     launches phase 5's, the image compared bitwise with phase 5's (and
+     phase 5's second render with its first: the frame sums with atomics
+     in a varying order), and the wave's 1,048,576 lanes traced on both
+     scenes bitwise equal; (e) cli.render_scene of the OBJ scene at
+     64x64, 4 spp with the output buffers (every file loaded) and one
+     server /render of it;
+  20. the kernels JSON line (ten rows: K1, K2, K3 closest and any hit,
      the five leaf rows and C1; K1's and K2's with their launches in the
      replay's forward and backward, in the BDPT and light-tracer renders,
-     in the photon-map renders and in the MLT renders), then the result
-     line.
+     in the photon-map renders, in the MLT renders and in the OBJ
+     scene's render), then the result line.
 """
 from __future__ import annotations
 
@@ -335,15 +353,31 @@ def uv_sphere(nu: int, nv: int):
     return pos, pos.copy(), uv, np.asarray(tris, np.int32)
 
 
+def exporter_obj(pos, nrm, uv, idx) -> str:
+    """A mesh as OBJ exporters write one: each triangle's three corners as
+    v / vt / vn lines just before `f -3/-3/-3 -2/-2/-2 -1/-1/-1`, every
+    float as repr of its f32 value, so that a loader reads it back
+    exactly."""
+    out = []
+    for tri in idx.tolist():
+        for arr, tag in ((pos, "v"), (uv, "vt"), (nrm, "vn")):
+            rows = arr[tri].tolist()
+            out += [tag + " " + " ".join(map(repr, r)) for r in rows]
+        out.append("f -3/-3/-3 -2/-2/-2 -1/-1/-1")
+    return "\n".join(out) + "\n"
+
+
 def write_scene(dirpath: str, res: int = RES, spp: int = SPP,
                 grid=(GRID_X, GRID_Z), seg=(SEG_U, SEG_V),
-                sky=(SKY_W, SKY_H)) -> str:
-    """Write the smoke scene (meshes, sky, scene.json); returns its path."""
+                sky=(SKY_W, SKY_H), mesh_ext: str = "wo3") -> str:
+    """Write the smoke scene (meshes, sky, scene.json); returns its path.
+    `mesh_ext` "obj" writes the spheres as exporter-style OBJ files."""
     import numpy as np
     from tungsten_tpu_torch.io import mesh
     pos, nrm, uv, idx = uv_sphere(*seg)
     m = mesh.Mesh(pos=pos, normal=nrm, uv=uv, indices=idx,
                   material=np.zeros(len(idx), np.int32))
+    obj_text = exporter_obj(pos, nrm, uv, idx) if mesh_ext == "obj" else None
     bsdfs = [{"name": "floor", "type": "lambert", "albedo": [0.55, 0.5, 0.45]},
              {"name": "mirror", "type": "mirror", "albedo": 0.9},
              {"name": "light", "type": "lambert", "albedo": 0.0}]
@@ -356,7 +390,11 @@ def write_scene(dirpath: str, res: int = RES, spp: int = SPP,
     for i in range(gx):
         for j in range(gz):
             name = f"sphere_{i}_{j}"
-            mesh.save_wo3(os.path.join(dirpath, name + ".wo3"), m)
+            if obj_text is None:
+                mesh.save_wo3(os.path.join(dirpath, name + ".wo3"), m)
+            else:
+                with open(os.path.join(dirpath, name + ".obj"), "w") as f:
+                    f.write(obj_text)
             if (i + j) % 2:
                 bsdf = "mirror"
             else:
@@ -364,8 +402,8 @@ def write_scene(dirpath: str, res: int = RES, spp: int = SPP,
                 bsdfs.append({"name": name, "type": "lambert", "albedo": [
                     0.25 + 0.6 * i / max(gx - 1, 1), 0.7,
                     0.25 + 0.6 * j / max(gz - 1, 1)]})
-            prims.append({"type": "mesh", "file": name + ".wo3", "bsdf": bsdf,
-                          "smooth": True,
+            prims.append({"type": "mesh", "file": f"{name}.{mesh_ext}",
+                          "bsdf": bsdf, "smooth": True,
                           "transform": {"position": [i - (gx - 1) / 2, 0.45,
                                                      j - (gz - 1) / 2],
                                         "scale": 0.45}})
@@ -3366,6 +3404,133 @@ def check_mlt(path, card, twt) -> dict:
 
 # -------------------------------------------------------------------- main
 
+# ------------------------------------------------------------ OBJ meshes
+
+OBJ_SMALL = (64, 4)    # phase 19(d): the CLI's resolution and spp
+
+
+def same_scene(a, b) -> list:
+    """The FlatScene fields where two scenes differ (tensors bitwise)."""
+    import torch
+    from dataclasses import fields
+    from tungsten_tpu_torch.scene.flatten import FlatScene
+    off = []
+    for f in fields(FlatScene):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            ok = x.dtype == y.dtype and torch.equal(x, y)
+        elif isinstance(x, (list, tuple)):
+            ok = len(x) == len(y) and all(torch.equal(p, q)
+                                          for p, q in zip(x, y))
+        else:
+            ok = x == y
+        if not ok:
+            off.append(f.name)
+    return off
+
+
+def check_obj(tmp, path, img, img2, launches, card, twt) -> dict:
+    """Phase 19: the smoke scene with its spheres as exporter-style OBJ
+    files, through both loaders, flatten, render, the CLI and the
+    server, against phase 3's .wo3 scene and phase 5's render."""
+    import numpy as np
+    import torch
+    from tungsten_tpu_torch.integrators.path_tracer import trace_wave
+    from tungsten_tpu_torch.io import mesh as tmesh
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.parse import load_scene
+    t0 = time.time()
+    odir = os.path.join(tmp, "obj_scene")
+    os.makedirs(odir)
+    opath = write_scene(odir, mesh_ext="obj")
+    files = sorted(f for f in os.listdir(odir) if f.endswith(".obj"))
+    mb = sum(os.path.getsize(os.path.join(odir, f)) for f in files) / 2**20
+    log(f"  (a) {len(files)} OBJ files written ({mb:.1f} MiB) in "
+        f"{time.time() - t0:.2f} s")
+    # (b) the two loaders on every file, against the sphere's arrays
+    pos, nrm, uv, idx = uv_sphere(SEG_U, SEG_V)
+    t_nat = t_py = 0.0
+    for fn in files:
+        t0 = time.time()
+        nat = tmesh.load_obj(os.path.join(odir, fn))
+        t_nat += time.time() - t0
+        t0 = time.time()
+        py = tmesh.load_obj_python(os.path.join(odir, fn))
+        t_py += time.time() - t0
+        for k in ("pos", "normal", "uv", "indices", "material"):
+            if getattr(nat, k).tobytes() != getattr(py, k).tobytes():
+                raise AssertionError(f"OBJ: {fn}: the loaders' {k} differ")
+        if not (np.array_equal(nat.pos[nat.indices], pos[idx]) and
+                np.array_equal(nat.normal[nat.indices], nrm[idx]) and
+                np.array_equal(nat.uv[nat.indices], uv[idx]) and
+                not nat.material.any()):
+            raise AssertionError(f"OBJ: {fn}: triangles off the mesh's")
+    log(f"  (b) native loader {t_nat:.3f} s, Python loader {t_py:.3f} s "
+        f"for the {len(files)} files (host CPU); both Meshes equal "
+        f"bitwise, {nat.pos.shape[0]} vertices and {nat.num_tris} "
+        f"triangles a file, each triangle's corners the .wo3 mesh's")
+    # (c) flatten on the card, against phase 3's scene field for field
+    t0 = time.time()
+    oscene, osettings = flatten_scene(load_scene(opath))
+    torch.cuda.synchronize()
+    t_flat = time.time() - t0
+    scene, settings = flatten_scene(load_scene(path))
+    n_tri = int(oscene.tri_v0.shape[0])
+    off = same_scene(oscene, scene)
+    log(f"  (c) flatten {t_flat:.2f} s: {n_tri} triangles, walk "
+        f"{twt.traversal_kind(oscene)}; fields off the .wo3 scene's: "
+        f"{off or 'none'}; settings equal {osettings == settings}")
+    if off or osettings != settings or n_tri != 95_236:
+        raise AssertionError("OBJ: the flattened scene is not the .wo3 "
+                             "scene's")
+    # (d) the main path's render, counts from zero
+    oimg, ostats, olaunches = render_counted(oscene, osettings, twt)
+    equal = bool(np.array_equal(oimg, img))
+    repeat = bool(np.array_equal(img2, img))
+    log(f"  (d) {osettings.width}x{osettings.height} {SPP} spp max_bounces "
+        f"{osettings.max_bounces}: {ostats['time']:.3f} s, "
+        f"{ostats['rays']} rays, {ostats['mrays_per_s']:.3f} Mrays/s on "
+        f"{card}; launches {olaunches} (phase 5: {launches}); image "
+        f"bitwise equal to phase 5's: {equal} (max |diff| "
+        f"{float(np.abs(oimg - img).max()):.3e}); phase 5's second render "
+        f"bitwise equal to its first: {repeat} (max |diff| "
+        f"{float(np.abs(img2 - img).max()):.3e})")
+    if not (olaunches["closest"] > 0 and olaunches["anyhit"] > 0):
+        raise AssertionError(f"OBJ render: a kernel never launched "
+                             f"{olaunches}")
+    if any(olaunches[k] != launches[k] for k in launches):
+        raise AssertionError("OBJ render: launches differ from phase 5's")
+    # each lane's radiance does not depend on the order of the frame's
+    # atomic sums: both scenes' lanes bitwise
+    pixel, sample = wave_ids(settings, SPP, oscene.device)
+    t0 = time.time()
+    lanes = [trace_wave(s, settings, pixel, sample, SEED)
+             for s in (oscene, scene)]
+    lanes_equal = bool(torch.equal(lanes[0], lanes[1]))
+    log(f"  (d) the wave's {pixel.shape[0]} lanes traced on both scenes "
+        f"({time.time() - t0:.2f} s): radiance bitwise equal "
+        f"{lanes_equal}")
+    if not lanes_equal:
+        raise AssertionError("OBJ render: lanes differ from the .wo3 "
+                             "scene's")
+    if not equal and repeat:
+        raise AssertionError("OBJ render: the image differs from phase "
+                             "5's, which renders bitwise repeatably")
+    del lanes, oscene, scene
+    # (e) the entry points
+    res, spp = OBJ_SMALL
+    bpath = scene_variant(opath, "obj_buffers.json", res=res, spp=spp,
+                          output_file="obj.png", hdr_output_file="obj.pfm",
+                          output_buffers=BUFFER_SPECS)
+    cli = cli_run(bpath, os.path.join(tmp, "cli_obj"), twt, res)
+    server_run(scene_variant(opath, "obj_server.json", res=res, spp=8,
+                             spp_step=4))
+    return {"launches": olaunches, "stats": ostats, "image_equal": equal,
+            "phase5_repeatable": repeat, "lanes_equal": lanes_equal,
+            "load_native_s": t_nat, "load_python_s": t_py,
+            "flatten_s": t_flat, "cli": cli}
+
+
 def kernel_row(name, mode, m, launches, replaces, tol, extra, prof):
     """One row of the kernels JSON line, with the route's device time in
     the profiled render (render_ms, render_by_width; None where not
@@ -3446,8 +3611,9 @@ def main() -> int:
         curve_lib = c_fut.result()
         bvh_lib = b_fut.result()
     log(f"build: {time.time() - t0:.2f} s (wave kernels {lib._name}; leaf "
-        f"kernel {leaf_lib._name}; curve kernel {curve_lib._name}; host BVH "
-        f"build {'native' if bvh_lib is not None else 'numpy'})")
+        f"kernel {leaf_lib._name}; curve kernel {curve_lib._name}; host "
+        f"runtime (BVH build, OBJ parser) "
+        f"{bvh_lib._name if bvh_lib is not None else 'not built: numpy'})")
     for built in (lib, leaf_lib, curve_lib):
         with open(built._name + ".log") as f:
             for line in f.read().splitlines():
@@ -3870,7 +4036,12 @@ def main() -> int:
         ml = check_mlt(path, card, twt)
         mark("mlt")
 
-    # 19. kernels line and result
+        # 19. the smoke scene from exporter-style OBJ meshes (K1 and K2)
+        log("OBJ meshes:")
+        ob = check_obj(tmp, path, img, img2, launches, card, twt)
+        mark("OBJ meshes")
+
+    # 20. kernels line and result
     closest_tol = ("vs plain walk: hit-set agreement > 0.998, same triangle "
                    "> 0.999, t within rtol 2e-3 on > 0.999 (the kernel's "
                    "own t and after the finalize), u/v atol 2e-3; "
@@ -3901,7 +4072,8 @@ def main() -> int:
              "mlt_kelemen_pt_* / mlt_multiplexed_* / mlt_rj_*: launches in "
              "the MLT renders (phase 18) and device ms in the profiled "
              "kelemen render and in one profiled Metropolis step of the "
-             "others (profiled_ms)")
+             "others (profiled_ms); obj_launches: launches in the render of "
+             "the smoke scene from exporter-style OBJ meshes (phase 19)")
     k1 = "tungsten_tpu/ops/wave_trace.py:300"
     k3 = "tungsten_tpu/ops/wave_trace.py:724"
     k1_row = kernel_row("wave_trace_closest", "closest", prim, launches, k1,
@@ -3937,6 +4109,7 @@ def main() -> int:
     k1_row["outdoor_strategy"].update(
         {k: ostrat[k] for k in ("live", "bvh_intersect_ms")})
     for row, mode in ((k1_row, "closest"), (k2_row, "anyhit")):
+        row["obj_launches"] = ob["launches"][mode]
         for part in ("forward", "backward"):
             row[f"replay_{part}_launches"] = \
                 rp["full"][f"{part}_launches"].get(mode, 0)
@@ -4051,7 +4224,12 @@ def main() -> int:
             f"{ml[tag]['vs_path_tracer']:.5f}" for tag, *_ in MLT_RUNS) +
         f" mlt_lanes {ml['lanes']['trace_tape']:.5f} mlt_same_state "
         f"{ml['chains']['same_state']:.5f} cli_mlt_s "
-        f"{ml['cli']['seconds']:.3f} total_s "
+        f"{ml['cli']['seconds']:.3f} obj_render_s {ob['stats']['time']:.3f} "
+        f"obj_mrays_per_s {ob['stats']['mrays_per_s']:.3f} obj_image_equal "
+        f"{ob['image_equal']} obj_lanes_equal {ob['lanes_equal']} "
+        f"obj_load_native_s {ob['load_native_s']:.3f} obj_load_python_s "
+        f"{ob['load_python_s']:.3f} obj_flatten_s {ob['flatten_s']:.3f} "
+        f"cli_obj_s {ob['cli']['seconds']:.3f} total_s "
         f"{time.time() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

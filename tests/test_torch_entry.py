@@ -424,10 +424,7 @@ def test_scene_tools_match_jax(tmp_path, scene_path):
         m = tmesh.load_wo3(str(d / "tri.wo3"))
         outs.append((open(out).read(), m))
     assert outs[0][0] == outs[1][0]
-    # the mesh: equal geometry; the per-triangle material ids differ,
-    # because the JAX package's native OBJ loader writes 0 where its own
-    # Python loader, which the port copies, writes -1
-    for k in ("pos", "normal", "uv", "indices"):
+    for k in ("pos", "normal", "uv", "indices", "material"):
         assert np.array_equal(getattr(outs[0][1], k), getattr(outs[1][1], k))
     # json2xml: the XML and the .wo3 -> .obj re-export
     xml = []

@@ -51,7 +51,8 @@ def test_every_port_module_imports_without_jax():
               "cameras.camera", "integrators.lights", "io.curves",
               "bsdf.fiber", "ops.curve_trace", "ops.intersect",
               "parallel.sharded", "parallel.distributed", "bsdf.invert",
-              "integrators.invert_path", "integrators.mlt"):
+              "integrators.invert_path", "integrators.mlt", "native",
+              "io.mesh", "io.image", "scene.bvh", "utils.sobol"):
         assert "tungsten_tpu_torch." + m in mods
     # the sky bake reads the port's own copy of the Hosek-Wilkie data
     code = ("import sys\n"

@@ -856,6 +856,10 @@ PURE_SPECULAR = frozenset({bt.MIRROR, bt.NULL, bt.CONDUCTOR, bt.DIELECTRIC,
                            bt.THINSHEET, bt.FORWARD})
 
 
+def supported_types():
+    return frozenset(_REGISTRY)
+
+
 def _child_types(present_types):
     return tuple(t for t in present_types if t not in NESTED_TYPES)
 

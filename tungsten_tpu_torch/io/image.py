@@ -417,3 +417,9 @@ def save_ldr(path, img: np.ndarray) -> None:
 def load_image(path) -> np.ndarray:
     return load_hdr(path) if is_hdr(path) else load_ldr(path)
 
+
+def save_image(path, img: np.ndarray) -> None:
+    if is_hdr(path):
+        save_hdr(path, img)
+    else:
+        save_ldr(path, img)

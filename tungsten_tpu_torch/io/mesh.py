@@ -9,8 +9,10 @@ Little-endian throughout.
 """
 from __future__ import annotations
 
+import re
 import struct
 from dataclasses import dataclass
+from fractions import Fraction
 
 import numpy as np
 
@@ -69,56 +71,302 @@ def save_wo3(path, mesh: Mesh) -> None:
 def load_obj(path) -> Mesh:
     """Minimal OBJ triangle loader (positions/normals/uvs, fan-triangulated
     faces, negative indices).  Geometry-only, mirroring what the reference's
-    ObjLoader::loadGeometryOnly provides for mesh primitives."""
-    vs, vts, vns = [], [], []
-    # Each emitted vertex is the (v, vt, vn) triple of a face corner.
-    corner_index: dict = {}
-    out_pos, out_uv, out_nrm, faces = [], [], [], []
+    ObjLoader::loadGeometryOnly provides for mesh primitives.  Every
+    triangle gets material 0.
 
-    def corner(tok: str) -> int:
-        if tok in corner_index:
-            return corner_index[tok]
-        parts = tok.split("/")
-        vi = int(parts[0])
-        vi = vi - 1 if vi > 0 else len(vs) + vi
-        ti = ni = None
-        if len(parts) > 1 and parts[1]:
-            ti = int(parts[1])
-            ti = ti - 1 if ti > 0 else len(vts) + ti
-        if len(parts) > 2 and parts[2]:
-            ni = int(parts[2])
-            ni = ni - 1 if ni > 0 else len(vns) + ni
-        idx = len(out_pos)
-        out_pos.append(vs[vi])
-        out_uv.append(vts[ti] if ti is not None else (0.0, 0.0))
-        out_nrm.append(vns[ni] if ni is not None else (0.0, 0.0, 0.0))
-        corner_index[tok] = idx
-        return idx
-
-    with open(path, "r", errors="replace") as f:
-        for line in f:
-            t = line.split()
-            if not t:
-                continue
-            if t[0] == "v":
-                vs.append(tuple(float(x) for x in t[1:4]))
-            elif t[0] == "vt":
-                vts.append(tuple(float(x) for x in t[1:3]))
-            elif t[0] == "vn":
-                vns.append(tuple(float(x) for x in t[1:4]))
-            elif t[0] == "f":
-                ids = [corner(tok) for tok in t[1:]]
-                for k in range(1, len(ids) - 1):
-                    faces.append((ids[0], ids[k], ids[k + 1]))
-
-    pos = np.asarray(out_pos, dtype=np.float32).reshape(-1, 3)
-    nrm = np.asarray(out_nrm, dtype=np.float32).reshape(-1, 3)
-    uv = np.asarray(out_uv, dtype=np.float32).reshape(-1, 2)
-    idx = np.asarray(faces, dtype=np.int32).reshape(-1, 3)
-    if not len(vns):
-        nrm = np.zeros_like(pos)
+    Parses with the native loader (native/objloader.cpp); where it cannot
+    be built, or finds no triangle, load_obj_python gives the same Mesh."""
+    from tungsten_tpu_torch import native
+    res = native.load_obj_native(str(path))
+    if res is None:
+        return load_obj_python(path)
+    pos, nrm, uv, idx = res
     return Mesh(pos=pos, normal=nrm, uv=uv, indices=idx,
-                material=np.full((idx.shape[0],), -1, dtype=np.int32))
+                material=np.zeros(idx.shape[0], np.int32))
+
+
+# ------------------------------------------------ the OBJ parser in Python
+# It parses as native/objloader.cpp does, to the bit: a line is what
+# fgets(buf, 8192) hands out (a longer line comes in pieces), cut at its
+# first NUL; numbers are read as glibc's sscanf("%f %f %f") reads them,
+# each rounded once to f32; a face corner is read as the loader's strtol
+# walk reads it, resolved to absolute (v, vt, vn) and unified on that
+# triple; an out-of-range vertex index drops the corner, a corner that
+# does not start with an integer ends the face.  Common lines take a
+# regex fast path; the rest walk the C scanners step by step.
+
+_LINE = 8191                                   # fgets' bytes a piece
+_C_SPACE = b" \t\n\v\f\r"                      # isspace in the C locale
+_DEC = rb"[-+]?(?:\d+(?:\.\d*)?|\.\d+)(?:[eE][-+]?\d+)?"
+_DEC_RE = re.compile(_DEC)
+_HEX_RE = re.compile(rb"([-+]?)0[xX](?:([0-9a-fA-F]+)\.?([0-9a-fA-F]*)|"
+                     rb"\.([0-9a-fA-F]+))(?:[pP]([-+]?\d+))?")
+_FLOATS = {n: re.compile(rb"[ \t]*" + rb"[ \t]+".join([rb"(" + _DEC + rb")"]
+                                                       * n)
+                         + rb"(?=[ \t\r\n]|\Z)") for n in (2, 3)}
+_IDX = rb"[-+]?\d{1,18}"                       # no clamp to a C long needed
+_CORNER = _IDX + rb"(?:/" + _IDX + rb"(?:/" + _IDX + rb")?|//" + _IDX + rb")?"
+_FACE = re.compile(rb"((?:[ \t]+" + _CORNER + rb")+)[ \t]*(?:[\r\n]|\Z)")
+_STRTOL = re.compile(rb"[ \t\n\v\f\r]*([-+]?\d+)")
+_LONG_MIN, _LONG_MAX = -(1 << 63), (1 << 63) - 1
+_XDIGITS = b"0123456789abcdefABCDEF"
+
+
+def _c_lines(data: bytes):
+    """The lines fgets(buf, 8192, f) reads from `data`, each cut at its
+    first NUL (a piece's '\\n' dropped: the parsers treat it as the end)."""
+    nul = b"\0" in data
+    for line in data.split(b"\n"):
+        if len(line) < _LINE:
+            pieces = (line,)
+        else:
+            line += b"\n"
+            pieces = [line[k:k + _LINE] for k in range(0, len(line), _LINE)]
+        for piece in pieces:
+            yield piece.split(b"\0", 1)[0] if nul else piece
+
+
+def _scan_float(s: bytes, i: int):
+    """glibc's "%f" at s[i:]: (strtof's subject, the end of what it read),
+    or None on a conversion failure."""
+    n = len(s)
+    while i < n and s[i] in _C_SPACE:
+        i += 1
+    j = i
+    if s[j:j + 1] in (b"+", b"-"):
+        j += 1
+    sign = j - i
+    c = s[j:j + 1].lower()
+    if c == b"n":
+        if s[j:j + 3].lower() != b"nan":
+            return None
+        return s[i:j + 3], j + 3
+    if c == b"i":
+        if s[j:j + 3].lower() != b"inf":
+            return None
+        j += 3
+        if s[j:j + 1].lower() == b"i":
+            if s[j:j + 5].lower() != b"inity":
+                return None
+            j += 5
+        return s[i:j], j
+    hexa = got_digit = got_e = got_dot = False
+    if c == b"0":
+        j += 1
+        if s[j:j + 1] in (b"x", b"X"):
+            j += 1
+            hexa = True
+        else:
+            got_digit = True
+    exp = b"p" if hexa else b"e"
+    while j < n:
+        ch = s[j:j + 1]
+        if ch.isdigit() or (hexa and not got_e and ch in _XDIGITS):
+            got_digit = True
+        elif got_e and s[j - 1:j].lower() == exp and ch in (b"+", b"-"):
+            pass
+        elif got_digit and not got_e and ch.lower() == exp:
+            got_e = got_dot = True
+        elif not got_dot and ch == b".":
+            got_dot = True
+        else:
+            break
+        j += 1
+    if j - i == sign or (hexa and j - i == sign + 2):
+        return None
+    tok = s[i:j]
+    if not hexa:                       # strtof's longest decimal prefix
+        m = _DEC_RE.match(tok)
+        if m is None:
+            return None
+        tok = m.group(0)
+    return tok, j
+
+
+def _scan_floats(s: bytes, count: int):
+    """sscanf(s, "%f %f[ %f]") as glibc reads it, where the fast path
+    does not: the `count` subjects, or None when fewer convert."""
+    out, i = [], 0
+    for _ in range(count):
+        got = _scan_float(s, i)
+        if got is None:
+            return None
+        tok, i = got
+        out.append(tok)
+    return out
+
+
+def _round_f32(x) -> np.float32:
+    """A Fraction rounded once to f32 (nearest, ties to even), the
+    overflow going to inf as strtof's does."""
+    try:
+        c = np.float32(float(x))
+    except OverflowError:
+        c = np.float32(np.inf if x > 0 else -np.inf)
+    cands = [np.nextafter(c, np.float32(-np.inf)), c,
+             np.nextafter(c, np.float32(np.inf))]
+    best = None
+    for y in cands:
+        val = (Fraction(2) ** 128 * (1 if y > 0 else -1) if np.isinf(y)
+               else Fraction(float(y)))
+        key = (abs(val - x), int(np.asarray(y).view(np.uint32)) & 1)
+        if best is None or key < best[0]:
+            best = (key, y)
+    return best[1]
+
+
+def _special_f32(tok: bytes) -> np.float32:
+    """strtof of a hex, inf or nan subject."""
+    low = tok.lower()
+    neg = low.startswith(b"-")
+    if low.lstrip(b"+-").startswith((b"inf", b"nan")):
+        v = np.float32(np.inf if low.lstrip(b"+-")[0:1] == b"i" else np.nan)
+        return -v if neg else v
+    m = _HEX_RE.match(tok)
+    if m is None:                      # "0x" without a digit: strtof reads 0
+        return np.float32(-0.0 if neg else 0.0)
+    ip, fp, fp2, ex = m.group(2) or b"", m.group(3) or b"", \
+        m.group(4) or b"", m.group(5)
+    frac = fp or fp2
+    mant = int(ip + frac, 16)
+    scale = int(ex or 0) - 4 * len(frac)
+    top = mant.bit_length() + scale            # 2^(top-1) <= x < 2^top
+    if mant == 0 or top <= -150:               # below half the least f32
+        v = np.float32(0.0)
+    elif top > 129:                            # past FLT_MAX's rounding
+        v = np.float32(np.inf)
+    else:
+        v = _round_f32(Fraction(mant) * Fraction(2) ** scale)
+    return -v if neg else v
+
+
+def _to_f32(toks: list, special: dict) -> np.ndarray:
+    """strtof of every subject: decimals in bulk (the rare f64 result on
+    an f32 rounding tie settled exactly), the others from `special`."""
+    f64 = np.fromiter(map(float, toks), np.float64, len(toks))
+    with np.errstate(invalid="ignore", over="ignore"):
+        out = f64.astype(np.float32)
+        back = out.astype(np.float64)
+        toward = np.where(f64 > back, np.float32(np.inf), np.float32(-np.inf))
+        other = np.nextafter(out, toward.astype(np.float32))
+        mid = (back + other.astype(np.float64)) * 0.5
+        tie = ((f64 != back) & (f64 == mid)) | (np.isinf(out) &
+                                                np.isfinite(f64))
+    with np.errstate(over="ignore"):
+        for k in np.flatnonzero(tie):
+            out[k] = _round_f32(Fraction(toks[k].decode()))
+    for k, v in special.items():
+        out[k] = v
+    return out
+
+
+def _strtol(s: bytes, i: int):
+    m = _STRTOL.match(s, i)
+    if m is None:
+        return 0, i
+    return min(max(int(m.group(1)), _LONG_MIN), _LONG_MAX), m.end()
+
+
+def _face_corners(s: bytes):
+    """The (vi, ti, ni) of each corner of a face line's rest, as the
+    loader's strtol walk reads them (0 where a field is absent)."""
+    m = _FACE.match(s)
+    if m is not None:
+        out = []
+        for tok in m.group(1).split():
+            f = tok.split(b"/")
+            out.append((int(f[0]), int(f[1]) if len(f) > 1 and f[1] else 0,
+                        int(f[2]) if len(f) > 2 else 0))
+        return out
+    out, q, n = [], 0, len(s)
+    while q < n:
+        while q < n and s[q] in b" \t":
+            q += 1
+        if q >= n or s[q] in b"\r\n":
+            break
+        vi, q2 = _strtol(s, q)
+        if q2 == q:
+            break
+        q, ti, ni = q2, 0, 0
+        if s[q:q + 1] == b"/":
+            q += 1
+            if s[q:q + 1] != b"/":
+                ti, q = _strtol(s, q)
+            if s[q:q + 1] == b"/":
+                ni, q = _strtol(s, q + 1)
+        out.append((vi, ti, ni))
+    return out
+
+
+def load_obj_python(path) -> Mesh:
+    """The OBJ loader in Python: the Mesh native/objloader.cpp gives,
+    bitwise, with material 0 on every triangle."""
+    with open(path, "rb") as f:
+        data = f.read()
+    toks = {b"v": [], b"vt": [], b"vn": []}
+    special = {b"v": {}, b"vt": {}, b"vn": {}}
+    width = {b"v": 3, b"vt": 2, b"vn": 3}
+    corner_of: dict = {}
+    refs = []                  # a unified vertex's (v, vt or -1, vn or -1)
+    faces = []
+    for line in _c_lines(data):
+        p = line.lstrip(b" \t")
+        head = p[:2]
+        if head[:1] == b"v":
+            if head[1:] in (b" ", b"\t"):
+                kind = b"v"
+            elif head in (b"vn", b"vt"):
+                kind = head
+            else:
+                continue
+            dst = toks[kind]
+            m = _FLOATS[width[kind]].match(p, 2)
+            if m is not None:
+                dst.extend(m.groups())
+                continue
+            got = _scan_floats(p[2:], width[kind])
+            for tok in got or ():
+                if not _DEC_RE.fullmatch(tok):
+                    special[kind][len(dst)] = _special_f32(tok)
+                    tok = b"0"
+                dst.append(tok)
+        elif head in (b"f ", b"f\t"):
+            nv = len(toks[b"v"]) // 3
+            nt = len(toks[b"vt"]) // 2
+            nn = len(toks[b"vn"]) // 3
+            face = []
+            for vi, ti, ni in _face_corners(p[1:]):
+                v = vi - 1 if vi > 0 else nv + vi
+                t = ti - 1 if ti > 0 else (nt + ti if ti < 0 else -1)
+                n = ni - 1 if ni > 0 else (nn + ni if ni < 0 else -1)
+                if v < 0 or v >= nv:
+                    continue
+                uni = corner_of.get((v, t, n))
+                if uni is None:
+                    uni = corner_of[(v, t, n)] = len(refs)
+                    refs.append((v, t if 0 <= t < nt else -1,
+                                 n if 0 <= n < nn else -1))
+                face.append(uni)
+            for k in range(2, len(face)):       # fan
+                faces.append((face[0], face[k - 1], face[k]))
+
+    def table(kind):
+        return _to_f32(toks[kind], special[kind]).reshape(-1, width[kind])
+
+    ref = np.asarray(refs, np.int64).reshape(-1, 3)
+
+    def gather(tab, r, w):
+        out = np.zeros((r.shape[0], w), np.float32)
+        ok = r >= 0
+        out[ok] = tab[r[ok]]
+        return out
+
+    pos = table(b"v")[ref[:, 0]]
+    nrm = gather(table(b"vn"), ref[:, 2], 3)
+    uv = gather(table(b"vt"), ref[:, 1], 2)
+    idx = np.asarray(faces, np.int32).reshape(-1, 3)
+    return Mesh(pos=np.ascontiguousarray(pos, np.float32), normal=nrm, uv=uv,
+                indices=idx, material=np.zeros(idx.shape[0], np.int32))
 
 
 def load_mesh(path) -> Mesh:
@@ -144,6 +392,16 @@ def save_obj(path, mesh: Mesh) -> None:
         for tri in mesh.indices:
             a, b, c = (int(i) + 1 for i in tri)
             f.write(f"f {a}/{a}/{a} {b}/{b}/{b} {c}/{c}/{c}\n")
+
+
+def save_mesh(path, mesh: Mesh) -> None:
+    p = str(path)
+    if p.lower().endswith(".wo3"):
+        save_wo3(p, mesh)
+    elif p.lower().endswith(".obj"):
+        save_obj(p, mesh)
+    else:
+        raise ValueError(f"unsupported mesh format: {p}")
 
 
 def compute_smooth_normals(mesh: Mesh) -> np.ndarray:

@@ -22,6 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 
 NUM_BINS = 16
+TRAVERSAL_COST = 1.0
+INTERSECT_COST = 1.0
 
 
 @dataclass
@@ -250,3 +252,14 @@ def subtree_end(meta: np.ndarray) -> np.ndarray:
             break
         nxt = jump
     return np.where(leaf[nxt], meta[nxt, 0] + meta[nxt, 1], 0)
+
+
+def sah_cost(bvh: BvhArrays) -> float:
+    """SAH quality metric (for tests/diagnostics)."""
+    root_sa = _surface_area(bvh.bounds_min[0], bvh.bounds_max[0])
+    sa = _surface_area(bvh.bounds_min, bvh.bounds_max) / max(root_sa, 1e-30)
+    leaf = bvh.meta[:, 1] > 0
+    return float(
+        TRAVERSAL_COST * sa[~leaf].sum()
+        + INTERSECT_COST * (sa[leaf] * bvh.meta[leaf, 1]).sum()
+    )

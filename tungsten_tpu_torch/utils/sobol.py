@@ -117,3 +117,28 @@ def sobol_uint(index, dim):
         bit = (index >> j) & 1
         out = out ^ (rows[..., j] * bit)
     return out
+
+
+def validate_matrix(num_dims: int = 16, n: int = 256) -> bool:
+    """Each dim's first 2^k points must be a (0, k, 1)-net in base 2
+    (perfect stratification), the defining Sobol' property."""
+    V = direction_matrix()
+    for d in range(num_dims):
+        vals = np.zeros(n, np.uint32)
+        for i in range(n):
+            x, g = 0, i
+            j = 0
+            while g:
+                if g & 1:
+                    x ^= int(V[d, j])
+                g >>= 1
+                j += 1
+            vals[i] = x
+        u = vals.astype(np.float64) / 2 ** 32
+        for k in (4, 16, 64, 256):
+            if k > n:
+                break
+            counts = np.bincount((u * k).astype(int), minlength=k)
+            if not (counts == n // k).all():
+                return False
+    return True

@@ -83,8 +83,23 @@ def to_global(t, b, n, w):
     return t * w[..., 0:1] + b * w[..., 1:2] + n * w[..., 2:3]
 
 
+def transform_point(mat, p):
+    """Apply (..., 4, 4) or (4,4) affine matrix to points (..., 3)."""
+    return (torch.einsum("...ij,...j->...i", mat[..., :3, :3], p)
+            + mat[..., :3, 3])
+
+
+def transform_vector(mat, v):
+    """Apply rotation/scale part of affine matrix to vectors (..., 3)."""
+    return torch.einsum("...ij,...j->...i", mat[..., :3, :3], v)
+
+
 def max_component(a):
     return torch.amax(a, dim=-1)
+
+
+def avg_component(a):
+    return torch.mean(a, dim=-1)
 
 
 def where3(mask, a, b):
