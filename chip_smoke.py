@@ -8,9 +8,10 @@ Phases (any failure exits non-zero):
   2. build: the CUDA wave kernels (csrc/wave_trace.cu, nvcc: the
      closest-hit, resident any-hit and paged any-hit kernels), the
      tensor-core leaf kernel (csrc/leaf_mma.cu, nvcc), the curve-piece
-     walk C1 (csrc/curve_trace.cu, nvcc) and the host BVH library (g++),
-     the four compiles started together (the host library holds the
-     OBJ parser too, native/objloader.cpp);
+     walk C1 (csrc/curve_trace.cu, nvcc), the ordered sums S1
+     (csrc/segment_sum.cu, nvcc) and the host BVH library (g++), the
+     five compiles started together (the host library holds the OBJ
+     parser too, native/objloader.cpp);
   2b. leaf kernels (K4, K5): each of the five kernel rows (mma_loop,
      mma_loop_stores, leaf_variant_a/b/c) against its plain version,
      exactly on the TPU tool's all-ones inputs and within the stated
@@ -23,6 +24,17 @@ Phases (any failure exits non-zero):
      of 5 after a warm-up), and the check that nothing is dropped or
      hoisted (time per product growing with M*N on the one-block launch,
      with K on the tool's grid);
+  2c. ordered sums: S1 (ops/segment_sum.py::ordered_index_add) on
+     seeded inputs against its plain version run on the CPU, bitwise:
+     the bank's shape (1,048,576 f32 rows x 3, 16 a pixel, shuffled and
+     keyed by (pixel, sample)), f64 tile sums on unsorted ids, sorted ids
+     with most outputs empty and one 200,000-row segment (f32 and f64),
+     unique unsorted lanes; at the bank's and the tiles' shapes S1 alone,
+     with its sort, index_add_ on the same card tensors (the library
+     column) and the plain version's CPU time; the scan entry
+     (ordered_cumsum) bitwise torch.cumsum on the CPU at choose_light's,
+     the MLT pool's and a raymarch's shapes, f32 and f64, its backward
+     too, timed against torch.cumsum on the card;
   3. scene: a deterministic lambert + mirror scene written with the
      port's IO (24 UV spheres of 64x32 segments, ~95k triangles, a
      lambert floor, one emissive quad, a procedural 512x256 sky), loaded
@@ -45,9 +57,14 @@ Phases (any failure exits non-zero):
      choice;
   5. render: the main path, load_scene -> flatten_scene -> render at
      256x256, 16 spp, max_bounces 64, with the kernels' launch counts set
-     to zero just before and read just after; then a second, warm render,
-     and a third under torch.profiler (device busy share, top kernels,
-     each traversal kernel's launches and device ms by rays a launch);
+     to zero just before and read just after (S1 and its scan launched);
+     then a second, warm render, bitwise the first, and a third under
+     torch.profiler, bitwise too (device busy share, top kernels, each
+     traversal kernel's launches and device ms by rays a launch, S1's
+     device ms); then the ordered sums of one more render (the banks'
+     index_sums and choose_light's scans) captured and replayed against
+     index_add_ and torch.cumsum on the same inputs: the added device ms
+     at most 3 % of the render's wall;
   6. cross-path: a 64x64 4-spp image from the kernel path against the
      port's plain path on the CPU;
   7. large scene: the same layout at production size (24 spheres of
@@ -62,10 +79,10 @@ Phases (any failure exits non-zero):
      list_walk on the paged front, splits, by width, and the two any-hit
      routes' wrappers (the paged front and walk, the resident front and
      K2) timed in turns; (c)
-     its full-width render (256x256, 16 spp, cut to max_bounces 16) from
+     its full-width render (256x256, 16 spp, cut to max_bounces 8) from
      zero launch counts, only the paged route launching, and one more
      under torch.profiler, as in phase 5; (d) a 64x64 4-spp image of it
-     at 8 bounces against the plain path on the CPU;
+     at 4 bounces against the plain path on the CPU;
   8. media: (a) the smoke scene's layout in a homogeneous fog that fills
      the view (bounded by a `forward` box; the camera sits in it through
      its medium_index), with a `forward` cube holding a voxel medium on a
@@ -77,7 +94,7 @@ Phases (any failure exits non-zero):
      area light with t_min = EPSILON and the fudged far limit, held to
      phase 4's gates, and a full-width hop wave with one ray in 16 live
      timed against the all-live wave; (c) the full-width render (256x256,
-     16 spp, cut to max_bounces 16) from zero launch counts (K1 alone
+     16 spp, cut to max_bounces 8) from zero launch counts (K1 alone
      launches:
      the two-strategy NEE traces closest hits only), then one more under
      torch.profiler (launches per render, device busy share, K1's device
@@ -101,7 +118,7 @@ Phases (any failure exits non-zero):
      width); (d) images against the plain path on the CPU with phase 6's
      gates: the thinlens scene at 64x64, the same scene under an
      equirectangular camera at 32x32 and a cubemap camera
-     (horizontal_cross) at 32x24, 4 spp and 8 bounces each;
+     (horizontal_cross) at 32x24, 4 spp and 4 bounces each;
   10. hair: (a) a groom of 16,384 seeded random-walk strands of 24 nodes
      in bcsdf_cylinder mode with the hair BCSDF (melanin ratio 1.0,
      concentration 1.3, roughness 0.3, scale angle 2.5), 2,048 ribbon
@@ -126,7 +143,7 @@ Phases (any failure exits non-zero):
      tested, stack spills and restarts, the distinct rows read and the
      bound; times at full width and on 1,024
      and 65,536 rays, the plain walk's, bvh_intersect's; (c) the
-     full-width render (256x256, 16 spp, cut to max_bounces 16) from zero
+     full-width render (256x256, 16 spp, cut to max_bounces 8) from zero
      launch counts, C1 (both modes), K1 and K2 all launching, then one
      more under torch.profiler (launches per render, device busy share,
      C1's device ms by launch width); (d) the scene cut to 256 + 32 + 16
@@ -139,7 +156,10 @@ Phases (any failure exits non-zero):
      sampling at 64 spp, spp_step 16 (render_adaptive); launch counts
      from zero for each, every written file loaded and checked;
   12. resume: the buffers render to 8 spp with enable_resume_render,
-     then continued to 16, against 11a's uninterrupted 16-spp image;
+     then continued to 16, against 11a's uninterrupted 16-spp image
+     (within a tolerance: other waves, another association of the
+     float64 sums; phase 20 holds a resumed render against itself
+     bitwise);
   13. the HTTP server on a free port rendering the smoke scene at 64x64
      in two rounds: /status, /render (PNG) and /log;
   14. replay: path-replay gradients (trace_wave_replay) of the smoke
@@ -150,7 +170,8 @@ Phases (any failure exits non-zero):
      backward's final re-traced emission equal to the forward's L
      bitwise; (b) the peak device memory at max_bounces 8 and 64 within
      1.25x of each other; then the replay once more with each pass under
-     torch.profiler (device busy share, launches, top kernels); (c) at
+     torch.profiler (device busy share, launches, top kernels), its L and
+     gradients bitwise (a)'s; (c) at
      64x64, 4 spp, 8 bounces the card's
      gradients against the plain path's on the CPU, on the smoke scene
      and on a box with rough_conductor, rough_plastic and oren_nayar
@@ -194,7 +215,7 @@ Phases (any failure exits non-zero):
      0.3, 16 iterations); (c) phase 8's layout with its homogeneous fog
      alone (no voxel cube, no sky; the light's and the surfaces' exterior
      medium the fog; volume gather radius 0.5) under the points, beams
-     and planes volume maps at 4 spp and max_bounces 16, each as (a)
+     and planes volume maps at 4 spp and max_bounces 8, each as (a)
      (K1 launching, and K2
      in planes mode for the planes' shadow rays); phase 8's voxel scene
      asked for beams calls the points estimator's functions and no beam
@@ -209,7 +230,8 @@ Phases (any failure exits non-zero):
      tests/test_photon_volume.py)
      gathered on the card and on the CPU from the same photon
      lists with phase 6's gates (the three volume maps share the CPU's
-     camera walk, which does not depend on the volume map);
+     camera walk, which does not depend on the volume map), each card
+     render twice, bitwise;
      (e) cli.render_scene of (a)'s scene at 64x64 with the output buffers
      (every file loaded), and one server /render of it;
   18. MLT (max_bounces 8, the smoke scene's sky and quad light, the
@@ -221,7 +243,7 @@ Phases (any failure exits non-zero):
      the rays traced, launches, peak device memory, the image finite with
      its mean within 10 % of the path tracer's at the same bounces; the
      render once more under torch.profiler (launches a render, device
-     busy share); (b)-(d) profile one Metropolis step instead; (b) the
+     busy share), bitwise the first; (b)-(d) profile one Metropolis step instead; (b) the
      same on the path tracer's tape ("bidirectional": false); (c)
      multiplexed_mlt likewise on the bidirectional tape, whose lengths
      miss the camera's direct view of an emitter (ROADMAP C-ref 9), so
@@ -256,17 +278,33 @@ Phases (any failure exits non-zero):
      FlatScene field (triangle tables, BVH, cluster tables) and the
      settings equal to phase 3's .wo3 scene's; (d) the main path's render
      (256x256, 16 spp, 64 bounces) from zero launch counts: K1's and K2's
-     launches phase 5's, the image compared bitwise with phase 5's (and
-     phase 5's second render with its first: the frame sums with atomics
-     in a varying order), and the wave's 1,048,576 lanes traced on both
-     scenes bitwise equal; (e) cli.render_scene of the OBJ scene at
-     64x64, 4 spp with the output buffers (every file loaded) and one
-     server /render of it;
-  20. the kernels JSON line (ten rows: K1, K2, K3 closest and any hit,
-     the five leaf rows and C1; K1's and K2's with their launches in the
-     replay's forward and backward, in the BDPT and light-tracer renders,
-     in the photon-map renders, in the MLT renders and in the OBJ
-     scene's render), then the result line.
+     launches phase 5's, the image bitwise phase 5's, and the wave's
+     1,048,576 lanes traced on both scenes bitwise equal too; (e)
+     cli.render_scene of the OBJ scene at 64x64, 4 spp with the output
+     buffers (every file loaded) and one server /render of it;
+  20. repeat renders, each twice on the card, bitwise: at 64x64 BDPT and
+     the light tracer (4 spp, 4 bounces), the output buffers' raw
+     float64 sums (4 spp) and a render resumed from its 2-spp sums to 4
+     spp; at 32x32 kelemen_mlt on the path tracer's tape, multiplexed_mlt
+     and reversible_jump_mlt (1 mutation a pixel, 1,024 chains, a
+     1,024-sample pool, 4 bounces; kelemen on its bidirectional tape
+     repeats in phase 18(a)) and adaptive sampling (24 spp);
+  21. wide frame: the main path at 1000x563 (3 pixel chunks x 4 sample
+     batches, 12 waves), 16 spp, 64 bounces, twice from zero launch
+     counts: the two frames bitwise equal, finite, the mean within 2 % of
+     phase 5's frame's over the rows of phase 5's view that it sees (the
+     pinhole's field of view spans the frame's width), rays, Mrays/s and
+     peak device memory; then S1 timed at the largest photon-gather
+     launch of phase 17's fog points render (its rows, columns and
+     outputs, seeded sorted ids);
+  22. the kernels JSON line (eleven rows: K1, K2, K3 closest and any hit,
+     the five leaf rows, C1 and S1; K1's and K2's with their launches in
+     the replay's forward and backward, in the BDPT and light-tracer
+     renders, in the photon-map renders, in the MLT renders and in the
+     OBJ scene's render; S1's with its launches in phase 5's render, its
+     device ms there and the added cost), then the result line.  A
+     bitwise check that failed is reported when it happens and fails the
+     run here, after every phase has printed.
 """
 from __future__ import annotations
 
@@ -291,13 +329,15 @@ ZOO_SEG = (160, 80)   # 25,280 triangles a sphere, 606,720 for the 24
 # the profiler's stop takes tens of microseconds a launch) and the
 # cross-paths,
 # whose CPU side is mostly the plain walk's per-step overhead (seconds a
-# walk, whatever the frame size)
-ZOO_BOUNCES = 16
-ZOO_CROSS_BOUNCES = 8
-MEDIA_BOUNCES = 16
-HAIR_BOUNCES = 16
+# walk, whatever the frame size); the zoo, media and hair renders and the
+# zoo and outdoor cross-paths halved again when phases 20-21 came (the
+# repeat renders and the 12-wave frame)
+ZOO_BOUNCES = 8
+ZOO_CROSS_BOUNCES = 4
+MEDIA_BOUNCES = 8
+HAIR_BOUNCES = 8
 MEDIA_CROSS_BOUNCES = 4
-OUTDOOR_CROSS_BOUNCES = 8
+OUTDOOR_CROSS_BOUNCES = 4
 SKY_W, SKY_H = 512, 256
 MEDIA_GRID = 256      # the voxel medium's density grid, 256^3 f32
 # the hair scene: the groom's strands and nodes a strand, the ribbon and
@@ -1787,7 +1827,13 @@ def profile_render(render_once, summary: dict | None = None,
         summary.update(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
                        launches=launches, idle=1.0 - busy / wall_us,
                        curve_share=curve / total,
-                       anyhit_share=anyhit / total)
+                       anyhit_share=anyhit / total,
+                       s1_ms=sum(v[0] for k, v in by_name.items()
+                                 if "segment_sum_kernel" in k) / 1e3,
+                       s1_launches=sum(v[1] for k, v in by_name.items()
+                                       if "segment_sum_kernel" in k),
+                       scan_ms=sum(v[0] for k, v in by_name.items()
+                                   if "ordered_scan_kernel" in k) / 1e3)
     log(f"profile: wall {wall_us / 1e3:.1f} ms under the profiler, device "
         f"busy {busy / 1e3:.1f} ms ({busy / wall_us * 100:.1f} %, idle "
         f"{100 - busy / wall_us * 100:.1f} %), {launches} kernel launches; "
@@ -2109,15 +2155,17 @@ REPLAY_PARAMS = ("tex_const", "light_emission", "bsdf_params")
 REPLAY_SMALL = (64, 4, 8)     # phase 14(c)-(d): resolution, spp, bounces
 DP_RES, DP_SPP = 128, 2       # phase 15: the data-parallel frame
 GRAD_TOL = ("rtol 1e-3 on entries above 1e-2 * max|g|, the rest within "
-            "1e-3 * max|g| (a lane may part where the kernel and the plain "
-            "walk round a grazing hit differently; the gathers' backward "
-            "adds with atomics on the card)")
+            "1e-3 * max|g| (card against CPU: a lane may part where the "
+            "kernel and the plain walk round a grazing hit differently, and "
+            "the two devices' reductions sum in other orders); card against "
+            "card the replay's L and gradients are bitwise (phase 14(a))")
 
 
 def zero_counts() -> None:
     from tungsten_tpu_torch.ops import curve_trace as tct
+    from tungsten_tpu_torch.ops import segment_sum as tss
     from tungsten_tpu_torch.ops import wave_trace as twt
-    for counts in (twt.LAUNCHES, tct.LAUNCHES):
+    for counts in (twt.LAUNCHES, tct.LAUNCHES, tss.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -2274,6 +2322,17 @@ def check_replay(path, card) -> dict:
                       ("backward", lambda: held["L"].mean().backward())):
         log(f"  (a) the replay's {part} profiled:")
         profile_render(run, prof[part])
+    # the profiled replay is the timed one again: L and every gradient
+    # bitwise
+    a["repeat_equal"] = soft(same_bits, "replay L", a["L"].cpu().numpy(),
+                             held["L"].detach().cpu().numpy()) and all(
+        soft(same_bits, f"replay {k} gradient",
+             a["grads"][k].cpu().numpy(), leaves[k].grad.cpu().numpy())
+        for k in REPLAY_PARAMS)
+    log(f"  (a) the replay twice on the card: L and the gradients of "
+        f"{', '.join(REPLAY_PARAMS)} bitwise equal: {a['repeat_equal']}; "
+        f"take's ordered backward: {prof['backward'].get('s1_launches')} "
+        f"S1 launches, {prof['backward'].get('s1_ms')} ms device time")
     # (c) the card against the plain path on the CPU
     res, spp, bounces = REPLAY_SMALL
     small = replace(settings, width=res, height=res, max_bounces=bounces)
@@ -2619,7 +2678,7 @@ PHOTON_INTEGRATOR = {"type": "photon_map", "max_bounces": MAX_BOUNCES,
 # none; 0.5 holds a few
 PHOTON_FOG_RADIUS = 0.5
 PHOTON_VOL_SPP = 4                # phase 17(c)
-PHOTON_VOL_BOUNCES = 16           # phase 17(c)'s depth (the fog's long tail)
+PHOTON_VOL_BOUNCES = 8            # phase 17(c)'s depth (the fog's long tail)
 PHOTON_SMALL = (64, 4, 8)         # phase 17(d)-(e): resolution, spp, bounces
 PHOTON_LIST_PATHS = 16384         # phase 17(d): the paths held against the CPU
 PHOTON_SMALL_PATHS = 1 << 16      # phase 17(d)'s images: photon paths a round
@@ -2900,6 +2959,9 @@ def photon_images_agree(name, scene, settings, walks=None) -> dict:
     try:
         pm.trace_photons = card
         gpu = render(scene, settings, spp=spp, seed=SEED, spp_chunk=spp)
+        pm.trace_photons = orig
+        gpu2 = render(scene, settings, spp=spp, seed=SEED, spp_chunk=spp)
+        repeat = soft(same_bits, f"{name} on the card", gpu, gpu2)
         pm.trace_photons, pm.camera_walk = replay, cpu_walk
         cpu = render(scene.to("cpu"), settings, spp=spp, seed=SEED,
                      spp_chunk=spp, device="cpu")
@@ -2913,11 +2975,12 @@ def photon_images_agree(name, scene, settings, walks=None) -> dict:
         f"max_bounces {settings.max_bounces} from the same photons: "
         f"{off * 100:.3f} % of pixels off by more than rtol 1e-3 (atol "
         f"1e-4), {whole * 100:.3f} % by more than rtol 1e-5, mean "
-        f"{gpu.mean():.6f} vs {cpu.mean():.6f} ({rel * 100:.4f} %), "
+        f"{gpu.mean():.6f} vs {cpu.mean():.6f} ({rel * 100:.4f} %); a "
+        f"second card render bitwise the first: {repeat}; "
         f"{time.time() - t0:.1f} s")
     if not (off <= 0.01 and rel <= 0.005 and gpu.mean() > 0):
         raise AssertionError(f"{name}: card and CPU images disagree")
-    return dict(off=off, off_1e5=whole, rel_mean=rel)
+    return dict(off=off, off_1e5=whole, rel_mean=rel, repeat=repeat)
 
 
 def check_photon(path, card, twt) -> dict:
@@ -2928,6 +2991,7 @@ def check_photon(path, card, twt) -> dict:
     the CPU on photon lists and on images gathered from one photon list;
     (e) the CLI and the server."""
     import numpy as np
+    from tungsten_tpu_torch.ops import segment_sum as tss
     from tungsten_tpu_torch.render import render
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     from tungsten_tpu_torch.scene.parse import load_scene
@@ -2974,8 +3038,10 @@ def check_photon(path, card, twt) -> dict:
     fpt = render(fscene, replace(fsettings, integrator_type="path_tracer"),
                  spp=PHOTON_VOL_SPP, seed=SEED, spp_chunk=PHOTON_VOL_SPP)
     for kind in VOLUME_KINDS:
+        tss.LAUNCH_LOG = []   # the volume gathers' S1 launches
         c = photon_render(fscene, replace(fsettings, vol_photon_type=kind),
                           card, twt, PHOTON_VOL_SPP, f"fog {kind}")
+        c["s1_log"], tss.LAUNCH_LOG = tss.LAUNCH_LOG, None
         ran = set(k for k, v in c["launches"].items() if v)
         want = {"closest", "anyhit"} if kind == "planes" else {"closest"}
         if ran != want:
@@ -3167,9 +3233,13 @@ def mlt_render(scene, settings, card, twt, tag: str, spp: int,
     summ: dict = {}
     if whole:
         what = "the render"
-        prof = profile_render(lambda: render(scene, settings, spp=spp,
-                                             seed=SEED, spp_chunk=spp),
-                              summary=summ)
+        held: dict = {}
+        prof = profile_render(lambda: held.update(img=render(
+            scene, settings, spp=spp, seed=SEED, spp_chunk=spp)),
+            summary=summ)
+        summ["repeat"] = soft(same_bits, tag, img, held["img"])
+        log(f"  {tag}: the profiled render bitwise the first: "
+            f"{summ['repeat']}")
     else:
         what = "one step"
         prof = profile_render(mlt_step(scene, settings), summary=summ)
@@ -3500,8 +3570,7 @@ def check_obj(tmp, path, img, img2, launches, card, twt) -> dict:
                              f"{olaunches}")
     if any(olaunches[k] != launches[k] for k in launches):
         raise AssertionError("OBJ render: launches differ from phase 5's")
-    # each lane's radiance does not depend on the order of the frame's
-    # atomic sums: both scenes' lanes bitwise
+    # the lanes the frame sums: both scenes' bitwise too
     pixel, sample = wave_ids(settings, SPP, oscene.device)
     t0 = time.time()
     lanes = [trace_wave(s, settings, pixel, sample, SEED)
@@ -3513,9 +3582,7 @@ def check_obj(tmp, path, img, img2, launches, card, twt) -> dict:
     if not lanes_equal:
         raise AssertionError("OBJ render: lanes differ from the .wo3 "
                              "scene's")
-    if not equal and repeat:
-        raise AssertionError("OBJ render: the image differs from phase "
-                             "5's, which renders bitwise repeatably")
+    soft(same_bits, "OBJ render against phase 5's", img, oimg)
     del lanes, oscene, scene
     # (e) the entry points
     res, spp = OBJ_SMALL
@@ -3529,6 +3596,368 @@ def check_obj(tmp, path, img, img2, launches, card, twt) -> dict:
             "phase5_repeatable": repeat, "lanes_equal": lanes_equal,
             "load_native_s": t_nat, "load_python_s": t_py,
             "flatten_s": t_flat, "cli": cli}
+
+
+# ------------------------------------------------------ ordered sums (S1)
+
+# the bank's shape: the smoke wave's 1,048,576 rays banked into its
+# 65,536 pixels (16 samples a pixel), shuffled as the body sort leaves
+# them; the tile sums' f64 outputs (256x256 in 4x4 tiles)
+S1_PIXELS, S1_SAMPLES = RES * RES, SPP
+S1_TILES = (RES // 4) ** 2
+# the scans' shapes: choose_light's (lanes, lights) rows, the MLT pool's
+# CDF over its 10,000 entries, a raymarch's (lanes, 96 steps) rows
+S1_SCANS = (((1 << 20, 4), -1), ((10000,), 0), ((65536, 96), 1))
+S1_TOL = ("vs the plain version (index_add_ of the rows in S1's order, "
+          "on the CPU) on the same inputs: bitwise equal, f32 and f64, "
+          "sorted, unsorted, keyed, grouped and unique ids, empty and "
+          "long segments; the scan entry vs torch.cumsum on the CPU "
+          "bitwise (and its backward vs the CPU's); max_abs_err 0")
+# phase 5: the ordered accumulation may add at most this share of the
+# render's wall (its device time against index_add_ / torch.cumsum on
+# the same inputs)
+S1_COST_SHARE = 0.03
+
+
+def s1_bound_ms(P: int, C: int, N: int, item: int, perm: bool) -> float:
+    """S1's least time: the ids (and perm) and values read once, the
+    output rows read and written once, over the card's memory rate (its
+    P * C adds are far below the f32 rate)."""
+    return (P * 8 * (2 if perm else 1) + P * C * item
+            + 2 * N * C * item) / PEAK_BYTES * 1e3
+
+
+def s1_case(tss, name, idx, v, out0, key=None, grouped=False,
+            timed=False) -> dict:
+    """ordered_index_add on the card against the plain version on the
+    CPU (the rows in the order S1 adds them), bitwise; with `timed`, S1
+    alone, the wrapper (sort + S1), index_add_ on the same card tensors
+    (the library call) and the plain version on the CPU."""
+    import torch
+    dev = torch.device("cuda")
+    ci, cv, ck = idx.to(dev), v.to(dev), None if key is None else \
+        key.to(dev)
+    got = tss.ordered_index_add(out0.clone().to(dev), ci, cv, key=ck,
+                                grouped=grouped).cpu()
+    seg, perm = (idx, None) if grouped else tss.sort_rows(idx, key)
+    t0 = time.perf_counter()
+    want = tss.segment_sum_plain(out0.clone(), seg, v, perm)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    equal = bool(torch.equal(got, want))
+    err = float((got.double() - want.double()).abs().max())
+    nonempty = int(torch.unique(idx).numel())
+    longest = int(torch.bincount(idx.clamp(min=0)).max())
+    r = dict(rows=int(v.shape[0]), cols=int(v[0].numel()),
+             outputs=int(out0.shape[0]), nonempty=nonempty,
+             longest=longest, dtype=str(v.dtype).replace("torch.", ""),
+             equal=equal, max_abs_err=err)
+    if not equal:
+        raise AssertionError(f"S1 {name}: not bitwise the plain version "
+                             f"(max |diff| {err:.3e})")
+    if timed:
+        out = out0.clone().to(dev)
+        sseg, sperm = (ci, None) if grouped else tss.sort_rows(ci, ck)
+        r["ms"] = cuda_ms(lambda: tss.segment_sum_kernel(out, sseg, cv,
+                                                         sperm))
+        r["wrapper_ms"] = cuda_ms(lambda: tss.ordered_index_add(
+            out, ci, cv, key=ck, grouped=grouped))
+        r["library_ms"] = cuda_ms(lambda: out.index_add_(0, ci, cv))
+        r["plain_ms"] = plain_ms
+        r["bound_ms"] = s1_bound_ms(r["rows"], r["cols"], r["outputs"],
+                                    v.element_size(), not grouped)
+    log(f"  S1 {name}: {r['rows']} rows x {r['cols']} {r['dtype']} into "
+        f"{r['outputs']} outputs ({nonempty} non-empty, the longest "
+        f"{longest} rows): bitwise the plain version" + (
+            f"; S1 {r['ms']:.4f} ms, with the sort {r['wrapper_ms']:.4f} "
+            f"ms, index_add_ {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms (bytes), plain (CPU) "
+            f"{plain_ms:.1f} ms" if timed else ""))
+    return r
+
+
+def check_segment_sum(tss) -> dict:
+    """Phase 2c: S1 and its scan entry on seeded inputs against their
+    plain versions on the CPU, bitwise, and timed at the bank's shape."""
+    import numpy as np
+    import torch
+    g = np.random.default_rng(SEED & 0xFFFF)
+    out = {}
+    # (1) the bank: a pixel's 16 samples, rays shuffled, keyed by
+    # (pixel, sample) as path_tracer.bank keys them on the card
+    P = S1_PIXELS * S1_SAMPLES
+    sh = torch.from_numpy(g.permutation(P))
+    pixel = torch.arange(S1_PIXELS).repeat(S1_SAMPLES)[sh]
+    sample = torch.arange(S1_SAMPLES).repeat_interleave(S1_PIXELS)[sh]
+    v = torch.from_numpy((g.standard_normal((P, 3)) * 10.0 ** g.integers(
+        -3, 3, size=(P, 1))).astype(np.float32))
+    out["bank"] = s1_case(tss, "bank (pixel, sample keys)", pixel, v,
+                          torch.zeros((S1_PIXELS, 3)),
+                          key=(pixel << 31) | sample, timed=True)
+    # (2) f64 tile sums on unsorted tile ids
+    tile = torch.from_numpy(g.integers(0, S1_TILES, P))
+    out["tiles"] = s1_case(tss, "f64 tile sums", tile, v[:, :3].double(),
+                           torch.zeros((S1_TILES, 3), dtype=torch.float64),
+                           timed=True)
+    # (3) sorted ids, most outputs empty, one segment of 200,000 rows,
+    # into a non-zero output (the gathers add into a running sum)
+    n_out = 100_000
+    ids = torch.from_numpy(np.sort(np.concatenate([
+        g.choice(np.arange(0, n_out, 3), P - 200_000),
+        np.full(200_000, 4242)])))
+    for dt in (torch.float32, torch.float64):
+        out[f"sorted_{dt}"] = s1_case(
+            tss, f"sorted ids, empty and long segments ({dt})", ids,
+            v.to(dt), torch.from_numpy(g.standard_normal(
+                (n_out, 3))).to(dt), grouped=True)
+    # (4) unique lanes, unsorted (the lane banks), 7 columns
+    lanes = torch.from_numpy(g.permutation(P))
+    out["lanes"] = s1_case(tss, "unique unsorted lanes", lanes,
+                           torch.cat([v, v, v[:, :1]], 1),
+                           torch.zeros((P, 7)), grouped=True)
+    # (5) the scan entry against torch.cumsum on the CPU, and its
+    # backward against the CPU's
+    dev = torch.device("cuda")
+    scans = []
+    for shape, dim in S1_SCANS:
+        for dt in (torch.float32, torch.float64):
+            x = torch.from_numpy(g.standard_normal(shape) * 1e3).to(dt)
+            got = tss.ordered_cumsum(x.to(dev), dim).cpu()
+            if not torch.equal(got, torch.cumsum(x, dim)):
+                raise AssertionError(f"S1 scan {shape} {dt}: not bitwise "
+                                     f"torch.cumsum on the CPU")
+        cx = x.to(dev).float()
+        scans.append(dict(shape=list(shape), dim=dim,
+                          ms=cuda_ms(lambda: tss.ordered_cumsum(cx, dim)),
+                          library_ms=cuda_ms(lambda: torch.cumsum(cx,
+                                                                  dim))))
+    x = torch.from_numpy(g.standard_normal((4096, 8))).float()
+    xh = x.clone().requires_grad_()
+    xc = x.clone().to(dev).requires_grad_()
+    w = torch.from_numpy(g.standard_normal((4096, 8))).float()
+    (tss.ordered_cumsum(xc, -1) * w.to(dev)).sum().backward()
+    (torch.cumsum(xh, -1) * w).sum().backward()
+    if not torch.equal(xc.grad.cpu(), xh.grad):
+        raise AssertionError("S1 scan: backward not bitwise the CPU's")
+    out["scans"] = scans
+    log("  S1 scan: " + "; ".join(
+        f"{tuple(s['shape'])} along {s['dim']}: {s['ms']:.4f} ms "
+        f"(torch.cumsum {s['library_ms']:.4f} ms)" for s in scans) +
+        "; f32 and f64 bitwise torch.cumsum on the CPU, the backward too")
+    return out
+
+
+def s1_gather_timing(tss, launch) -> dict:
+    """S1 at a photon gather's shape (rows, columns, outputs of the
+    largest grouped launch of phase 17's fog points render) on seeded
+    sorted ids, against the plain version (bitwise) and timed."""
+    import numpy as np
+    import torch
+    _, P, C, N, _, _ = launch
+    g = np.random.default_rng((SEED >> 8) & 0xFFFF)
+    ids = torch.from_numpy(np.sort(g.integers(0, N, P)))
+    v = torch.from_numpy(g.standard_normal((P, C)).astype(np.float32))
+    return s1_case(tss, "a photon gather's shape", ids, v,
+                   torch.zeros((N, C)), grouped=True, timed=True)
+
+
+def ordered_cost(render_once) -> dict:
+    """The main path's ordered sums (path_tracer.bank's index_sums and
+    choose_light's ordered_cumsum) captured from one render and replayed:
+    their device ms against index_add_ (one a bank field, as the bank
+    summed before) and torch.cumsum on the same inputs."""
+    import torch
+    from tungsten_tpu_torch.integrators import lights
+    from tungsten_tpu_torch.integrators import path_tracer as tpt
+    banks, scans = [], []
+    sums, scan = tpt.index_sums, lights.ordered_cumsum
+
+    def keep_sums(idx, values, n, dtype=torch.float32, key=None,
+                  grouped=False):
+        banks.append((idx.clone(), {k: x.clone() for k, x in
+                                    values.items()}, n, dtype,
+                      None if key is None else key.clone(), grouped))
+        return sums(idx, values, n, dtype, key=key, grouped=grouped)
+
+    def keep_scan(x, dim):
+        scans.append((x.detach().clone(), dim))
+        return scan(x, dim)
+
+    tpt.index_sums, lights.ordered_cumsum = keep_sums, keep_scan
+    try:
+        render_once()
+    finally:
+        tpt.index_sums, lights.ordered_cumsum = sums, scan
+
+    def ordered():
+        for idx, values, n, dtype, key, grouped in banks:
+            sums(idx, values, n, dtype, key=key, grouped=grouped)
+        for x, dim in scans:
+            scan(x, dim)
+
+    def library():
+        for idx, values, n, dtype, _, _ in banks:
+            for x in values.values():
+                torch.zeros((n,) + tuple(x.shape[1:]), dtype=dtype,
+                            device=x.device).index_add_(0, idx, x.to(dtype))
+        for x, dim in scans:
+            torch.cumsum(x, dim)
+
+    r = dict(banks=len(banks), bank_rows=sum(b[0].shape[0] for b in banks),
+             scans=len(scans), scan_rows=sum(x.shape[0] for x, _ in scans),
+             ordered_ms=cuda_ms(ordered), library_ms=cuda_ms(library))
+    r["added_ms"] = r["ordered_ms"] - r["library_ms"]
+    del banks, scans
+    return r
+
+
+# ------------------------------------------------------ repeat renders
+
+REPEAT_RES, REPEAT_SPP = 64, 4    # phase 20's frame
+# its MLT and adaptive renders (each about as costly as the frame is
+# large, whatever its samples): their frame, the MLT chains and pool and
+# depth, and the adaptive spp (above render.ADAPTIVE_THRESHOLD)
+REPEAT_SMALL_RES, REPEAT_MLT_CHAINS, REPEAT_MLT_BOUNCES = 32, 1024, 4
+ADAPTIVE_REPEAT_SPP = 24
+# phase 21: a frame larger than one wave (SURVEY.md §6's fixture size):
+# 3 pixel chunks x 4 sample batches of 1,048,576 rays at 16 spp
+WIDE = (1000, 563)
+WIDE_MEAN_TOL = 0.02
+
+
+# bitwise checks that failed; the run goes on to its end, then fails
+DEFERRED: list = []
+
+
+def soft(fn, *args) -> bool:
+    """fn(*args); an AssertionError is logged and kept in DEFERRED (the
+    run then fails at its end, after every phase has printed)."""
+    try:
+        fn(*args)
+        return True
+    except AssertionError as e:
+        log(f"  FAILED (reported at the end): {e}")
+        DEFERRED.append(str(e))
+        return False
+
+
+def same_bits(name, a, b) -> None:
+    """a and b (arrays, or dicts of them) bitwise equal, else raise."""
+    import numpy as np
+    if isinstance(a, dict):
+        for k in a:
+            same_bits(f"{name} {k}", a[k], b[k])
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    if not (a.shape == b.shape and a.dtype == b.dtype and
+            a.tobytes() == b.tobytes()):
+        diff = float(np.abs(a.astype(np.float64) - b).max())
+        raise AssertionError(f"{name}: the second render is not bitwise the "
+                             f"first (max |diff| {diff:.3e})")
+
+
+def twice(name, fn) -> dict:
+    """fn() twice on the card: bitwise equal, S1's launches a render."""
+    from tungsten_tpu_torch.ops import segment_sum as tss
+    t0 = time.time()
+    for k in tss.LAUNCHES:
+        tss.LAUNCHES[k] = 0
+    a = fn()
+    s1 = dict(tss.LAUNCHES)
+    b = fn()
+    ok = soft(same_bits, name, a, b)
+    log(f"  {name}: the second render bitwise the first: {ok} "
+        f"({s1['segment_sum']} S1 and {s1['ordered_scan']} scan launches a "
+        f"render; {time.time() - t0:.1f} s)")
+    return dict(s1, equal=ok)
+
+
+def check_repeats(path, card) -> dict:
+    """Phase 20: the other render paths, each twice on the card at
+    REPEAT_RES x REPEAT_RES, bitwise."""
+    from tungsten_tpu_torch.render import render, render_with_aovs
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.parse import load_scene
+    scene, settings = flatten_scene(load_scene(path))
+    small = replace(settings, width=REPEAT_RES, height=REPEAT_RES)
+    smaller = replace(settings, width=REPEAT_SMALL_RES,
+                      height=REPEAT_SMALL_RES)
+    res, spp, bounces = BDPT_SMALL
+    out = {}
+
+    def image(st, n=REPEAT_SPP):
+        return lambda: render(scene, st, spp=n, seed=SEED, spp_chunk=n)
+
+    for integ in SPLATTING:
+        out[integ] = twice(integ, image(replace(
+            splat_settings(small, integ), max_bounces=bounces)))
+    mlt_small = dict(mlt_chains=REPEAT_MLT_CHAINS,
+                     mlt_sample_pool=REPEAT_MLT_CHAINS,
+                     max_bounces=REPEAT_MLT_BOUNCES)
+    for tag, integ, bidir, _ in MLT_RUNS[1:]:   # kelemen's: phase 18(a)
+        out[tag] = twice(tag, image(mlt_settings(smaller, integ, bidir,
+                                                 **mlt_small), 1))
+    out["adaptive"] = twice("adaptive sampling", image(
+        replace(smaller, adaptive_sampling=True), ADAPTIVE_REPEAT_SPP))
+    out["buffers"] = twice("output buffers", lambda: render_with_aovs(
+        scene, small, spp=REPEAT_SPP, seed=SEED)[1])
+
+    def resumed():
+        half = render_with_aovs(scene, small, spp=REPEAT_SPP // 2,
+                                seed=SEED)[1]
+        return render_with_aovs(scene, small, spp=REPEAT_SPP, seed=SEED,
+                                acc=half, sample_start=REPEAT_SPP // 2)[1]
+    out["resumed"] = twice("resumed output buffers (2 + 2 spp)", resumed)
+    return out
+
+
+def check_wide(scene, settings, img, card, twt) -> dict:
+    """Phase 21: the main path at WIDE, 16 spp, 64 bounces, more than one
+    wave, twice: bitwise, finite, its mean within WIDE_MEAN_TOL of phase
+    5's frame's over the part of phase 5's view it sees."""
+    import numpy as np
+    import torch
+    from tungsten_tpu_torch import render as trender
+    from tungsten_tpu_torch.ops import segment_sum as tss
+    w, h = WIDE
+    s = replace(settings, width=w, height=h)
+    n = w * h
+    C = min(trender.WAVEFRONT_CHUNK, n)
+    chunks = -(-n // C)
+    batches = -(-SPP // max(1, trender.WAVE_RAYS // C))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a, st, launches = render_counted(scene, s, twt, SPP)
+    s1 = dict(tss.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    b, st2 = trender.render(scene, s, spp=SPP, seed=SEED, spp_chunk=SPP,
+                            return_stats=True)
+    equal = soft(same_bits, f"{w}x{h}", a, b)
+    # the pinhole's horizontal field of view is the frame's width, so the
+    # wide frame sees the middle h / w of phase 5's rows
+    rows = RES * h / w
+    lo = int(round((RES - rows) / 2))
+    crop = img[lo:lo + int(round(rows))]
+    rel = float(a.mean() / crop.mean() - 1.0)
+    log(f"  {w}x{h} {SPP} spp max_bounces {s.max_bounces}: {chunks} pixel "
+        f"chunks x {batches} sample batches = {chunks * batches} waves; "
+        f"{st['time']:.3f} s and {st2['time']:.3f} s, {st['rays']} rays, "
+        f"{st['mrays_per_s']:.3f} / {st2['mrays_per_s']:.3f} Mrays/s on "
+        f"{card}; peak device memory {peak:.1f} MiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }, S1 {s1}; the two "
+        f"frames bitwise equal: {equal}; mean {a.mean():.6f} vs phase 5's "
+        f"{crop.mean():.6f} over rows {lo}-{lo + int(round(rows)) - 1} "
+        f"({rel * 100:+.3f} %)")
+    if not (np.isfinite(a).all() and a.mean() > 0):
+        raise AssertionError("wide frame: not finite or black")
+    if not (launches["closest"] > 0 and launches["anyhit"] > 0 and
+            s1["segment_sum"] > 0):
+        raise AssertionError(f"wide frame: a kernel never launched "
+                             f"{launches} {s1}")
+    if chunks * batches <= 1 or abs(rel) > WIDE_MEAN_TOL:
+        raise AssertionError("wide frame: one wave, or its mean off phase "
+                             "5's")
+    return dict(stats=st, stats2=st2, peak_mib=peak, waves=chunks * batches,
+                rel_mean=rel, s1=s1, equal=equal)
 
 
 def kernel_row(name, mode, m, launches, replaces, tol, extra, prof):
@@ -3568,6 +3997,7 @@ def main() -> int:
     from tungsten_tpu_torch import native
     from tungsten_tpu_torch.io import image
     from tungsten_tpu_torch.ops import curve_trace as tct
+    from tungsten_tpu_torch.ops import segment_sum as tss
     from tungsten_tpu_torch.ops import wave_trace as twt
     from tungsten_tpu_torch.render import render
     from tungsten_tpu_torch.scene.flatten import flatten_scene
@@ -3599,22 +4029,24 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     log(card)
 
-    # 2. build (the three nvcc and the g++ compiles at once)
+    # 2. build (the four nvcc and the g++ compiles at once)
     t0 = time.time()
-    with ThreadPoolExecutor(4) as ex:
+    with ThreadPoolExecutor(5) as ex:
         k_fut = ex.submit(twt.load_kernels)
         l_fut = ex.submit(mxb.load_kernels)
         c_fut = ex.submit(tct.load_kernel)
+        s_fut = ex.submit(tss.load_kernel)
         b_fut = ex.submit(native.get_lib)
         lib = k_fut.result()
         leaf_lib = l_fut.result()
         curve_lib = c_fut.result()
+        sum_lib = s_fut.result()
         bvh_lib = b_fut.result()
     log(f"build: {time.time() - t0:.2f} s (wave kernels {lib._name}; leaf "
-        f"kernel {leaf_lib._name}; curve kernel {curve_lib._name}; host "
-        f"runtime (BVH build, OBJ parser) "
+        f"kernel {leaf_lib._name}; curve kernel {curve_lib._name}; ordered "
+        f"sums {sum_lib._name}; host runtime (BVH build, OBJ parser) "
         f"{bvh_lib._name if bvh_lib is not None else 'not built: numpy'})")
-    for built in (lib, leaf_lib, curve_lib):
+    for built in (lib, leaf_lib, curve_lib, sum_lib):
         with open(built._name + ".log") as f:
             for line in f.read().splitlines():
                 if any(x in line for x in ("registers", "spill",
@@ -3629,6 +4061,11 @@ def main() -> int:
     log("leaf microbenchmark (tools/mxubench.py run_all):")
     leaf_rows, _ = time_leaf(mxb, dev, leaf_checks)
     mark("leaf kernels")
+
+    # 2c. S1, the ordered sums, against its plain version
+    log("ordered sums (S1) vs plain:")
+    s1 = check_segment_sum(tss)
+    mark("ordered sums")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 3. scene
@@ -3656,21 +4093,45 @@ def main() -> int:
         log("render:")
         scene, settings = flatten_scene(load_scene(path))
         img, stats, launches = render_counted(scene, settings, twt)
+        s1_launches = dict(tss.LAUNCHES)
         log(f"  {settings.width}x{settings.height} {SPP} spp max_bounces "
             f"{settings.max_bounces}: {stats['time']:.3f} s, "
             f"{stats['rays']} rays, {stats['mrays_per_s']:.3f} Mrays/s on "
-            f"{card}; launches {launches}")
+            f"{card}; launches {launches}, S1 {s1_launches}")
         if not (np.isfinite(img).all() and img.mean() > 0):
             raise AssertionError("render: image not finite or black")
-        if not (launches["closest"] > 0 and launches["anyhit"] > 0):
-            raise AssertionError(f"render: a kernel never launched {launches}")
+        if not (launches["closest"] > 0 and launches["anyhit"] > 0 and
+                s1_launches["segment_sum"] > 0 and
+                s1_launches["ordered_scan"] > 0):
+            raise AssertionError(f"render: a kernel never launched "
+                                 f"{launches} {s1_launches}")
         img2, stats2 = render(scene, settings, spp=SPP, seed=SEED,
                               spp_chunk=SPP, return_stats=True)
+        repeat5 = soft(same_bits, "render", img, img2)
         log(f"  second render: {stats2['time']:.3f} s, "
             f"{stats2['mrays_per_s']:.3f} Mrays/s; image mean {img.mean():.6f}"
-            f" vs {img2.mean():.6f}")
-        prof = profile_render(lambda: render(scene, settings, spp=SPP,
-                                             seed=SEED, spp_chunk=SPP))
+            f" vs {img2.mean():.6f}; bitwise equal: {repeat5}")
+        held: dict = {}
+        psum: dict = {}
+        prof = profile_render(lambda: held.update(img=render(
+            scene, settings, spp=SPP, seed=SEED, spp_chunk=SPP)),
+            summary=psum)
+        soft(same_bits, "render (profiled)", img, held.pop("img"))
+        log(f"  S1 in the profiled render: {psum.get('s1_launches')} "
+            f"launches, {psum.get('s1_ms')} ms device time; the scan "
+            f"{psum.get('scan_ms')} ms")
+        cost = ordered_cost(lambda: render(scene, settings, spp=SPP,
+                                           seed=SEED, spp_chunk=SPP))
+        cost["share"] = cost["added_ms"] / (stats["time"] * 1e3)
+        log(f"  the ordered sums of one render ({cost['banks']} banks of "
+            f"{cost['bank_rows']} rows, {cost['scans']} light-choice scans "
+            f"of {cost['scan_rows']} rows) replayed: {cost['ordered_ms']:.3f}"
+            f" ms against {cost['library_ms']:.3f} ms by index_add_ and "
+            f"torch.cumsum on the same inputs: {cost['added_ms']:+.3f} ms, "
+            f"{cost['share'] * 100:+.3f} % of the render's "
+            f"{stats['time']:.3f} s (bound {S1_COST_SHARE * 100:.0f} %)")
+        if cost["share"] > S1_COST_SHARE:
+            raise AssertionError("render: the ordered sums cost too much")
         mark("render")
 
         # 6. kernel path vs plain path on the CPU, small frame
@@ -3724,7 +4185,7 @@ def main() -> int:
         zprof = profile_render(lambda: render(zscene, zsettings, spp=SPP,
                                               seed=SEED, spp_chunk=SPP))
         mark("large scene (c)")
-        # (d) at 8 bounces: the CPU plain walk of 606k triangles costs
+        # (d) at 4 bounces: the CPU plain walk of 606k triangles costs
         # seconds a bounce body, and glass keeps paths alive to the limit
         log("  (d)")
         cross_path(zscene, zsettings, max_bounces=ZOO_CROSS_BOUNCES)
@@ -3996,9 +4457,14 @@ def main() -> int:
         if not (first["spp"] == 8 and second["spp"] == SPP):
             raise AssertionError("resume: wrong sample counts")
         res_hdr = image.load_hdr(os.path.join(rdir, "resume.pfm"))
-        # the same rays as 11a's, summed in float64 atomics in another
-        # order and traced in other waves (a tie between two triangles at
-        # equal t may break another way)
+        # the same rays as 11a's in other waves: each pixel's two 8-spp
+        # float64 sums are added to each other, where 11a sums its 16
+        # samples in one, an association that may round otherwise, and a
+        # tie between two triangles at equal t may break another way in
+        # another wave; so a tolerance here, and phase 20 holds a resumed
+        # render against itself bitwise
+        log(f"  resumed vs uninterrupted bitwise: "
+            f"{bool(np.array_equal(res_hdr, buf_hdr))}")
         images_agree("resumed 8 + 8 spp vs uninterrupted 16 spp", res_hdr,
                      buf_hdr, 1e-4, 1e-5, 0.999, 1e-4)
         mark("resume")
@@ -4041,7 +4507,29 @@ def main() -> int:
         ob = check_obj(tmp, path, img, img2, launches, card, twt)
         mark("OBJ meshes")
 
-    # 20. kernels line and result
+        # 20. every other render path twice, bitwise
+        log(f"repeat renders ({REPEAT_RES}x{REPEAT_RES}):")
+        repeats = check_repeats(path, card)
+        mark("repeat renders")
+
+        # 21. a frame larger than one wave, twice
+        log("wide frame:")
+        scene, settings = flatten_scene(load_scene(path))
+        wide = check_wide(scene, settings, img, card, twt)
+        del scene
+        mark("wide frame")
+
+        # S1 at a photon gather's shape: the largest grouped launch of
+        # phase 17
+        log("S1 at a photon gather's shape:")
+        gathers = [x for x in ph["fog_points"]["s1_log"]
+                   if x[0] == "segment_sum"]
+        s1_gather = s1_gather_timing(tss, max(gathers,
+                                              key=lambda x: x[1] * x[2]))
+        s1_gather["fog_points_launches"] = len(gathers)
+        mark("S1 gather shape")
+
+    # 22. kernels line and result
     closest_tol = ("vs plain walk: hit-set agreement > 0.998, same triangle "
                    "> 0.999, t within rtol 2e-3 on > 0.999 (the kernel's "
                    "own t and after the finalize), u/v atol 2e-3; "
@@ -4168,6 +4656,27 @@ def main() -> int:
         kernel_row("wave_trace_paged_anyhit", "paged_anyhit", zshadow,
                    zlaunches, k3, anyhit_tol + split + paged, {}, zprof),
     ] + leaf_rows + [c1_row]
+    rows.append({
+        "name": "segment_sum", "route": "cuda",
+        "source": "tungsten_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "no Pallas kernel: the JAX package's XLA scatter-adds "
+                    "into the frame, e.g. tungsten_tpu/integrators/"
+                    "path_tracer.py:1654 (bank_emission's .at[pix].add)",
+        "launches": s1_launches["segment_sum"],
+        "launches_scan": s1_launches["ordered_scan"],
+        "max_abs_err": max(x["max_abs_err"] for x in s1.values()
+                           if isinstance(x, dict)),
+        "ms": s1["bank"]["ms"], "plain_ms": s1["bank"]["plain_ms"],
+        "bound_ms": s1["bank"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": s1["bank"]["library_ms"], "tolerance": S1_TOL,
+        "bank": s1["bank"], "tiles": s1["tiles"],
+        "photon_gather": s1_gather, "scans": s1["scans"],
+        "render_ms": psum.get("s1_ms"),
+        "render_profiled_launches": psum.get("s1_launches"),
+        "render_scan_ms": psum.get("scan_ms"), "render_cost": cost,
+        "wide_launches": wide["s1"]["segment_sum"],
+        "repeat_launches": {k: v["segment_sum"]
+                            for k, v in repeats.items()}})
     log(f"render_s {stats['time']:.3f} mrays_per_s "
         f"{stats['mrays_per_s']:.3f} large_render_s {zstats['time']:.3f} "
         f"large_mrays_per_s {zstats['mrays_per_s']:.3f} media_render_s "
@@ -4229,9 +4738,19 @@ def main() -> int:
         f"{ob['image_equal']} obj_lanes_equal {ob['lanes_equal']} "
         f"obj_load_native_s {ob['load_native_s']:.3f} obj_load_python_s "
         f"{ob['load_python_s']:.3f} obj_flatten_s {ob['flatten_s']:.3f} "
-        f"cli_obj_s {ob['cli']['seconds']:.3f} total_s "
-        f"{time.time() - t_start:.1f}")
+        f"cli_obj_s {ob['cli']['seconds']:.3f} s1_bank_ms "
+        f"{s1['bank']['ms']:.4f} s1_bank_index_add_ms "
+        f"{s1['bank']['library_ms']:.4f} ordered_added_ms "
+        f"{cost['added_ms']:.3f} ordered_added_share {cost['share']:.5f} "
+        f"replay_repeat_equal {rp['full']['repeat_equal']} wide_s "
+        f"{wide['stats']['time']:.3f} wide_mrays_per_s "
+        f"{wide['stats']['mrays_per_s']:.3f} wide_peak_mib "
+        f"{wide['peak_mib']:.1f} wide_waves {wide['waves']} wide_rel_mean "
+        f"{wide['rel_mean']:.5f} total_s {time.time() - t_start:.1f}")
     print(json.dumps({"kernels": rows}), flush=True)
+    if DEFERRED:
+        return fail(f"{len(DEFERRED)} bitwise checks failed: "
+                    + "; ".join(DEFERRED))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

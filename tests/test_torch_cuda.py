@@ -58,6 +58,11 @@ mode) match the plain path's images.  MLT tape traces of 4,096 chains,
 sorted and compacted on the card, give each lane its own chain's result
 (the CPU's lane for lane, the reversible-jump inversions too), and
 kelemen, reversible-jump and multiplexed renders match the CPU's means.
+The ordered sums S1 (csrc/segment_sum.cu) equal their plain version on
+the CPU bitwise on unsorted, keyed, sorted and unique ids, the scan entry
+equals torch.cumsum on the CPU bitwise (its backward too), the path
+tracer, BDPT and the light tracer render the same frame twice bit for
+bit, and path-replay gradients repeat bit for bit.
 """
 from types import SimpleNamespace
 
@@ -2024,3 +2029,158 @@ def test_cuda_obj_mesh_scene_matches_wo3(cuda_device, tmp_path):
         elif isinstance(a, (list, tuple)):
             assert all(torch.equal(x, y) for x, y in zip(a, b)), f.name
     assert imgs[0].mean() > 0 and np.array_equal(imgs[0], imgs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_segment_sum_matches_plain(cuda_device, dtype):
+    """S1 (csrc/segment_sum.cu) bitwise its plain version on the CPU:
+    unsorted ids with empty and long segments (stable-sorted on the
+    card), rows keyed by (id, sample), sorted ids added into a non-zero
+    output, unique unsorted lanes; one launch a call."""
+    from tungsten_tpu_torch.ops import segment_sum as tss
+    g = np.random.default_rng(31)
+    P, N = 50_000, 700
+    ids = g.integers(0, N // 2, P) * 2        # the odd outputs empty
+    ids[g.uniform(size=P) < 0.3] = 6          # one long segment
+    ids = torch.from_numpy(ids)
+    v = torch.from_numpy(g.standard_normal((P, 3)) *
+                         10.0 ** g.integers(-3, 3, (P, 1))).to(dtype)
+    base = torch.from_numpy(g.standard_normal((N, 3))).to(dtype)
+    dev = cuda_device
+    before = tss.LAUNCHES["segment_sum"]
+    got = tss.ordered_index_add(base.to(dev), ids.to(dev), v.to(dev))
+    assert tss.LAUNCHES["segment_sum"] == before + 1
+    assert torch.equal(got.cpu(), base.clone().index_add_(0, ids, v))
+    sample = torch.from_numpy(g.integers(0, 64, P))
+    key = (ids << 31) | sample
+    got = tss.ordered_index_add(torch.zeros((N, 3), dtype=dtype,
+                                            device=dev), ids.to(dev),
+                                v.to(dev), key=key.to(dev))
+    seg, perm = tss.sort_rows(ids, key)
+    assert torch.equal(got.cpu(), tss.segment_sum_plain(
+        torch.zeros((N, 3), dtype=dtype), seg, v, perm))
+    srt = torch.sort(ids).values
+    got = tss.ordered_index_add(base.to(dev), srt.to(dev), v.to(dev),
+                                grouped=True)
+    assert torch.equal(got.cpu(), base.clone().index_add_(0, srt, v))
+    lanes = torch.from_numpy(g.permutation(P))
+    got = tss.ordered_index_add(torch.zeros((P, 3), dtype=dtype,
+                                            device=dev), lanes.to(dev),
+                                v.to(dev), grouped=True)
+    assert torch.equal(got.cpu(), torch.zeros((P, 3), dtype=dtype)
+                       .index_add_(0, lanes, v))
+    # runs of 64 rows, then the runs: the CPU's blocked sums bitwise
+    got = tss.ordered_index_add(base.to(dev), ids.to(dev), v.to(dev),
+                                block=64)
+    assert torch.equal(got.cpu(), tss.ordered_index_add(
+        base.clone(), ids, v, block=64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dim", [((70000,), 0), ((4096, 5), -1),
+                                       ((300, 96), 1), ((40, 30, 7), 0)])
+def test_cuda_ordered_cumsum_is_the_cpu_cumsum(cuda_device, shape, dim):
+    """S1's scan entry bitwise torch.cumsum on the CPU (float rows summed
+    in double on both), f32 and f64, and its backward the CPU's."""
+    from tungsten_tpu_torch.ops import segment_sum as tss
+    g = np.random.default_rng(32)
+    for dtype in (torch.float32, torch.float64):
+        x = torch.from_numpy(g.standard_normal(shape) * 1e3).to(dtype)
+        before = tss.LAUNCHES["ordered_scan"]
+        got = tss.ordered_cumsum(x.to(cuda_device), dim)
+        assert tss.LAUNCHES["ordered_scan"] == before + 1
+        assert torch.equal(got.cpu(), torch.cumsum(x, dim))
+        w = torch.from_numpy(g.standard_normal(shape)).to(dtype)
+        xh = x.clone().requires_grad_()
+        xc = x.clone().to(cuda_device).requires_grad_()
+        (torch.cumsum(xh, dim) * w).sum().backward()
+        (tss.ordered_cumsum(xc, dim) * w.to(cuda_device)).sum().backward()
+        assert torch.equal(xc.grad.cpu(), xh.grad)
+
+
+@pytest.mark.cuda
+def test_cuda_renders_repeat_bitwise(cuda_device):
+    """The same small scene, settings and seed rendered twice on the card
+    gives the same frame bit for bit, through the path tracer (its banks
+    through S1, its light choice through the scan), BDPT and the light
+    tracer (their splats through S1), without any process-wide
+    determinism switch."""
+    from dataclasses import replace
+    from tungsten_tpu_torch.ops import segment_sum as tss
+    from tungsten_tpu_torch.render import render
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.parse import SceneDesc
+    desc = SceneDesc(
+        path="scene.json", json={},
+        bsdfs=[{"type": "lambert", "albedo": [0.6, 0.3, 0.2]},
+               {"type": "mirror", "albedo": 1.0}],
+        primitives=[
+            {"type": "quad", "bsdf_index": 0, "emission": [8.0, 8.0, 8.0],
+             "transform": {"position": [0, 2.4, 0], "rotation": [0, 0, 180]}},
+            {"type": "quad", "bsdf_index": 0, "emission": [1.0, 2.0, 3.0],
+             "transform": {"position": [2.4, 0.5, 0], "rotation": [0, 0, 90]}},
+            {"type": "quad", "bsdf_index": 1,
+             "transform": {"position": [0, -1, 0], "scale": [10, 1, 10]}},
+            {"type": "cube", "bsdf_index": 0,
+             "transform": {"position": [0.3, -0.4, 0], "scale": 0.8}}],
+        media=[], camera={"type": "pinhole", "resolution": [48, 32],
+                          "fov": 60,
+                          "transform": {"position": [0, 0.6, 4.0],
+                                        "look_at": [0, 0.0, 0]}},
+        integrator={"max_bounces": 8}, renderer={"spp": 16})
+    scene, settings = flatten_scene(desc)
+    assert not torch.are_deterministic_algorithms_enabled()
+    for integ in ("path_tracer", "bidirectional_path_tracer",
+                  "light_tracer"):
+        s = replace(settings, integrator_type=integ)
+        before = dict(tss.LAUNCHES)
+        a = render(scene, s, spp=16, seed=7, spp_chunk=16)
+        assert tss.LAUNCHES["segment_sum"] > before["segment_sum"], integ
+        b = render(scene, s, spp=16, seed=7, spp_chunk=16)
+        assert a.mean() > 0 and np.array_equal(a, b), integ
+
+
+@pytest.mark.cuda
+def test_cuda_replay_gradients_repeat_bitwise(cuda_device):
+    """Path-replay gradients of a small scene twice on the card: L and
+    every gradient bit for bit (take's backward sums in a fixed order,
+    where F.embedding's CUDA backward adds with atomics)."""
+    from tungsten_tpu_torch.integrators.path_tracer import trace_wave_replay
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.parse import SceneDesc
+    desc = SceneDesc(
+        path="scene.json", json={},
+        bsdfs=[{"type": "lambert", "albedo": [0.6, 0.3, 0.2]},
+               {"type": "rough_conductor", "roughness": 0.3}],
+        primitives=[
+            {"type": "quad", "bsdf_index": 0, "emission": [8.0, 8.0, 8.0],
+             "transform": {"position": [0, 2.4, 0], "rotation": [0, 0, 180]}},
+            {"type": "quad", "bsdf_index": 0, "emission": [1.0, 2.0, 3.0],
+             "transform": {"position": [2.4, 0.5, 0], "rotation": [0, 0, 90]}},
+            {"type": "quad", "bsdf_index": 1,
+             "transform": {"position": [0, -1, 0], "scale": [10, 1, 10]}},
+            {"type": "cube", "bsdf_index": 0,
+             "transform": {"position": [0.3, -0.4, 0], "scale": 0.8}}],
+        media=[], camera={"type": "pinhole", "resolution": [64, 64],
+                          "fov": 60,
+                          "transform": {"position": [0, 0.6, 4.0],
+                                        "look_at": [0, 0.0, 0]}},
+        integrator={"max_bounces": 6}, renderer={"spp": 4})
+    scene, settings = flatten_scene(desc)
+    n = settings.width * settings.height
+    pixel = torch.arange(n, dtype=torch.int32, device=cuda_device).repeat(4)
+    sample = torch.arange(4, dtype=torch.int32,
+                          device=cuda_device).repeat_interleave(n)
+    runs = []
+    for _ in range(2):
+        leaves = {k: getattr(scene, k).detach().clone().requires_grad_()
+                  for k in ("tex_const", "light_emission", "bsdf_params")}
+        L = trace_wave_replay(scene.replace(**leaves), settings, pixel,
+                              sample, 7)
+        L.mean().backward()
+        runs.append((L.detach(), {k: v.grad for k, v in leaves.items()}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k, grad in runs[0][1].items():
+        assert torch.isfinite(grad).all() and grad.abs().max() > 0, k
+        assert torch.equal(grad, runs[1][1][k]), k

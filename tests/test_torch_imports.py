@@ -95,13 +95,15 @@ def test_no_forbidden_import_statement(path):
 def test_cuda_sources_stand_alone():
     """Every CUDA source of the port is built by its module's kernel build
     and has a plain C interface: no PyTorch, ATen or pybind header."""
-    from tungsten_tpu_torch.ops import curve_trace, wave_trace
+    from tungsten_tpu_torch.ops import curve_trace, segment_sum, wave_trace
     from tungsten_tpu_torch.tools import mxubench
     csrc = os.path.join(PKG, "csrc")
     cus = sorted(f for f in os.listdir(csrc) if f.endswith((".cu", ".cuh")))
-    assert cus == ["curve_trace.cu", "leaf_mma.cu", "wave_trace.cu"]
+    assert cus == ["curve_trace.cu", "leaf_mma.cu", "segment_sum.cu",
+                   "wave_trace.cu"]
     for fn, mod in (("wave_trace.cu", wave_trace), ("leaf_mma.cu", mxubench),
-                    ("curve_trace.cu", curve_trace)):
+                    ("curve_trace.cu", curve_trace),
+                    ("segment_sum.cu", segment_sum)):
         with open(mod.__file__) as f:
             assert f'"csrc/{fn}"' in f.read(), fn
         with open(os.path.join(csrc, fn)) as f:
@@ -172,8 +174,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def test_unported_features_raise():
     """What the port does not run raises, naming it: a minecraft_map
-    primitive (the JAX package refuses it too) and an integrator neither
-    package knows, at flatten time and in render_pass."""
+    primitive (the JAX package refuses it too), an integrator neither
+    package knows, at flatten time and in render_pass, and a camera type
+    the port does not know (the JAX package renders it as a pinhole; the
+    port refuses it by design)."""
     from tungsten_tpu_torch.render import render_pass
     from tungsten_tpu_torch.scene.flatten import flatten_scene
     desc = _tiny_scene()
@@ -193,6 +197,10 @@ def test_unported_features_raise():
         render_pass(scene, replace(
             settings, integrator_type="vertex_connection_merging"),
             0, 0xBA5EBA11)
+    desc = _tiny_scene()
+    desc.camera = {"type": "orthographic", "resolution": [8, 8]}
+    with pytest.raises(NotImplementedError, match="orthographic"):
+        flatten_scene(desc, device="cpu")
 
 
 @pytest.mark.parametrize("kernel", ["closest", "anyhit", "paged_walk",

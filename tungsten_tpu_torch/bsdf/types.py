@@ -166,15 +166,11 @@ def parse_bsdf_row(b: dict, textures, fiber_tables: list | None = None
     out exactly as the JAX package lays out the row.  `textures` is a
     TextureTableBuilder; texture-valued fields register there.
     `fiber_tables` collects the precomputed hair azimuthal tables (one
-    dict per hair BSDF); aux[CHILD0] holds the table index."""
-    name = b.get("type", "lambert")
-    t = NAME_TO_TYPE.get(name, ERROR)
-    if t not in PORTED_TYPES:
-        ported = ", ".join(n for n, v in NAME_TO_TYPE.items()
-                           if v in PORTED_TYPES)
-        raise NotImplementedError(
-            f"tungsten_tpu_torch: bsdf type {name!r} is not ported yet "
-            f"(ported: {ported})")
+    dict per hair BSDF); aux[CHILD0] holds the table index.  A type name
+    neither package knows flattens to ERROR with the default fields."""
+    # an unknown name is ERROR, which evaluates to zero (a black
+    # surface that ends the path), as in the JAX package
+    t = NAME_TO_TYPE.get(b.get("type", "lambert"), ERROR)
     params = np.zeros(NUM_PARAMS, np.float32)
     aux = np.full(NUM_AUX, -1, np.int32)
     aux[AUX.DISTRIBUTION] = DIST_NAMES.get(b.get("distribution", "ggx"),

@@ -454,6 +454,7 @@ __device__ __forceinline__ bool finish_cta(long long ray, long long R,
                                            int b, int splits,
                                            SplitState &st) {
     const int tid = threadIdx.x;
+    // integer counts: exact in whatever order the CTAs' atomics land
     if (st.needed[tid]) atomicAdd(tests_out + ray, st.needed[tid]);
     if (st.ran[tid]) atomicAdd(tests_out + R + ray, st.ran[tid]);
     __threadfence();

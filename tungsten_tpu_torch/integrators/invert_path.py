@@ -20,6 +20,7 @@ import torch
 
 from tungsten_tpu_torch.integrators.lights import _choose_light_weights
 from tungsten_tpu_torch.media.transmittance import T_EXPONENTIAL
+from tungsten_tpu_torch.ops.segment_sum import ordered_cumsum
 
 
 def invert_camera_direction(scene, settings, d_world):
@@ -92,7 +93,7 @@ def invert_choose_light(scene, settings, p, li, mu):
     if nl <= 1:
         return mu, torch.ones((R,), dtype=torch.bool, device=p.device)
     w, total = _choose_light_weights(scene, settings, p)
-    cdf = torch.cumsum(w, dim=-1)
+    cdf = ordered_cumsum(w, dim=-1)
     li_c = torch.clamp(li, 0, nl - 1).long()
     lo = torch.where(li_c > 0, torch.gather(
         cdf, -1, torch.clamp(li_c - 1, min=0)[..., None])[..., 0], 0.0)

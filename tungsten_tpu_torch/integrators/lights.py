@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from tungsten_tpu_torch.ops.segment_sum import ordered_cumsum
 from tungsten_tpu_torch.scene.flatten import (
     LIGHT_AREA, LIGHT_CYLINDER, LIGHT_DISK, LIGHT_POINT, LIGHT_SPHERE)
 from tungsten_tpu_torch.scene.textures import sample_bitmap_quad
@@ -163,7 +164,7 @@ def choose_light(scene, settings, p, u_sel):
         return (torch.zeros((R,), dtype=torch.int32, device=p.device),
                 torch.ones((R,), dtype=torch.float32, device=p.device))
     w, total = _choose_light_weights(scene, settings, p)
-    cdf = torch.cumsum(w, dim=-1)
+    cdf = ordered_cumsum(w, dim=-1)
     x = u_sel * total
     li = torch.clamp(torch.sum((cdf <= x[..., None]).to(torch.int32), dim=-1),
                      max=nl - 1)

@@ -35,10 +35,11 @@ image = b * n_pixels / S * splats.
 Port notes: the tape travels as an rng.Tape, never a module global, and
 each lane reads its own chain's row (the path tracer carries the row
 through its sort and compactions); the JAX package's lax.scan over steps
-is a Python loop, its jit is dropped, and the splat is index_add_ on
-clamped pixels.  The helper randomness (mutations, acceptance, strategy,
-bounce pick) is pcg4d keyed on (seed ^ 0x9E3779B9, chain row, step, dim),
-bit for bit the JAX package's.
+is a Python loop, its jit is dropped, and the splat adds on clamped
+pixels in chain order (ops/segment_sum.py::ordered_index_add).  The
+helper randomness (mutations, acceptance, strategy, bounce pick) is
+pcg4d keyed on (seed ^ 0x9E3779B9, chain row, step, dim), bit for bit
+the JAX package's.
 """
 from __future__ import annotations
 
@@ -50,6 +51,8 @@ import torch
 from tungsten_tpu_torch.integrators.path_tracer import (staged_schedule,
                                                         trace_wave,
                                                         trace_wave_rj)
+from tungsten_tpu_torch.ops.segment_sum import (ordered_cumsum,
+                                               ordered_index_add)
 from tungsten_tpu_torch.utils import rng
 
 LUM = (0.2126, 0.7152, 0.0722)
@@ -247,10 +250,18 @@ def _acceptance(lum, prop_lum, pw=None):
     return a, w_cur, w_prop
 
 
-def _splat(fb, pixel, rad, wgt):
+def _splat(fb, pixel, rad, wgt, own=None):
+    """fb[pixel] += rad * wgt in chain order.  With `own` (each row's
+    chain pixel), an empty splat (+0.0: every invalid connection names
+    pixel 0) is added at its chain's pixel instead, which changes no sum
+    and keeps any one pixel's ordered sum from walking all of them."""
     n = fb.shape[0]
-    fb.index_add_(0, torch.clamp(pixel, 0, n - 1).long(),
-                  rad * wgt[..., None])
+    v = rad * wgt[..., None]
+    idx = torch.clamp(pixel, 0, n - 1)
+    if own is not None:
+        idx = torch.where((v.view(torch.int32) == 0).all(-1),
+                          torch.clamp(own, 0, n - 1), idx)
+    ordered_index_add(fb, idx.long(), v)
 
 
 def _mlt_batch(scene, settings, seed, batch, R: int, n_steps: int,
@@ -326,7 +337,8 @@ def _mlt_batch_bdpt(scene, settings, seed, batch, R: int, n_steps: int,
         _splat(fb, pixel, rad, wgt)
         if spix.shape[1]:
             _splat(fb, spix.reshape(-1), sval.reshape(-1, 3),
-                   wgt[:, None].expand(spix.shape).reshape(-1))
+                   wgt[:, None].expand(spix.shape).reshape(-1),
+                   own=pixel[:, None].expand(spix.shape).reshape(-1))
 
     for i in range(n_steps):
         (u_large, u_acc), u_mut = _helper_draws(seed, rows, i, D, 2)
@@ -371,7 +383,7 @@ def _bootstrap_batch_bdpt(scene, settings, seed, batch, R: int, D: int,
 def _resample(lum, seed_word: int, batch: int, R: int):
     """R chain seeds drawn from a bootstrap pool by luminance: the cdf's
     left-side search, as jnp.searchsorted."""
-    cdf = torch.cumsum(lum, dim=0)
+    cdf = ordered_cumsum(lum, dim=0)
     cdf = cdf / cdf[-1]
     u = rng.random_1d(seed_word, torch.arange(R, dtype=torch.int64,
                                               device=lum.device), batch, 0)

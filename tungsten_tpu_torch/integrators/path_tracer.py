@@ -70,6 +70,7 @@ from tungsten_tpu_torch.media import grid as GR
 from tungsten_tpu_torch.media import phase as PH
 from tungsten_tpu_torch.media import transmittance as TR
 from tungsten_tpu_torch.ops.intersect import bvh_intersect, ray_sort_key
+from tungsten_tpu_torch.ops.segment_sum import index_sums
 from tungsten_tpu_torch.scene.flatten import (
     CURVE_MODE_BCSDF_CYLINDER, CURVE_MODE_RIBBON, LIGHT_AREA, LIGHT_CAP,
     LIGHT_CYLINDER, LIGHT_DISK, LIGHT_INFINITE, LIGHT_POINT, LIGHT_SPHERE)
@@ -1270,13 +1271,18 @@ def bank(state, n_total, key="pixel"):
     """Scatter every ray's accumulators into (n_total, C) buffers by
     state[key] (rays with key >= n_total are dropped).  By pixel (the
     framebuffer) non-finite radiance is dropped too; by lane it is kept,
-    so each sample comes back as traced.  index_add_ uses atomics on
-    CUDA, so the summation order of rays that share a pixel varies from
-    run to run there."""
+    so each sample comes back as traced.  The sums add in a fixed order
+    (ops/segment_sum.py): a pixel's samples in ascending sample order,
+    the order the CPU's state holds them in (the card's body sort moves
+    rays, so its rows are sorted by (pixel, sample) first); lanes are
+    unique, so each lane's bank is its one row."""
     idx = state[key]
     keep = (idx < n_total)[..., None]
-    idx = torch.clamp(idx, 0, n_total - 1).long()
-    out = {}
+    # a dropped ray adds +0.0, which changes no sum wherever it lands: it
+    # banks at key % n_total, so that a padded chunk's dropped rays spread
+    # over the frame and no pixel's ordered sum walks them all
+    idx = torch.where(keep[..., 0], idx, idx % n_total).long()
+    vals = {}
     for k in ACCUMULATORS:
         if k not in state:
             continue
@@ -1285,10 +1291,11 @@ def bank(state, n_total, key="pixel"):
             v = v.to(torch.float32)[..., None]
         if k == "emission" and key == "pixel":
             v = torch.where(torch.isfinite(v), v, 0.0)
-        v = torch.where(keep, v, 0.0)
-        out[k] = torch.zeros((n_total, v.shape[1]), dtype=torch.float32,
-                             device=v.device).index_add_(0, idx, v)
-    return out
+        vals[k] = torch.where(keep, v, 0.0)
+    if key == "lane":
+        return index_sums(idx, vals, n_total, grouped=True)
+    return index_sums(idx, vals, n_total,
+                      key=(idx << 31) | state["sample"].long())
 
 
 def pack_rows(state):

@@ -69,6 +69,7 @@ from tungsten_tpu_torch.media import grid as GR
 from tungsten_tpu_torch.media import phase as PH
 from tungsten_tpu_torch.media import transmittance as TR
 from tungsten_tpu_torch.ops.intersect import bvh_intersect, occluded
+from tungsten_tpu_torch.ops.segment_sum import ordered_index_add
 from tungsten_tpu_torch.utils import rng
 from tungsten_tpu_torch.utils import vecmath as vm
 
@@ -589,8 +590,10 @@ def _gather_volume(scene, settings, vgrid, vradius, p, wo, ptype, pg):
         qg = q + r0
         d2 = _dist2(vgrid["pos"][ix], p[qg])
         ph = PH.phase_eval(ptype[qg], pg[qg], vgrid["dir"][ix], wo[qg])
-        acc.index_add_(0, qg, torch.where(
-            (d2 <= vr2)[..., None], vgrid["power"][ix] * ph[..., None], 0.0))
+        # the pairs come grouped by query row, in candidate order
+        ordered_index_add(acc, qg, torch.where(
+            (d2 <= vr2)[..., None], vgrid["power"][ix] * ph[..., None], 0.0),
+            grouped=True)
     return acc
 
 
@@ -737,7 +740,8 @@ def _beam_eval(scene, settings, bgrid, radius, o, d, t1):
         inv_sin = torch.rsqrt(torch.clamp(sin2, min=1e-9))
         w = (bp * sigma_s[ray] * ph[..., None] * tr
              * (inv_sin / two_r)[..., None])
-        acc.index_add_(0, qg, torch.where(okb[..., None], w, 0.0))
+        ordered_index_add(acc, qg, torch.where(okb[..., None], w, 0.0),
+                          grouped=True)
     return acc.reshape(R, M, 3).sum(dim=1)
 
 
@@ -848,7 +852,7 @@ def _plane_eval(scene, settings, pgrid, o, d, t1):
         w = (sigma_t[ray] ** 2 * torch.abs(inv_det)[..., None]
              * ph[..., None] * tr * ppow)
         w = torch.where(okb[..., None], w, 0.0)
-        acc.index_add_(0, qg, w)
+        ordered_index_add(acc, qg, w, grouped=True)
         lum = torch.sum(w, dim=-1)
         n = r1 - r0
         mx = torch.zeros((n,), dtype=torch.float32, device=dev).scatter_reduce(
@@ -871,6 +875,8 @@ def _plane_eval(scene, settings, pgrid, o, d, t1):
     if sh.shape[0] > 0:
         occ = occluded(scene, best_x[sh], -best_d1[sh], EPSILON,
                        best_len[sh] * (1.0 - 1e-3))
+        # sh comes from nonzero: unique rows, one add each, so the order
+        # of index_add_'s atomics cannot change the sum
         acc.index_add_(0, sh, torch.where(occ[..., None], -best_w[sh], 0.0))
     return acc.reshape(R, M, 3).sum(dim=1)
 
@@ -1052,6 +1058,8 @@ def gather_walk(scene, settings, walk, lanes, grid, radius, seed,
                                (tan, bit, ns), w["g_wi"][sel],
                                w["g_bsdf"][sel], w["g_uv"][sel],
                                w["g_bounce"][sel])
+        # sel comes from nonzero: unique lanes, one add each, so the
+        # order of index_add's atomics cannot change the sum
         result = result.index_add(0, sel, w["g_thr"][sel] * est)
     if vgrid is not None and settings.has_media:
         result = result + _volume_march(scene, settings, vgrid, vradius,

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from tungsten_tpu_torch.ops.segment_sum import ordered_cumsum
 from tungsten_tpu_torch.utils import rng
 from tungsten_tpu_torch.utils.vecmath import clip
 
@@ -460,7 +461,7 @@ def _march_inverse(scene, settings, g, o, d, t_max, tau_c):
     VdbGrid::inverseOpticalDepth).  Returns (t, rho, tau_total)."""
     t0, dt, rho = _march_rho(scene, settings, g, o, d, t_max)
     step = rho * dt[:, None]
-    cum = torch.cumsum(step, dim=1)
+    cum = ordered_cumsum(step, dim=1)
     reach = cum >= tau_c[:, None]
     found = reach.any(dim=1)
     i = torch.argmax(reach.to(torch.int32), dim=1)

@@ -667,12 +667,14 @@ def list_walk(f, sent, sids, cbox, attr, any_hit: bool):
             c_hit.scatter_reduce_(0, ray, torch.where(has, c_i, SUP),
                                   "amin")
             cf = c_hit[ray]
+            # integer counts: exact in any order of index_add_'s atomics
             needed.index_add_(0, ray, torch.where(
                 c_i < cf, n_real[pc],
                 torch.where(c_i == cf, first.to(torch.int32) + 1, 0)))
             stop = has & (c_i == cf)
             tri[ray[stop]] = (pc[stop] * CLUSTER).to(torch.int32)
             continue
+        # integer counts: exact in any order of index_add_'s atomics
         needed.index_add_(0, ray, n_real[pc])
         tc = tn / torch.clamp(ad, min=1e-30)
         cand = inside & (tc < tmax_p)

@@ -13,8 +13,9 @@ WAVE_RAYS = 4 * WAVEFRONT_CHUNK rays): 256x256 at 16 spp is one wave of
 (path_tracer.staged_schedule).  The adaptive and output-buffer renders
 batch their samples the same way, where the JAX package traces one wave
 per spp: rays are independent, so
-only the order of the sums changes (and index_add_ on CUDA sums with
-atomics in a varying order anyway).  They take the same staged schedule
+only the order of the sums changes.  Every float sum by pixel, tile
+or lane adds in a fixed order (ops/segment_sum.py), so a render on the
+card repeats bit for bit.  They take the same staged schedule
 too, banking each sample by its lane instead of its pixel.  The
 splatting integrators batch their samples into waves of up to WAVE_RAYS
 lanes the same way, where the JAX package traces one chunk per spp.  A photon-map render traces
@@ -37,6 +38,7 @@ from tungsten_tpu_torch.integrators.path_tracer import (staged_schedule,
                                                         trace_wave,
                                                         trace_wave_aovs,
                                                         trace_wave_staged)
+from tungsten_tpu_torch.ops.segment_sum import index_sums, ordered_index_add
 
 WAVEFRONT_CHUNK = 262144
 WAVE_RAYS = 4 * WAVEFRONT_CHUNK
@@ -59,15 +61,19 @@ SPLATTING = ("bidirectional_path_tracer", "light_tracer")
 def _trace_chunk_splat(scene, settings, pixel, sample_idx, seed, n_total):
     """One wave of a splatting integrator (bidirectional_path_tracer,
     light_tracer): each lane's own radiance banked by its pixel, plus
-    every lens connection's splat, scatter-added into the frame (the
-    reference's AtomicFramebuffer, AtomicFramebuffer.hpp:26-89).
+    every lens connection's splat, added into the frame in a fixed order
+    (the reference's AtomicFramebuffer, AtomicFramebuffer.hpp:26-89).
     Non-finite values are dropped, and padded lanes (pixel >= n_total)
     bank and splat nothing.  Returns ((n_total, 3) sum, rays)."""
     from tungsten_tpu_torch.integrators.bdpt import trace_bdpt, trace_light
     kw = dict(max_vertices=settings.bdpt_vertices,
               max_edges=settings.max_bounces)
     keep = pixel < n_total
-    pix = torch.clamp(pixel, 0, n_total - 1).long()
+    # what a dropped lane or an empty splat adds is +0.0, which changes no
+    # sum wherever it lands: it is added at its lane's pixel (a padded
+    # lane's spread over the frame), so that no pixel's ordered sum walks
+    # all of them (the integrators name pixel 0 for every invalid splat)
+    pix = torch.where(keep, pixel, pixel % n_total).long()
     fb = torch.zeros((n_total, 3), dtype=torch.float32, device=pixel.device)
     if settings.integrator_type == "light_tracer":
         spix, sval, rays = trace_light(scene, settings, pixel, sample_idx,
@@ -76,12 +82,15 @@ def _trace_chunk_splat(scene, settings, pixel, sample_idx, seed, n_total):
         rad, spix, sval, rays = trace_bdpt(scene, settings, pixel,
                                            sample_idx, seed, **kw)
         rad = torch.where(torch.isfinite(rad), rad, 0.0)
-        fb.index_add_(0, pix, torch.where(keep[..., None], rad, 0.0))
+        ordered_index_add(fb, pix, torch.where(keep[..., None], rad, 0.0))
     if spix.shape[0] > 0:
         sval = torch.where(torch.isfinite(sval), sval, 0.0)
-        valid = keep.repeat(spix.shape[0] // pixel.shape[0])
-        sval = torch.where(valid[..., None], sval, 0.0)
-        fb.index_add_(0, torch.clamp(spix, 0, n_total - 1).long(), sval)
+        n_s = spix.shape[0] // pixel.shape[0]
+        sval = torch.where(keep.repeat(n_s)[..., None], sval, 0.0)
+        empty = (sval.view(torch.int32) == 0).all(-1)
+        ordered_index_add(fb, torch.where(
+            empty, pix.repeat(n_s), torch.clamp(spix, 0, n_total - 1).long()),
+            sval)
     return fb, int(rays)
 
 
@@ -216,7 +225,8 @@ def render_pass(scene, settings, sample_start, seed, spp_chunk: int = 1):
     if settings.integrator_type not in PORTED_INTEGRATORS:
         raise NotImplementedError(
             f"tungsten_tpu_torch: integrator {settings.integrator_type!r} is "
-            f"not ported yet")
+            f"refused: neither this port nor the JAX package implements it "
+            f"(known: {', '.join(PORTED_INTEGRATORS)})")
     if settings.integrator_type in PHOTON_MAPS:
         return _render_pass_photon(scene, settings, sample_start, seed,
                                    spp_chunk)
@@ -288,19 +298,17 @@ def _trace_adaptive_chunk(scene, settings, pixel, sample_idx, seed,
     rad = torch.where(ok[..., None], rad, 0.0)
     pix = torch.clamp(pixel.long(), 0, n_total - 1)
     dev = rad.device
-    fb = torch.zeros((n_total, 3), dtype=torch.float32,
-                     device=dev).index_add_(0, pix, rad)
+    fb = ordered_index_add(torch.zeros((n_total, 3), dtype=torch.float32,
+                                       device=dev), pix, rad)
     lum = rad @ torch.tensor(LUMA, dtype=torch.float32, device=dev)
     px = pix % settings.width
     py = pix // settings.width
     tile = torch.clamp(px // VARIANCE_TILE + (py // VARIANCE_TILE) * vt_w,
                        0, n_tiles - 1)
-
-    def per_tile(v):   # float64, as the JAX package's host sums
-        return torch.zeros((n_tiles,), dtype=torch.float64,
-                           device=dev).index_add_(0, tile, v.double())
-    return (fb, per_tile(lum), per_tile(lum * lum),
-            per_tile(ok.to(torch.float32)), nrays)
+    # float64, as the JAX package's host sums
+    t = index_sums(tile, {"sum": lum, "sumsq": lum * lum,
+                          "n": ok.to(torch.float32)}, n_tiles, torch.float64)
+    return fb, t["sum"], t["sumsq"], t["n"], nrays
 
 
 def adaptive_state_buffers(state: dict) -> dict:
@@ -530,28 +538,23 @@ def _trace_chunk_aov(scene, settings, pixel, sample_idx, seed,
     rad = torch.where(ok[..., None], rad, 0.0)
     pix = torch.clamp(pixel.long(), 0, n_total - 1)
     parity = ((sample_idx % 2) == 1)[..., None]
-    dev = rad.device
-
-    def acc(v):
-        # float64 sums (the JAX package sums its one-spp waves in float64
-        # on the host), so a batched wave and a resumed one agree
-        shape = (n_total,) + tuple(v.shape[1:])
-        return torch.zeros(shape, dtype=torch.float64,
-                           device=dev).index_add_(0, pix, v.double())
-    out = {
-        "color_sum": acc(rad),
-        "color_sumsq": acc(rad * rad),
-        "color_a": acc(torch.where(parity, 0.0, rad)),
-        "color_b": acc(torch.where(parity, rad, 0.0)),
-        "color_n": acc(ok.to(torch.float32)),
+    vals = {
+        "color_sum": rad,
+        "color_sumsq": rad * rad,
+        "color_a": torch.where(parity, 0.0, rad),
+        "color_b": torch.where(parity, rad, 0.0),
+        "color_n": ok.to(torch.float32),
     }
     for k, v in aovs.items():
         v = torch.where(ok[..., None], v, 0.0)
         val, cnt = v[..., :-1], v[..., -1]
-        out[k + "_sum"] = acc(val)
+        vals[k + "_sum"] = val
         # count is 0/1 per sample so val*val == raw^2 * count
-        out[k + "_sumsq"] = acc(val * val)
-        out[k + "_n"] = acc(cnt)
+        vals[k + "_sumsq"] = val * val
+        vals[k + "_n"] = cnt
+    # float64 sums (the JAX package sums its one-spp waves in float64 on
+    # the host), so a batched wave and a resumed one agree
+    out = index_sums(pix, vals, n_total, torch.float64)
     return out, rays
 
 

@@ -12,19 +12,22 @@ primitives, the analytic disk, sphere and cylinder, infinite_sphere
 (env map), infinite_sphere_cap, point and skydome (a Hosek-Wilkie sky
 baked to an env map, scene/sky.py) emitters, the BSDFs of
 bsdf/types.py::PORTED_TYPES (nested children are table rows of their
-own, so present_bsdf_types lists them), every light those make,
+own, so present_bsdf_types lists them; an unknown BSDF name is the
+ERROR row, black, as in the JAX package), every light those make,
 homogeneous, exponential, atmosphere and voxel media (dense `.npy`,
 inline data or `.vdb` grids) bound to primitives and the camera, the
 pinhole, thinlens (disk or bitmap aperture, cat eye, focus pivot),
 equirectangular and cubemap cameras, `curves` in all four modes (split
 into linear pieces under a piece BVH) with the hair azimuthal tables of
-the fiber BCSDFs, `instances` (expanded into their masters), the
-path_tracer integrator.  Anything else (minecraft maps, which the JAX
-package refuses too, the other integrators) raises NotImplementedError
-naming it.  The numbers are the JAX package's: the same host numpy code
-builds every table, so every field is equal to the JAX build (bf16
-fields included).  Beside the JAX-named curve tables the port keeps the
-curve walk's packed rows (`crv_rows`, `cwbvh_rows`, pack_curve_rows).
+the fiber BCSDFs, `instances` (expanded into their masters), and every
+integrator of the JAX package.  Anything else (minecraft maps, which the
+JAX package refuses too, an integrator neither package has, a camera
+type the JAX package would silently render as a pinhole) raises
+NotImplementedError naming it and why.  The numbers are the JAX
+package's: the same host numpy code builds every table, so every field
+is equal to the JAX build (bf16 fields included).  Beside the JAX-named
+curve tables the port keeps the curve walk's packed rows (`crv_rows`,
+`cwbvh_rows`, pack_curve_rows).
 """
 from __future__ import annotations
 
@@ -1057,9 +1060,9 @@ def flat_scene_from_numpy(flds: dict, device=None) -> FlatScene:
     return FlatScene(**out)
 
 
-def _unsupported(what: str):
-    return NotImplementedError(f"tungsten_tpu_torch: {what} is not ported "
-                               f"yet")
+def _unsupported(what: str, why: str):
+    return NotImplementedError(f"tungsten_tpu_torch: {what} is refused: "
+                               f"{why}")
 
 
 def _expand_instances(primitives: list) -> list:
@@ -1106,10 +1109,16 @@ def flatten_scene(desc: SceneDesc, device=None
     media_host, media_kw = _flatten_media(desc)
     integ = desc.integrator
     if integ.get("type", "path_tracer") not in PORTED_INTEGRATORS:
-        raise _unsupported(f"integrator {integ.get('type')!r}")
+        raise _unsupported(f"integrator {integ.get('type')!r}",
+                           f"neither this port nor the JAX package "
+                           f"implements it (known: "
+                           f"{', '.join(PORTED_INTEGRATORS)})")
     cam = desc.camera
     if cam.get("type", "pinhole") not in PORTED_CAMERAS:
-        raise _unsupported(f"camera {cam.get('type')!r}")
+        raise _unsupported(f"camera {cam.get('type')!r}",
+                           f"the JAX package would render it as a pinhole, "
+                           f"a wrong image given without a word (known: "
+                           f"{', '.join(PORTED_CAMERAS)})")
 
     fiber_tables: list = []
     bsdf_rows = [bsdf_types.parse_bsdf_row(b, textures, fiber_tables)
@@ -1136,7 +1145,9 @@ def flatten_scene(desc: SceneDesc, device=None
     for prim in _expand_instances(desc.primitives):
         ptype = prim.get("type", "mesh")
         if ptype not in PORTED_PRIMITIVES:
-            raise _unsupported(f"primitive type {ptype!r}")
+            raise _unsupported(f"primitive type {ptype!r}",
+                               f"the JAX package refuses it too (known: "
+                               f"{', '.join(PORTED_PRIMITIVES)})")
         m = xform.parse_transform(prim.get("transform"))
         prim_id += 1
         bidx = prim.get("bsdf_index")

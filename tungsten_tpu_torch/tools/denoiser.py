@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tungsten_tpu_torch.ops.segment_sum import ordered_cumsum
+
 EPS = 1e-7
 DIST_CLAMP = 1e4
 
@@ -39,7 +41,7 @@ def _box_filter(img, radius: int):
         n = img.shape[axis]
         idx = torch.clamp(torch.arange(-radius, n + radius, device=img.device),
                           0, n - 1)
-        c = torch.cumsum(img.index_select(axis, idx), dim=axis)
+        c = ordered_cumsum(img.index_select(axis, idx), dim=axis)
         c = torch.cat([torch.zeros_like(c.narrow(axis, 0, 1)), c], dim=axis)
         img = (c.narrow(axis, k, n) - c.narrow(axis, 0, n)) / k
     return img

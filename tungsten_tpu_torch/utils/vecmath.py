@@ -131,14 +131,48 @@ def clip(x, lo=None, hi=None):
     return x
 
 
+# rows a run of take's backward sums before the runs are added
+# (ops/segment_sum.py::ordered_index_add's `block`)
+TAKE_BLOCK = 1024
+
+
+class _Take(torch.autograd.Function):
+    """F.embedding's gather with a backward that sums each table row's
+    cotangents in a fixed order (ops/segment_sum.py: a stable sort of
+    the lanes by row, then runs of TAKE_BLOCK lanes summed in order, then
+    the runs), where F.embedding's CUDA backward accumulates with
+    atomics (compute_grad_weight_atomic_accumulate) and so changes the
+    replay's gradients in their last bits from run to run."""
+
+    @staticmethod
+    def forward(ctx, table2d, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table2d.shape[0]
+        return torch.nn.functional.embedding(idx, table2d)
+
+    @staticmethod
+    def backward(ctx, g):
+        from tungsten_tpu_torch.ops.segment_sum import ordered_index_add
+        idx, = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1])
+        grad = torch.zeros((ctx.rows, g.shape[-1]), dtype=g.dtype,
+                           device=g.device)
+        return ordered_index_add(grad, idx.reshape(-1).to(torch.int32), g,
+                                 block=TAKE_BLOCK), None
+
+
 def take(table, idx):
     """table[idx] along dim 0, through F.embedding: its forward is the
-    same one gather, and where the table carries a graph (a parameter
-    the replay differentiates) its backward sums each row's cotangents
-    with a sort and a segmented reduction; advanced indexing's backward
-    on CUDA (indexing_backward_kernel_small_stride) walks each row's
-    duplicates one after another, which a wave of a million lanes
+    same one gather.  Where the table carries a graph (a parameter the
+    replay differentiates) on the card, the backward is _Take's, a sort
+    and ordered sums (F.embedding's own adds with atomics); on the CPU it
+    is F.embedding's, which adds in lane order.  Advanced indexing's
+    backward on CUDA (indexing_backward_kernel_small_stride) walks each
+    row's duplicates one after another, which a wave of a million lanes
     gathering from a table of a few rows turns into a serial chain."""
-    rows = torch.nn.functional.embedding(
-        idx, table.reshape(table.shape[0], -1))
+    t2 = table.reshape(table.shape[0], -1)
+    if t2.requires_grad and t2.is_cuda and torch.is_grad_enabled():
+        rows = _Take.apply(t2, idx)
+    else:
+        rows = torch.nn.functional.embedding(idx, t2)
     return rows.reshape(idx.shape + table.shape[1:])
