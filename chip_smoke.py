@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch / CUDA port (tungsten_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 2c   # phases 1, 2 (S1 alone) and 2c
 
 Phases (any failure exits non-zero):
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
@@ -29,12 +30,18 @@ Phases (any failure exits non-zero):
      the bank's shape (1,048,576 f32 rows x 3, 16 a pixel, shuffled and
      keyed by (pixel, sample)), f64 tile sums on unsorted ids, sorted ids
      with most outputs empty and one 200,000-row segment (f32 and f64),
-     unique unsorted lanes; at the bank's and the tiles' shapes S1 alone,
-     with its sort, index_add_ on the same card tensors (the library
-     column) and the plain version's CPU time; the scan entry
+     unique unsorted lanes; each case S1 alone, with its sort,
+     index_add_ on the same card tensors (the library column), its bytes
+     bound and the plain version's CPU time; the scan entry
      (ordered_cumsum) bitwise torch.cumsum on the CPU at choose_light's,
-     the MLT pool's and a raymarch's shapes, f32 and f64, its backward
-     too, timed against torch.cumsum on the card;
+     the MLT pool's and a raymarch's shapes, f32 and f64, and at
+     choose_light's past 256 lights (1,048,576 rows of 300, f32), left
+     to right and right to left, its backward too, timed against
+     torch.cumsum on the card and its bytes bound, the MLT pool's shape
+     on a narrow-span input (the long path's exact parallel scan) and a
+     wide-span one (its refold in order), the path each chunk took
+     counted.  Every time is device ms a call (device_ms: 20 calls
+     queued behind a spin kernel between two CUDA events, median of 5);
   3. scene: a deterministic lambert + mirror scene written with the
      port's IO (24 UV spheres of 64x32 segments, ~95k triangles, a
      lambert floor, one emissive quad, a procedural 512x256 sky), loaded
@@ -266,7 +273,12 @@ Phases (any failure exits non-zero):
      (within 2 %); (f) cli.render_scene of the smoke scene under
      kelemen_mlt at 64x64, 4 spp (a 4,096-sample pool) with the output
      buffers (every file loaded), and one server /render of it; each
-     part's seconds printed;
+     part's seconds printed; (g) every ordered scan of (a)-(f) counted
+     (ScanCensus): its rows, length and path, and the long path's chunks
+     taken exact and refolded;
+  18b. denoiser: tools/denoiser.py::nfor_denoise on the card on the
+     smoke scene's two-buffer outputs (256x256, 16 spp), the result
+     finite and non-negative, its box filters' scans counted as in 18(g);
   19. OBJ meshes: (a) the smoke scene written again with its 24
      spheres as OBJ files in exporter style (each triangle's corners as
      v / vt / vn lines just before `f -3/-3/-3 -2/-2/-2 -1/-1/-1`, every
@@ -294,15 +306,17 @@ Phases (any failure exits non-zero):
      counts: the two frames bitwise equal, finite, the mean within 2 % of
      phase 5's frame's over the rows of phase 5's view that it sees (the
      pinhole's field of view spans the frame's width), rays, Mrays/s and
-     peak device memory; then S1 timed at the largest photon-gather
-     launch of phase 17's fog points render (its rows, columns and
-     outputs, seeded sorted ids);
-  22. the kernels JSON line (eleven rows: K1, K2, K3 closest and any hit,
-     the five leaf rows, C1 and S1; K1's and K2's with their launches in
-     the replay's forward and backward, in the BDPT and light-tracer
-     renders, in the photon-map renders, in the MLT renders and in the
-     OBJ scene's render; S1's with its launches in phase 5's render, its
-     device ms there and the added cost), then the result line.  A
+     peak device memory; then S1 on the largest photon-gather launch of
+     phase 17's fog points render, captured (its ids and values), and at
+     its shape on seeded uniform ids: bitwise the plain version, timed
+     against index_add_;
+  22. the kernels JSON line (twelve rows: K1, K2, K3 closest and any
+     hit, the five leaf rows, C1, S1's segment sum and its scan; K1's
+     and K2's with their launches in the replay's forward and backward,
+     in the BDPT and light-tracer renders, in the photon-map renders, in
+     the MLT renders and in the OBJ scene's render; S1's with its
+     launches in phase 5's render, its device ms there and the added
+     cost), then the result line.  A
      bitwise check that failed is reported when it happens and fails the
      run here, after every phase has printed.
 """
@@ -865,6 +879,35 @@ def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
     """Median milliseconds of fn() over `runs` runs after one warm-up."""
     fn()
     return statistics.median(event_ms(fn) for _ in range(runs))
+
+
+# a spin kernel's cycles (about 11 ms at the H100's 1.755 GHz boost) that
+# hides the host's enqueue of QUEUED_CALLS calls from device_ms
+SPIN_CYCLES = 20_000_000
+QUEUED_CALLS = 20
+
+
+def device_ms(fn, runs: int = TIMED_RUNS) -> float:
+    """Median device milliseconds of one fn() call: QUEUED_CALLS calls
+    enqueued behind a spin kernel, so they run back to back whatever the
+    host's enqueue costs, between two events, over `runs` runs after one
+    warm-up.  cuda_ms times one call between two events, which for a
+    call of tens of microseconds also holds the host's enqueue time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    res = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        for _ in range(QUEUED_CALLS):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        res.append(a.elapsed_time(b) / QUEUED_CALLS)
+    return statistics.median(res)
 
 
 # ------------------------------------------------------------ kernel checks
@@ -1833,7 +1876,7 @@ def profile_render(render_once, summary: dict | None = None,
                        s1_launches=sum(v[1] for k, v in by_name.items()
                                        if "segment_sum_kernel" in k),
                        scan_ms=sum(v[0] for k, v in by_name.items()
-                                   if "ordered_scan_kernel" in k) / 1e3)
+                                   if "ordered_scan" in k) / 1e3)
     log(f"profile: wall {wall_us / 1e3:.1f} ms under the profiler, device "
         f"busy {busy / 1e3:.1f} ms ({busy / wall_us * 100:.1f} %, idle "
         f"{100 - busy / wall_us * 100:.1f} %), {launches} kernel launches; "
@@ -2857,7 +2900,8 @@ def photon_render(scene, settings, card, twt, spp: int, tag: str) -> dict:
         if total else None
     summ["gather_share"] = gather
     log(f"  {tag}: {summ.get('launches')} kernel launches a render, device "
-        f"idle {summ.get('idle')}; device ms by stage "
+        f"idle {summ.get('idle')}; S1 {summ.get('s1_launches')} launches, "
+        f"{summ.get('s1_ms')} ms device time; device ms by stage "
         + (", ".join(f"{k} {v:.1f}" for k, v in stages.items())
            if stages else "not measured (markers did not pair)")
         + (f"; grid + gather {gather * 100:.1f} % of kernel time"
@@ -3042,6 +3086,12 @@ def check_photon(path, card, twt) -> dict:
         c = photon_render(fscene, replace(fsettings, vol_photon_type=kind),
                           card, twt, PHOTON_VOL_SPP, f"fog {kind}")
         c["s1_log"], tss.LAUNCH_LOG = tss.LAUNCH_LOG, None
+        if kind == "points":   # one more render, its largest gather kept
+            with LargestGather(tss) as cap:
+                render(fscene, replace(fsettings, vol_photon_type=kind),
+                       spp=PHOTON_VOL_SPP, seed=SEED,
+                       spp_chunk=PHOTON_VOL_SPP)
+            c["s1_real"] = cap.best
         ran = set(k for k, v in c["launches"].items() if v)
         want = {"closest", "anyhit"} if kind == "planes" else {"closest"}
         if ran != want:
@@ -3608,11 +3658,19 @@ S1_TILES = (RES // 4) ** 2
 # the scans' shapes: choose_light's (lanes, lights) rows, the MLT pool's
 # CDF over its 10,000 entries, a raymarch's (lanes, 96 steps) rows
 S1_SCANS = (((1 << 20, 4), -1), ((10000,), 0), ((65536, 96), 1))
+# choose_light's rows past 256 lights (f32): many rows longer than the
+# rows path's 256, which the rows path still takes
+S1_LONG_ROWS = (1 << 20, 300)
 S1_TOL = ("vs the plain version (index_add_ of the rows in S1's order, "
           "on the CPU) on the same inputs: bitwise equal, f32 and f64, "
           "sorted, unsorted, keyed, grouped and unique ids, empty and "
-          "long segments; the scan entry vs torch.cumsum on the CPU "
-          "bitwise (and its backward vs the CPU's); max_abs_err 0")
+          "long segments, the largest real fog-points gather; max_abs_err "
+          "0")
+SCAN_TOL = ("vs torch.cumsum on the CPU (float rows accumulated in double) "
+            "on the same inputs: bitwise equal, f32 and f64, both paths, "
+            "left to right and right to left (the backward vs the CPU's), "
+            "narrow-span inputs on the long path's exact parallel scan and "
+            "wide-span ones on its refold; max_abs_err 0")
 # phase 5: the ordered accumulation may add at most this share of the
 # render's wall (its device time against index_add_ / torch.cumsum on
 # the same inputs)
@@ -3627,12 +3685,12 @@ def s1_bound_ms(P: int, C: int, N: int, item: int, perm: bool) -> float:
             + 2 * N * C * item) / PEAK_BYTES * 1e3
 
 
-def s1_case(tss, name, idx, v, out0, key=None, grouped=False,
-            timed=False) -> dict:
+def s1_case(tss, name, idx, v, out0, key=None, grouped=False) -> dict:
     """ordered_index_add on the card against the plain version on the
-    CPU (the rows in the order S1 adds them), bitwise; with `timed`, S1
-    alone, the wrapper (sort + S1), index_add_ on the same card tensors
-    (the library call) and the plain version on the CPU."""
+    CPU (the rows in the order S1 adds them), bitwise; then S1 alone, the
+    wrapper (sort + S1), index_add_ on the same card tensors (the
+    library call) and the plain version on the CPU, timed, and the bytes
+    bound."""
     import torch
     dev = torch.device("cuda")
     ci, cv, ck = idx.to(dev), v.to(dev), None if key is None else \
@@ -3654,30 +3712,85 @@ def s1_case(tss, name, idx, v, out0, key=None, grouped=False,
     if not equal:
         raise AssertionError(f"S1 {name}: not bitwise the plain version "
                              f"(max |diff| {err:.3e})")
-    if timed:
-        out = out0.clone().to(dev)
-        sseg, sperm = (ci, None) if grouped else tss.sort_rows(ci, ck)
-        r["ms"] = cuda_ms(lambda: tss.segment_sum_kernel(out, sseg, cv,
-                                                         sperm))
-        r["wrapper_ms"] = cuda_ms(lambda: tss.ordered_index_add(
-            out, ci, cv, key=ck, grouped=grouped))
-        r["library_ms"] = cuda_ms(lambda: out.index_add_(0, ci, cv))
-        r["plain_ms"] = plain_ms
-        r["bound_ms"] = s1_bound_ms(r["rows"], r["cols"], r["outputs"],
-                                    v.element_size(), not grouped)
+    out = out0.clone().to(dev)
+    sseg, sperm = (ci, None) if grouped else tss.sort_rows(ci, ck)
+
+    def kernel():
+        tss.segment_sum_kernel(out, sseg, cv, sperm)
+
+    def library():
+        out.index_add_(0, ci, cv)
+
+    r["ms"] = device_ms(kernel)
+    r["wrapper_ms"] = device_ms(lambda: tss.ordered_index_add(
+        out, ci, cv, key=ck, grouped=grouped))
+    r["library_ms"] = device_ms(library)
+    r["plain_ms"] = plain_ms
+    r["bound_ms"] = s1_bound_ms(r["rows"], r["cols"], r["outputs"],
+                                v.element_size(), not grouped)
     log(f"  S1 {name}: {r['rows']} rows x {r['cols']} {r['dtype']} into "
         f"{r['outputs']} outputs ({nonempty} non-empty, the longest "
-        f"{longest} rows): bitwise the plain version" + (
-            f"; S1 {r['ms']:.4f} ms, with the sort {r['wrapper_ms']:.4f} "
-            f"ms, index_add_ {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms (bytes), plain (CPU) "
-            f"{plain_ms:.1f} ms" if timed else ""))
+        f"{longest} rows): bitwise the plain version; device ms a call: S1 "
+        f"{r['ms']:.4f}" + (f", with the sort {r['wrapper_ms']:.4f}"
+                            if not grouped else "") +
+        f", index_add_ {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+        f"(bytes); plain (CPU) {plain_ms:.1f} ms")
+    return r
+
+
+def scan_case(tss, name, x, dim=-1, counted=False) -> dict:
+    """The ordered scan on the card along `dim` of x (CPU), left to right
+    and right to left, against torch.cumsum on the CPU (flip, cumsum,
+    flip for the right to left), bitwise; then both directions,
+    torch.cumsum on the same card tensor and the plain version (CPU)
+    timed, and the bytes bound (x read once, y written once).  With
+    `counted`, the long path's chunks taken exact and refolded."""
+    import torch
+    dev = torch.device("cuda")
+    xl = x.movedim(dim, -1).contiguous()
+    cx = xl.to(dev)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    got = tss.ordered_scan_kernel(cx, counts=counts if counted else None)
+    back = tss.ordered_scan_kernel(cx, reverse=True)
+    t0 = time.perf_counter()
+    want = torch.cumsum(xl, -1)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    equal = (got.cpu().numpy().tobytes() == want.numpy().tobytes() and
+             back.cpu().numpy().tobytes() ==
+             torch.cumsum(xl.flip(-1), -1).flip(-1).numpy().tobytes())
+    if not equal:
+        raise AssertionError(f"S1 scan {name}: not bitwise torch.cumsum on "
+                             f"the CPU")
+
+    def kernel():
+        tss.ordered_scan_kernel(cx)
+
+    def library():
+        torch.cumsum(cx, -1)
+
+    r = dict(shape=list(x.shape), dim=dim, dtype=str(x.dtype).replace(
+        "torch.", ""), path=tss.scan_path(cx), equal=equal,
+        ms=device_ms(kernel),
+        reverse_ms=device_ms(lambda: tss.ordered_scan_kernel(
+            cx, reverse=True)),
+        library_ms=device_ms(library), plain_ms=plain_ms,
+        bound_ms=2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3)
+    if counted:
+        r["chunks_exact"], r["chunks_refolded"] = counts.tolist()
+    log(f"  S1 scan {name}: {tuple(x.shape)} {r['dtype']} along {dim} "
+        f"({r['path']} path" + (
+            f"; chunks exact {r['chunks_exact']}, refolded "
+            f"{r['chunks_refolded']}" if counted else "") +
+        f"): bitwise torch.cumsum on the CPU both ways; device ms a call "
+        f"{r['ms']:.4f}, right to left {r['reverse_ms']:.4f}, torch.cumsum "
+        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} (bytes); plain "
+        f"(CPU) {plain_ms:.2f} ms")
     return r
 
 
 def check_segment_sum(tss) -> dict:
     """Phase 2c: S1 and its scan entry on seeded inputs against their
-    plain versions on the CPU, bitwise, and timed at the bank's shape."""
+    plain versions on the CPU, bitwise, and timed."""
     import numpy as np
     import torch
     g = np.random.default_rng(SEED & 0xFFFF)
@@ -3692,12 +3805,11 @@ def check_segment_sum(tss) -> dict:
         -3, 3, size=(P, 1))).astype(np.float32))
     out["bank"] = s1_case(tss, "bank (pixel, sample keys)", pixel, v,
                           torch.zeros((S1_PIXELS, 3)),
-                          key=(pixel << 31) | sample, timed=True)
+                          key=(pixel << 31) | sample)
     # (2) f64 tile sums on unsorted tile ids
     tile = torch.from_numpy(g.integers(0, S1_TILES, P))
     out["tiles"] = s1_case(tss, "f64 tile sums", tile, v[:, :3].double(),
-                           torch.zeros((S1_TILES, 3), dtype=torch.float64),
-                           timed=True)
+                           torch.zeros((S1_TILES, 3), dtype=torch.float64))
     # (3) sorted ids, most outputs empty, one segment of 200,000 rows,
     # into a non-zero output (the gathers add into a running sum)
     n_out = 100_000
@@ -3714,50 +3826,162 @@ def check_segment_sum(tss) -> dict:
     out["lanes"] = s1_case(tss, "unique unsorted lanes", lanes,
                            torch.cat([v, v, v[:, :1]], 1),
                            torch.zeros((P, 7)), grouped=True)
-    # (5) the scan entry against torch.cumsum on the CPU, and its
-    # backward against the CPU's
-    dev = torch.device("cuda")
+    # (5) the scan entry against torch.cumsum on the CPU, both ways, at
+    # each shape in f32 and f64; the MLT pool's shape on a narrow-span
+    # input (integers / 64: every partial sum exact) and a wide-span one
     scans = []
     for shape, dim in S1_SCANS:
         for dt in (torch.float32, torch.float64):
             x = torch.from_numpy(g.standard_normal(shape) * 1e3).to(dt)
-            got = tss.ordered_cumsum(x.to(dev), dim).cpu()
-            if not torch.equal(got, torch.cumsum(x, dim)):
-                raise AssertionError(f"S1 scan {shape} {dt}: not bitwise "
-                                     f"torch.cumsum on the CPU")
-        cx = x.to(dev).float()
-        scans.append(dict(shape=list(shape), dim=dim,
-                          ms=cuda_ms(lambda: tss.ordered_cumsum(cx, dim)),
-                          library_ms=cuda_ms(lambda: torch.cumsum(cx,
-                                                                  dim))))
+            scans.append(scan_case(tss, f"{tuple(shape)}", x, dim))
+    n = S1_SCANS[1][0][0]
+    for kind, x in (("narrow", g.integers(-1000, 1000, n) / 64),
+                    ("wide", g.standard_normal(n) *
+                     10.0 ** g.uniform(-12, 12, n))):
+        r = scan_case(tss, f"({n},) {kind}-span",
+                      torch.from_numpy(x).float(), counted=True)
+        r["span"] = kind
+        if (r["chunks_exact"] == 0) != (kind == "wide") or (
+                r["chunks_refolded"] == 0) != (kind == "narrow"):
+            raise AssertionError(f"S1 scan {kind}-span: chunks exact / "
+                                 f"refolded {r['chunks_exact']} / "
+                                 f"{r['chunks_refolded']}")
+        scans.append(r)
+    x = torch.from_numpy(g.standard_normal(S1_LONG_ROWS, dtype=np.float32)
+                         * np.float32(1e3))
+    scans.append(scan_case(tss, f"{S1_LONG_ROWS}, rows past 256", x))
+    del x
     x = torch.from_numpy(g.standard_normal((4096, 8))).float()
     xh = x.clone().requires_grad_()
-    xc = x.clone().to(dev).requires_grad_()
+    xc = x.clone().to("cuda").requires_grad_()
     w = torch.from_numpy(g.standard_normal((4096, 8))).float()
-    (tss.ordered_cumsum(xc, -1) * w.to(dev)).sum().backward()
+    (tss.ordered_cumsum(xc, -1) * w.to("cuda")).sum().backward()
     (torch.cumsum(xh, -1) * w).sum().backward()
     if not torch.equal(xc.grad.cpu(), xh.grad):
         raise AssertionError("S1 scan: backward not bitwise the CPU's")
+    log("  S1 scan: the backward (one right-to-left launch) bitwise the "
+        "CPU's")
     out["scans"] = scans
-    log("  S1 scan: " + "; ".join(
-        f"{tuple(s['shape'])} along {s['dim']}: {s['ms']:.4f} ms "
-        f"(torch.cumsum {s['library_ms']:.4f} ms)" for s in scans) +
-        "; f32 and f64 bitwise torch.cumsum on the CPU, the backward too")
     return out
 
 
-def s1_gather_timing(tss, launch) -> dict:
-    """S1 at a photon gather's shape (rows, columns, outputs of the
-    largest grouped launch of phase 17's fog points render) on seeded
-    sorted ids, against the plain version (bitwise) and timed."""
+class LargestGather:
+    """While active, keeps the inputs of the largest grouped S1 launch
+    (rows x columns): its ids, values and output as the launch found
+    them, on the CPU, and counts the grouped launches."""
+
+    def __init__(self, tss):
+        self.tss, self.best, self.launches = tss, None, 0
+
+    def __enter__(self):
+        self.kernel = self.tss.segment_sum_kernel
+
+        def keep(out, seg, v, perm=None):
+            if perm is None:
+                self.launches += 1
+                size = v.shape[0] * v[0].numel()
+                if self.best is None or size > self.best["size"]:
+                    self.best = dict(size=size, seg=seg.cpu(), v=v.cpu(),
+                                     out=out.cpu())
+            return self.kernel(out, seg, v, perm)
+
+        self.tss.segment_sum_kernel = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.tss.segment_sum_kernel = self.kernel
+
+
+class ScanCensus:
+    """While active, every ordered scan on the card hands the kernel a
+    counts tensor (the long path's chunks taken exact and refolded, summed
+    over the launches) and is tallied by its rows, length, type and
+    path."""
+
+    def __init__(self, tss):
+        self.tss, self.shapes = tss, {}
+
+    def __enter__(self):
+        import torch
+        self.kernel = self.tss.ordered_scan_kernel
+        self.counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+
+        def count(x, reverse=False, counts=None):
+            L = x.shape[-1] if x.ndim else 1
+            key = (x.numel() // max(L, 1), L,
+                   str(x.dtype).replace("torch.", ""), self.tss.scan_path(x))
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            return self.kernel(x, reverse, counts=self.counts)
+
+        self.tss.ordered_scan_kernel = count
+        return self
+
+    def __exit__(self, *exc):
+        self.tss.ordered_scan_kernel = self.kernel
+
+    def summary(self) -> dict:
+        exact, refolded = self.counts.tolist()
+        return dict(
+            launches=sum(self.shapes.values()),
+            long_launches=sum(n for k, n in self.shapes.items()
+                              if k[3] == "long"),
+            chunks_exact=exact, chunks_refolded=refolded,
+            exact_share=exact / max(exact + refolded, 1),
+            shapes=[list(k) + [n] for k, n in sorted(self.shapes.items())])
+
+
+def log_census(tag, c) -> None:
+    log(f"  {tag}: {c['launches']} scan launches, {c['long_launches']} on "
+        f"the long path; its chunks exact {c['chunks_exact']}, refolded "
+        f"{c['chunks_refolded']} (exact share {c['exact_share']:.4f}); "
+        f"(rows, length, type, path, launches): {c['shapes']}")
+
+
+def denoise_scans(path, card, tss) -> dict:
+    """The denoiser (tools/denoiser.py::nfor_denoise) on the card on the
+    smoke scene's two-buffer outputs (RES, SPP), under ScanCensus: its
+    box filters' scans, the frame's rows plus the filter's pad.  The
+    result finite, non-negative, the frame's shape."""
+    import numpy as np
+    from tungsten_tpu_torch.render import render_denoise_buffers
+    from tungsten_tpu_torch.scene.flatten import flatten_scene
+    from tungsten_tpu_torch.scene.parse import load_scene
+    from tungsten_tpu_torch.tools.denoiser import nfor_denoise
+    scene, settings = flatten_scene(load_scene(path))
+    d = render_denoise_buffers(scene, settings, spp=SPP, seed=SEED)
+    t0 = time.time()
+    with ScanCensus(tss) as c:
+        img = nfor_denoise(d["color_a"], d["color_b"], d["color_var"],
+                           d["feat_a"], d["feat_b"], d["feat_var"],
+                           device="cuda")
+    r = c.summary()
+    r["s"] = time.time() - t0
+    if not (img.shape == (RES, RES, 3) and np.isfinite(img).all() and
+            img.min() >= 0 and img.mean() > 0):
+        raise AssertionError("denoiser: output not finite, of the wrong "
+                             "shape or black")
+    log(f"  nfor_denoise at {RES}x{RES} on {card}: {r['s']:.2f} s, mean "
+        f"{img.mean():.6f}")
+    log_census("its scans", r)
+    return r
+
+
+def s1_gather_timing(tss, launch, real) -> dict:
+    """S1 on the largest grouped launch of phase 17's fog points render
+    as captured (`real`: its ids, values and output), and at that
+    launch's shape (rows, columns, outputs) on seeded uniform sorted ids:
+    each against the plain version (bitwise) and timed."""
     import numpy as np
     import torch
     _, P, C, N, _, _ = launch
     g = np.random.default_rng((SEED >> 8) & 0xFFFF)
     ids = torch.from_numpy(np.sort(g.integers(0, N, P)))
     v = torch.from_numpy(g.standard_normal((P, C)).astype(np.float32))
-    return s1_case(tss, "a photon gather's shape", ids, v,
-                   torch.zeros((N, C)), grouped=True, timed=True)
+    r = s1_case(tss, "a photon gather's shape, uniform ids", ids, v,
+                torch.zeros((N, C)), grouped=True)
+    r["real"] = s1_case(tss, "the largest fog-points gather, captured",
+                        real["seg"], real["v"], real["out"], grouped=True)
+    return r
 
 
 def ordered_cost(render_once) -> dict:
@@ -3993,6 +4217,12 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "tungsten_tpu_torch")):
         return fail("tungsten_tpu_torch/ is not beside this script")
     sys.path.insert(0, ROOT)
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on "
+                                 "one GPU")
+    ap.add_argument("--phase", choices=["2c"],
+                    help="run only the card line, S1's build and phase 2c")
+    only = ap.parse_args().phase
     import numpy as np
     from tungsten_tpu_torch import native
     from tungsten_tpu_torch.io import image
@@ -4028,6 +4258,15 @@ def main() -> int:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+
+    if only == "2c":
+        t0 = time.time()
+        name = tss.load_kernel()._name
+        log(f"build: {time.time() - t0:.2f} s (ordered sums {name})")
+        log("ordered sums (S1) vs plain:")
+        check_segment_sum(tss)
+        mark("ordered sums")
+        return 0
 
     # 2. build (the four nvcc and the g++ compiles at once)
     t0 = time.time()
@@ -4499,8 +4738,16 @@ def main() -> int:
         # 18. the MLT family on tapes, through render, the CLI and the
         # server (K1 and K2)
         log("mlt:")
-        ml = check_mlt(path, card, twt)
+        with ScanCensus(tss) as census:
+            ml = check_mlt(path, card, twt)
+        scan_census = {"mlt": census.summary()}
+        log_census("(g) the MLT phase's scans", scan_census["mlt"])
         mark("mlt")
+
+        # 18b. the denoiser on the card: the scans it takes
+        log("denoiser:")
+        scan_census["denoiser"] = denoise_scans(path, card, tss)
+        mark("denoiser")
 
         # 19. the smoke scene from exporter-style OBJ meshes (K1 and K2)
         log("OBJ meshes:")
@@ -4519,13 +4766,14 @@ def main() -> int:
         del scene
         mark("wide frame")
 
-        # S1 at a photon gather's shape: the largest grouped launch of
-        # phase 17
-        log("S1 at a photon gather's shape:")
+        # S1 on the largest grouped launch of phase 17, as captured, and
+        # at its shape on uniform ids
+        log("S1 on a photon gather:")
         gathers = [x for x in ph["fog_points"]["s1_log"]
                    if x[0] == "segment_sum"]
         s1_gather = s1_gather_timing(tss, max(gathers,
-                                              key=lambda x: x[1] * x[2]))
+                                              key=lambda x: x[1] * x[2]),
+                                     ph["fog_points"].pop("s1_real"))
         s1_gather["fog_points_launches"] = len(gathers)
         mark("S1 gather shape")
 
@@ -4663,20 +4911,35 @@ def main() -> int:
                     "into the frame, e.g. tungsten_tpu/integrators/"
                     "path_tracer.py:1654 (bank_emission's .at[pix].add)",
         "launches": s1_launches["segment_sum"],
-        "launches_scan": s1_launches["ordered_scan"],
         "max_abs_err": max(x["max_abs_err"] for x in s1.values()
                            if isinstance(x, dict)),
         "ms": s1["bank"]["ms"], "plain_ms": s1["bank"]["plain_ms"],
         "bound_ms": s1["bank"]["bound_ms"], "bound_by": "bytes",
         "library_ms": s1["bank"]["library_ms"], "tolerance": S1_TOL,
-        "bank": s1["bank"], "tiles": s1["tiles"],
-        "photon_gather": s1_gather, "scans": s1["scans"],
+        "cases": {k: x for k, x in s1.items() if k != "scans"},
+        "photon_gather": s1_gather,
         "render_ms": psum.get("s1_ms"),
         "render_profiled_launches": psum.get("s1_launches"),
-        "render_scan_ms": psum.get("scan_ms"), "render_cost": cost,
+        "render_cost": cost,
         "wide_launches": wide["s1"]["segment_sum"],
         "repeat_launches": {k: v["segment_sum"]
                             for k, v in repeats.items()}})
+    # the scan's row: choose_light's shape (the main path's) in f32
+    lead = s1["scans"][0]
+    rows.append({
+        "name": "ordered_scan", "route": "cuda",
+        "source": "tungsten_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "no Pallas kernel: the JAX package's XLA cumsums, e.g. "
+                    "tungsten_tpu/integrators/lights.py:203 (choose_light's "
+                    "jnp.cumsum)",
+        "launches": s1_launches["ordered_scan"],
+        "max_abs_err": 0.0,
+        "ms": lead["ms"], "plain_ms": lead["plain_ms"],
+        "bound_ms": lead["bound_ms"], "bound_by": "bytes",
+        "library_ms": lead["library_ms"], "tolerance": SCAN_TOL,
+        "shapes": s1["scans"], "render_ms": psum.get("scan_ms"),
+        "wide_launches": wide["s1"]["ordered_scan"],
+        "real_scans": scan_census})
     log(f"render_s {stats['time']:.3f} mrays_per_s "
         f"{stats['mrays_per_s']:.3f} large_render_s {zstats['time']:.3f} "
         f"large_mrays_per_s {zstats['mrays_per_s']:.3f} media_render_s "

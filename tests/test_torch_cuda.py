@@ -2077,26 +2077,146 @@ def test_cuda_segment_sum_matches_plain(cuda_device, dtype):
         base.clone(), ids, v, block=64))
 
 
+def _s1_tile(C, item):
+    """csrc/segment_sum.cu's tile for C columns of `item` bytes, v 16-byte
+    aligned: copies of 16, 8 or 4 bytes dividing a row, blocks of at most
+    32 columns rounded up to a copy, and the most rows, 256-4,096, whose
+    values (twice, for the chunks' two halves) fit 12 KB."""
+    w = 16 // item
+    while w > 1 and C % w:
+        w //= 2
+    nb = -(-C // 32)
+    cw = -(-(-(-C // nb)) // w) * w
+    tile = 256
+    while tile < 4096 and tile * 2 * cw * item <= 12 * 1024:
+        tile *= 2
+    return tile
+
+
+def _s1_edge_ids(g, tile, N):
+    """Sorted ids that meet every edge of S1's tile walk: ids below 0,
+    short segments, a segment across one tile edge, one across many
+    tiles (tiles without a head, tiles that open mid-segment), ids past
+    N, and a row count that is not a multiple of the tile."""
+    return np.concatenate([
+        np.full(3, -2),
+        np.repeat(np.arange(0, 10), g.integers(1, 20, 10)),
+        np.full(tile - 7, 10),
+        np.repeat(np.arange(11, 20), 5),
+        np.full(5 * tile + 13, 20),
+        np.repeat(np.arange(21, 40), g.integers(1, 9, 19)),
+        np.full(tile // 2 + 1, 40),
+        np.full(7, N + 3)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dim", [((70000,), 0), ((4096, 5), -1),
-                                       ((300, 96), 1), ((40, 30, 7), 0)])
-def test_cuda_ordered_cumsum_is_the_cpu_cumsum(cuda_device, shape, dim):
+@pytest.mark.parametrize("C", [1, 3, 7, 8, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_segment_sum_tile_edges(cuda_device, dtype, C):
+    """S1's tile walk at its edges (a segment owned across 1, 2 and many
+    tiles, tiles that open mid-segment, ids outside [0, N), P not a
+    multiple of the tile), the ids built from the launcher's own tile for
+    1, 3, 7 (the lane banks), 8 and 33 (the widest index_sums stack, two
+    column blocks) columns of f32 and f64 (tiles of 256-2,048 rows),
+    grouped and through the stable sort's perm: bitwise its plain
+    version."""
+    from tungsten_tpu_torch.ops import segment_sum as tss
+    g = np.random.default_rng(33)
+    N = 60
+    item = torch.tensor([], dtype=dtype).element_size()
+    tile = _s1_tile(C, item)
+    seg = torch.from_numpy(_s1_edge_ids(g, tile, N))
+    P = seg.shape[0]
+    assert P % tile != 0
+    keep = (seg >= 0) & (seg < N)   # the plain version takes ids in range
+    sh = torch.from_numpy(g.permutation(P))
+    v = torch.from_numpy(g.standard_normal((P, C)) *
+                         10.0 ** g.integers(-3, 3, (P, 1))).to(dtype)
+    base = torch.from_numpy(g.standard_normal((N, C))).to(dtype)
+    got = tss.segment_sum_kernel(base.to(cuda_device), seg.to(cuda_device),
+                                 v.to(cuda_device))
+    assert torch.equal(got.cpu(), tss.segment_sum_plain(
+        base.clone(), seg[keep], v[keep]))
+    sseg, perm = tss.sort_rows(seg[sh])
+    got = tss.segment_sum_kernel(base.to(cuda_device),
+                                 sseg.to(cuda_device),
+                                 v[sh].to(cuda_device),
+                                 perm.to(cuda_device))
+    k = keep[sh][perm]
+    assert torch.equal(got.cpu(), tss.segment_sum_plain(
+        base.clone(), sseg[k], v[sh], perm[k]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dim,path", [
+    ((70000,), 0, "long"), ((4096, 5), -1, "rows"), ((300, 96), 1, "rows"),
+    ((40, 30, 7), 0, "rows"), ((2048, 300), 1, "rows"),
+    ((8, 700), -1, "long"), ((1024, 12300), 1, "long")])
+def test_cuda_ordered_cumsum_is_the_cpu_cumsum(cuda_device, shape, dim,
+                                               path):
     """S1's scan entry bitwise torch.cumsum on the CPU (float rows summed
-    in double on both), f32 and f64, and its backward the CPU's."""
+    in double on both), f32 and f64, on the path the launcher takes (the
+    rows path for rows up to 256, and for 1,024 rows or more that fit its
+    staging; else the long path), left to right and right to left (the
+    `reverse` flag), and its backward (one reversed launch) the CPU's."""
     from tungsten_tpu_torch.ops import segment_sum as tss
     g = np.random.default_rng(32)
     for dtype in (torch.float32, torch.float64):
         x = torch.from_numpy(g.standard_normal(shape) * 1e3).to(dtype)
+        xl = x.movedim(dim, -1).contiguous()
+        assert tss.scan_path(xl) == path
         before = tss.LAUNCHES["ordered_scan"]
         got = tss.ordered_cumsum(x.to(cuda_device), dim)
         assert tss.LAUNCHES["ordered_scan"] == before + 1
         assert torch.equal(got.cpu(), torch.cumsum(x, dim))
+        for rev in (False, True):
+            got = tss.ordered_scan_kernel(xl.to(cuda_device), reverse=rev)
+            want = (torch.cumsum(xl.flip(-1), -1).flip(-1) if rev
+                    else torch.cumsum(xl, -1))
+            assert torch.equal(got.cpu(), want), rev
         w = torch.from_numpy(g.standard_normal(shape)).to(dtype)
         xh = x.clone().requires_grad_()
         xc = x.clone().to(cuda_device).requires_grad_()
         (torch.cumsum(xh, dim) * w).sum().backward()
+        before = tss.LAUNCHES["ordered_scan"]
         (tss.ordered_cumsum(xc, dim) * w.to(cuda_device)).sum().backward()
+        assert tss.LAUNCHES["ordered_scan"] == before + 2
         assert torch.equal(xc.grad.cpu(), xh.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_scan_long_path_exact_and_refold(cuda_device, dtype):
+    """The long scan path on the MLT pool's (10000,) shape: narrow-span
+    inputs (integers / 64) and runs of -0.0 take the exact parallel
+    scan in every chunk, wide-span ones (10**U(-12, 12)) the refold, as
+    do an inf or a NaN; every case bitwise torch.cumsum on the CPU,
+    signed zeros included."""
+    from tungsten_tpu_torch.ops import segment_sum as tss
+    g = np.random.default_rng(34)
+    n = 10000
+    item = torch.tensor([], dtype=dtype).element_size()
+    # the launcher's chunk: the row rounded up to 512 threads, at most
+    # 64 KB; the inf or NaN at 6000 lies in the first chunk
+    chunks = -(-n // min(-(-n // 512) * 512, 65536 // item))
+    negzero = np.full(n, -0.0)
+    negzero[9000:] = np.where(np.arange(1000) % 2, 0.125, -0.125)
+    inf = np.ones(n)
+    inf[6000] = np.inf
+    nan = np.ones(n)
+    nan[6000] = np.nan
+    cases = {"narrow": (g.integers(-1000, 1000, n) / 64, [chunks, 0]),
+             "wide": (g.standard_normal(n) * 10.0 ** g.uniform(-12, 12, n),
+                      [0, chunks]),
+             "negzero": (negzero, [chunks, 0]), "inf": (inf, [0, chunks]),
+             "nan": (nan, [0, chunks])}
+    for name, (x, want_counts) in cases.items():
+        x = torch.from_numpy(x).to(dtype)
+        counts = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+        got = tss.ordered_scan_kernel(x.to(cuda_device), counts=counts)
+        assert got.cpu().numpy().tobytes() == \
+            torch.cumsum(x, 0).numpy().tobytes(), name
+        assert counts.tolist() == want_counts, name
 
 
 @pytest.mark.cuda

@@ -26,7 +26,10 @@ every such sum adds in one fixed order:
     of thousands of rows one after another.
   * `ordered_cumsum(x, dim)` is `torch.cumsum(x, dim)`: on CPU tensors
     `torch.cumsum` itself, which accumulates float rows in double; on
-    CUDA tensors S1's scan entry, one thread a row, in double too.
+    CUDA tensors S1's scan entry, each row left to right in double too
+    (short rows a thread each; a long row across a CTA, exact or
+    refolded in order, csrc/segment_sum.cu), and its derivative the
+    same scan right to left.
   * `index_sums(idx, values, n)` sums several (P, ...) tensors by the
     same ids with one sort and one launch (their columns side by side).
 
@@ -61,8 +64,10 @@ def load_kernel() -> ctypes.CDLL:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.segment_sum_launch.argtypes = [vp] * 4 + [cl, ci, cl, ci, vp]
     lib.segment_sum_launch.restype = ci
-    lib.ordered_scan_launch.argtypes = [vp, vp, cl, cl, ci, vp]
+    lib.ordered_scan_launch.argtypes = [vp, vp, cl, cl, ci, ci, vp, vp]
     lib.ordered_scan_launch.restype = ci
+    lib.ordered_scan_long.argtypes = [cl, cl, ci]
+    lib.ordered_scan_long.restype = ci
     return lib
 
 
@@ -143,7 +148,14 @@ def _blocks(seg, block: int):
     r = torch.arange(P, device=seg.device)
     head = torch.ones((P,), dtype=torch.bool, device=seg.device)
     head[1:] = seg[1:] != seg[:-1]
-    start = torch.cummax(torch.where(head, r, 0), 0).values
+    # each row's segment and that segment's first row: the heads store
+    # their rows by segment, one writer a slot, the other rows into 1,024
+    # spare slots never read (torch.cummax took 2.6 ms a million rows on
+    # an H100, a scatter_reduce of the maxima 0.83 ms)
+    num = torch.cumsum(head.to(torch.int64), 0) - 1
+    first = torch.empty((P + 1024,), dtype=torch.int64, device=seg.device)
+    first.scatter_(0, torch.where(head, num, P + (r & 1023)), r)
+    start = first[num]
     run_head = head | ((r - start) % block == 0)
     return torch.cumsum(run_head.to(torch.int64), 0) - 1, seg[run_head]
 
@@ -194,21 +206,36 @@ def index_sums(idx, values: dict, n: int, dtype=torch.float32, key=None,
     return res
 
 
-def ordered_scan_kernel(x):
+def scan_path(x) -> str:
+    """The path S1's scan launcher takes for the rows (last axis) of
+    float tensor x, "rows" or "long", as the kernel's library says (it
+    builds it)."""
+    L = x.shape[-1] if x.ndim else 1
+    return "long" if load_kernel().ordered_scan_long(
+        x.numel() // max(L, 1), L, int(x.dtype == torch.float64)) else "rows"
+
+
+def ordered_scan_kernel(x, reverse=False, counts=None):
     """Launch S1's scan entry: the inclusive sum along the last axis of
-    CUDA f32 / f64 x, each row left to right in double.  Returns a new
-    tensor."""
+    CUDA f32 / f64 x, each row left to right (right to left with
+    `reverse`) in double, on the path scan_path names; `counts`, a CUDA
+    int64 tensor of 2, gets the long path's chunks taken exact and
+    refolded added.  Returns a new tensor."""
     _cuda(x, "x")
     if x.dtype not in _FLOATS:
         raise ValueError(f"x {x.dtype}: the scan takes float32 or float64")
     x = x.contiguous()
     y = torch.empty_like(x)
     L = x.shape[-1] if x.ndim else 1
+    if counts is not None and not (
+            _cuda(counts, "counts").dtype == torch.int64 and
+            counts.shape == (2,) and counts.is_contiguous()):
+        raise ValueError("counts: a contiguous int64 tensor of 2")
     rows = x.numel() // max(L, 1)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = load_kernel().ordered_scan_launch(
         x.data_ptr(), y.data_ptr(), rows, L, int(x.dtype == torch.float64),
-        stream)
+        int(reverse), None if counts is None else counts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ordered_scan kernel launch failed: CUDA error "
                            f"{err}")
@@ -217,8 +244,9 @@ def ordered_scan_kernel(x):
 
 
 class _OrderedScan(torch.autograd.Function):
-    """The ordered scan with its backward, the reversed ordered scan of
-    the cotangent (cumsum's own derivative)."""
+    """The ordered scan with its backward, the ordered scan of the
+    cotangent right to left (cumsum's own derivative, which the CPU
+    computes as flip, cumsum, flip), one launch."""
 
     @staticmethod
     def forward(ctx, x):
@@ -226,7 +254,7 @@ class _OrderedScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ordered_scan_kernel(g.flip(-1)).flip(-1)
+        return ordered_scan_kernel(g, reverse=True)
 
 
 def ordered_cumsum(x, dim: int):
